@@ -27,8 +27,42 @@ printing one JSON line; any failure raises and exits non-zero:
                 are evicted inside one flush round and the engine's
                 copy-on-write of the secret stacks runs; every result must
                 match per-request delivery.
-  5. the ``kernels`` line, the card's name and power limit, and the final
-     ``{"ok": true, ...}`` line.
+  5. kernels_k3 the decode-logits kernel (``grouped_row_gemm``, K3) against
+                its plain version at the LM path's shape: h (4, 4096) in
+                bf16 and fp32 against tables (6, 4096, 102400) fp32, every
+                slot-index pattern incl. the out-of-range clamp and
+                duplicates, plus ragged (R=3, K=3000, N=1000 and N=999).
+                Bound: fp32 max|kernel - plain| <= 1e-4 * max|plain|; bf16
+                two bf16 units in the last place of max|plain| (each side
+                rounds once).  Times kernel, plain version and one library
+                call (torch.bmm of h[:, None, :] against the pre-gathered
+                tables cast to bf16 beforehand, a yardstick the port never
+                calls), and for scale the same bmm in fp32.
+  6. lm_path    ``serve --mode lm`` at deepseek_7b FULL width (30 layers,
+                d_model 4096, vocab 102400, bf16) with random weights from
+                a seeded generator on the card: 4 tenants at capacity 4,
+                8 requests of 32 prompt tokens, 16 generated tokens each, so
+                rows retire and new ones are admitted mid-run.  Gated:
+                (1) the token lane's morphed prompts equal numpy's
+                perm[tokens] exactly; (2) K3 launched once per batched
+                decode step; (3) at every decode step, on the lane's own
+                final hidden states and stacked heads, K3's logits agree
+                with the plain head (``ref.lm_head_rows_grouped_ref``, no
+                K3) within two bf16 ulps of their max, and each sampled
+                token is K3's argmax and lies within the tie margin (four
+                bf16 ulps of the row's max|logit|) of the plain-head
+                maximum; (4) each served row's logits, permuted back with
+                its tenant's inverse permutation, equal ``h @ head`` on the
+                unfused bf16 head within two bf16 ulps; (5) the same
+                serving path on a twin cut to 2 of the 30 layers (full
+                width) is held against an independent teacher-forced plain
+                ``forward`` on the raw weights with the tie margin (at 30
+                random layers bf16 rounding is amplified past that
+                margin).  Printed, not gated: tokens/s, decode-step p50,
+                where a decode step's time goes (trunk, K3, sampling), the
+                admission prefill's time and a profiled step's idle share.
+  7. the ``kernels`` line (K1, K2, K3), the card's name and power limit,
+     and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -60,6 +94,17 @@ MAIN_GEOM = dict(alpha=3, beta=64, m=32, p=3)       # kappa = 1
 CHURN_GEOM = dict(alpha=3, beta=16, m=16, p=3)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# K3 and the LM path: deepseek_7b FULL, 4 decode rows.
+K3_R, K3_K, K3_N = 4, 4096, 102400
+K3_RAGGED = [(3, 3000, 1000), (3, 3000, 999)]
+LM_ARCH, LM_TENANTS, LM_REQUESTS, LM_PROMPT, LM_GEN = "deepseek_7b", 4, 8, 32, 16
+TIE_MARGIN_ULPS = 4             # bf16 units in the last place of max|logit|
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place at magnitude ``x`` (8 significant
+    bits: 2**(floor(log2 x) - 7))."""
+    return float(2.0 ** (np.floor(np.log2(x)) - 7))
 
 
 class SmokeFailure(RuntimeError):
@@ -199,6 +244,409 @@ def kernel_checks(dev, kernels, ref) -> dict:
           "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
           "rows": rows})
     return rows
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+def k3_checks(dev, kernels, ref) -> dict:
+    """K3 vs its plain version at the LM path's shape and ragged shapes, in
+    bf16 and fp32; returns its error and timing row (bf16, the main path's
+    activation type)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    checks = []
+    row = {"max_abs_err": 0.0}
+
+    def run_cases(tag, R, K, N, dtypes):
+        tables = torch.randn((N_SLOTS, K, N), generator=gen, device=dev)
+        tables *= K ** -0.5
+        for dtype in dtypes:
+            h = torch.randn((R, K), generator=gen, device=dev).to(dtype)
+            for case, idx in GIDX_CASES.items():
+                gidx = torch.tensor(idx[:R], dtype=torch.int32, device=dev)
+                got = kernels.grouped_row_gemm(h, gidx, tables)
+                want = ref.lm_head_rows_grouped_ref(h, gidx, tables)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                lim = (REL_TOL * scale if dtype == torch.float32
+                       else 2 * bf16_ulp(scale))
+                name = str(dtype).split(".")[-1]
+                checks.append({"case": f"{tag}/{name}/{case}",
+                               "max_abs_err": err, "limit": lim})
+                check(got.shape == (R, N) and got.dtype == dtype,
+                      f"K3 {tag}/{case}: got {tuple(got.shape)} {got.dtype}")
+                check(bool(torch.isfinite(got).all()), f"K3 {tag}/{case}: non-finite")
+                check(err <= lim, f"K3 {tag}/{name}/{case}: |kernel - plain| {err} > {lim}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+        return tables
+
+    tables = run_cases(f"R{K3_R}_K{K3_K}_N{K3_N}", K3_R, K3_K, K3_N,
+                       (torch.bfloat16, torch.float32))
+    # Timed at the main path's shape: 4 rows on 4 distinct slots (a
+    # contiguous prefix of the stack, gidx = arange(4)), bf16 activations.
+    ident = torch.arange(K3_R, dtype=torch.int32, device=dev)
+    main = tables[:K3_R]
+    h = torch.randn((K3_R, K3_K), generator=gen, device=dev).to(torch.bfloat16)
+    # The library call: torch.bmm of h[:, None, :] against the tables cast
+    # to bf16 beforehand (the same function; it reads half K3's bytes).
+    # For scale, the same bmm in fp32 against the fp32 tables (K3's bytes).
+    cast = main.to(torch.bfloat16)
+    h32 = h.float()
+    times = [
+        cuda_ms(lambda: kernels.grouped_row_gemm(h, ident, main), 10),
+        cuda_ms(lambda: ref.lm_head_rows_grouped_ref(h, ident, main), 10),
+        cuda_ms(lambda: kernels.grouped_row_gemm(h, ident, main), 10),
+        cuda_ms(lambda: ref.lm_head_rows_grouped_ref(h, ident, main), 10),
+        cuda_ms(lambda: torch.bmm(h[:, None, :], cast), 10),
+        cuda_ms(lambda: torch.bmm(h32[:, None, :], main), 10),
+    ]
+    fp32_ms = cuda_ms(lambda: kernels.grouped_row_gemm(h32, ident, main), 10)
+    # Bytes this call needs: each of the 4 distinct slots' tables once, h
+    # and the output once; fp32 FFMA for the products.
+    b, by = bound_ms(4 * K3_R * K3_K * K3_N + 2 * K3_R * (K3_K + K3_N) + 4 * K3_R,
+                     2 * K3_R * K3_K * K3_N)
+    row.update(ms=(times[0] + times[2]) / 2, plain_ms=(times[1] + times[3]) / 2,
+               library_ms=times[4], bound_ms=b, bound_by=by,
+               timed_shape=f"h({K3_R},{K3_K}) bf16, tables({K3_R},{K3_K},{K3_N}) "
+                           f"fp32, gidx=arange({K3_R})",
+               library_reads="bf16 tables, cast beforehand",
+               library_fp32_ms=times[5], runs_ms=times, fp32_h_ms=fp32_ms)
+    del tables, main, cast
+    torch.cuda.empty_cache()
+    for R, K, N in K3_RAGGED:
+        run_cases(f"ragged_R{R}_K{K}_N{N}", R, K, N,
+                  (torch.bfloat16, torch.float32))
+    emit({"phase": "kernels_k3", "checks": len(checks),
+          "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
+          "row": row})
+    return row
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+class HeadTap:
+    """Records what the decode lane hands K3 at every batched decode step.
+
+    While installed, ``repro_torch.launch.steps.lm_head_rows_grouped`` (the
+    name the lane's step calls) is wrapped: the lane's own final-normed
+    hidden states ``h``, its slot indices, the stacked Aug-heads and K3's
+    logits are kept, beside the rows that step serves (their ``DecodeRow``
+    objects, whose ``generated`` list the step appends to).  The wrapper
+    calls the same entry point once, so each step still launches K3 once.
+    """
+
+    def __init__(self, lane):
+        from repro_torch.launch import steps
+
+        self.lane, self.steps, self.records = lane, steps, []
+        self._real = steps.lm_head_rows_grouped
+
+    def _head(self, h, gidx, heads):
+        logits = self._real(h, gidx, heads)
+        self.records.append({
+            "h": h.clone(), "gidx": torch.as_tensor(gidx).clone(),
+            "heads": heads, "logits": logits.clone(),
+            "rows": [(i, r, len(r.generated))
+                     for i, r in enumerate(self.lane._row)
+                     if r is not None and r.remaining > 0],
+        })
+        return logits
+
+    def __enter__(self):
+        self.steps.lm_head_rows_grouped = self._head
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.lm_head_rows_grouped = self._real
+
+
+def run_lane(lane, served, tenant_of) -> dict:
+    """Drive ``lane`` over the morphed prompts; count its batched decode
+    steps (a step that returns > 0 ran one) and time the pure decode steps
+    (no admission) on the host clock (each step reads its tokens back)."""
+    sids = [lane.submit(tenant_of[r], served[r], LM_GEN, premorphed=True)
+            for r in range(len(served))]
+    steps, pure_ms = 0, []
+    t0 = time.monotonic()
+    while len(lane.queue) or lane.active:
+        queued = len(lane.queue)
+        ts = time.monotonic()
+        ran = lane.step() > 0
+        dt = (time.monotonic() - ts) * 1e3
+        steps += ran
+        if ran and len(lane.queue) == queued:
+            pure_ms.append(dt)
+    lane.run()
+    lane_s = time.monotonic() - t0
+    return {"final": np.stack([lane.take(s) for s in sids]),
+            "steps": steps, "pure_ms": pure_ms, "lane_s": lane_s}
+
+
+def gaps_in_ulps(pos_logits: torch.Tensor, tokens: np.ndarray):
+    """(max - logit[token]) in bf16 units in the last place of |max|, and
+    whether the token is the first-index argmax, at every position."""
+    top = pos_logits.max(dim=-1).values
+    idx = torch.from_numpy(tokens).long().to(pos_logits.device)[..., None]
+    picked = torch.gather(pos_logits, -1, idx)[..., 0]
+    ulp = np.vectorize(bf16_ulp)(np.abs(top.float().cpu().numpy()))
+    gap = (top - picked).float().cpu().numpy() / ulp
+    exact = pos_logits.argmax(dim=-1).cpu().numpy() == tokens
+    return gap, exact
+
+
+def lane_head_checks(records, registry, head_raw) -> dict:
+    """Checks 3 and 4 on the lane's own hidden states, step by step.
+
+    3. K3 against the plain head: ``ref.lm_head_rows_grouped_ref`` (a
+       per-row ``torch.matmul`` against the slot's head cast to h's dtype;
+       no K3) on the same ``h``, slot indices and stacked heads, within two
+       bf16 ulps of max|plain|; and every token the step sampled is K3's
+       argmax and lies within ``TIE_MARGIN_ULPS`` bf16 ulps of the row's
+       max|plain| below the plain-head maximum.
+    4. Unmorph against the raw weights: each served row's morphed-order
+       logits, permuted back with its tenant's permutation
+       (``plain[v] = morphed[perm[v]]``), against ``h @ head`` on the
+       unfused bf16 head (``torch.matmul``), within two bf16 ulps of
+       max|h @ head|.  This holds the fused Aug-head stack, the permutation
+       conjugation and K3 without K3's own plain version.
+    """
+    from repro_torch.kernels import ref
+
+    worst3 = worst4 = worst_gap = 0.0
+    n_rows = exact = 0
+    for step, rec in enumerate(records):
+        h, got = rec["h"], rec["logits"]
+        plain = ref.lm_head_rows_grouped_ref(h, rec["gidx"], rec["heads"])
+        check(got.shape == plain.shape and got.dtype == plain.dtype,
+              f"step {step}: K3 logits {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"step {step}: non-finite logits")
+        err = float((got.float() - plain.float()).abs().max())
+        lim = 2 * bf16_ulp(float(plain.float().abs().max()))
+        check(err <= lim, f"check 3, step {step}: |K3 - plain head| {err} > {lim}")
+        worst3 = max(worst3, err / lim)
+        raw = torch.matmul(h, head_raw)
+        for i, row, n in rec["rows"]:
+            tok = row.generated[n]
+            check(tok == int(torch.argmax(got[i].float())),
+                  f"step {step} row {i}: sampled {tok}, not K3's argmax")
+            p = plain[i].float()
+            gap = float(p.max() - p[tok]) / bf16_ulp(float(p.abs().max()))
+            check(gap <= TIE_MARGIN_ULPS,
+                  f"check 3, step {step} row {i}: sampled token {gap:.2f} bf16 "
+                  f"ulps below the plain-head max (margin {TIE_MARGIN_ULPS})")
+            worst_gap = max(worst_gap, gap)
+            exact += int(tok == int(torch.argmax(p)))
+            n_rows += 1
+            perm = torch.from_numpy(
+                registry.session(row.tenant_id).morpher.perm
+            ).to(got.device)
+            want = raw[i].float()
+            err = float((got[i].float()[perm] - want).abs().max())
+            lim = 2 * bf16_ulp(float(want.abs().max()))
+            check(err <= lim, f"check 4, step {step} row {i}: |unmorphed K3 - "
+                              f"h @ head| {err} > {lim}")
+            worst4 = max(worst4, err / lim)
+    check(n_rows > 0, "no decode step was recorded")
+    return {"steps": len(records), "rows_checked": n_rows,
+            "k3_vs_plain_head_worst_share_of_limit": worst3,
+            "sampled_worst_gap_ulps": worst_gap,
+            "sampled_is_plain_argmax_share": exact / n_rows,
+            "unmorph_vs_raw_head_worst_share_of_limit": worst4}
+
+
+def forward_gaps(S, params, cfg, prompts, final, dev):
+    """Teacher-forced plain ``forward`` on the raw weights: each request's
+    unmorphed prompt + generation as one sequence; the logits at the
+    positions that predicted the generated tokens."""
+    seqs = torch.from_numpy(np.concatenate([prompts, final], axis=1)).to(dev)
+    logits, _ = S.forward(params, cfg, seqs)
+    check(bool(torch.isfinite(logits).all()), "plain logits non-finite")
+    return gaps_in_ulps(logits[:, LM_PROMPT - 1 : LM_PROMPT - 1 + LM_GEN], final)
+
+
+def decode_step_profile(fn, step_ms: float) -> dict:
+    """One call of ``fn`` under torch.profiler: device-busy time (the sum
+    of the kernels' device time; CPU-side ops are left out, as they carry
+    their kernels' time again), the number of kernel launches, the five
+    kernels with the most device time, and the idle share of an
+    unprofiled step of ``step_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
+    return {
+        "profiled_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if kern else "not measured",
+        "idle_share_of_step": 1 - busy_ms / step_ms if kern else "not measured",
+        "kernel_launches": sum(e.count for e in kern),
+        "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3]
+                           for e in top[:5]],
+    }
+
+
+def lm_path(dev, kernels) -> dict:
+    """``serve --mode lm`` at deepseek_7b FULL: the token lane, then the
+    continuous-batched decode lane; gated checks 1-5 and a time breakdown."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.lm import LMSessionRegistry
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import (
+        make_batched_decode_logits, make_row_prefill_step,
+    )
+    from repro_torch.models import Model, blocks as B, stack as S
+    from repro_torch.runtime import (
+        ContinuousDecodeLane, DeliveryRequest, MoLeDeliveryEngine,
+    )
+
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg, dev)
+    t0 = time.monotonic()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    embed = params["embed"].float().cpu().numpy()
+    head = params["head"].float().cpu().numpy()
+    registry = LMSessionRegistry(cfg.vocab, cfg.d_model, capacity=LM_TENANTS)
+    for i in range(LM_TENANTS):
+        registry.register(f"lm-{i}", embed, seed=i, head=head)
+    src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=LM_PROMPT,
+                                 global_batch=LM_REQUESTS, seed=SEED))
+    prompts = src.batch(0)["tokens"]
+    tenant_of = [f"lm-{r % LM_TENANTS}" for r in range(LM_REQUESTS)]
+    engine = MoLeDeliveryEngine(lm_registry=registry, device=dev,
+                                seq_buckets=(8, 16, LM_PROMPT, 64))
+    lane = ContinuousDecodeLane(
+        model, params, registry, rows=LM_TENANTS,
+        max_len=LM_PROMPT + LM_GEN + 1, device=dev,
+        scheduler=engine.scheduler,
+    )
+    lane._refresh_plan()            # stage the (S, V, d) / (S, d, V) stacks
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+
+    # -- the main path: provider-side token lane, then the decode lane -----
+    for name in ("grouped_block_diag_matmul", "grouped_aug_gemm",
+                 "grouped_row_gemm"):
+        setattr(getattr(kernels, name), "launches", 0)
+    t1 = time.monotonic()
+    rids = [engine.submit(DeliveryRequest(tenant_of[r], prompts[r : r + 1],
+                                          lane="tokens"))
+            for r in range(LM_REQUESTS)]
+    engine.flush()
+    served = np.concatenate([engine.take(r) for r in rids])
+    morph_s = time.monotonic() - t1
+    with torch.no_grad(), HeadTap(lane) as tap:
+        run = run_lane(lane, served, tenant_of)
+    launches = kernels.grouped_row_gemm.launches
+    # Check 1: the token lane's morphed prompts are numpy's perm[tokens].
+    want = np.stack([registry.session(tenant_of[r]).morpher.perm[prompts[r]]
+                     for r in range(LM_REQUESTS)])
+    check(served.shape == want.shape and np.array_equal(served, want),
+          "check 1: morphed prompts differ from perm[tokens]")
+    # Check 2: one K3 launch per batched decode step, and no other kernel.
+    check(launches == run["steps"] == len(tap.records),
+          f"check 2: K3 launched {launches} times for {run['steps']} decode "
+          f"steps ({len(tap.records)} recorded)")
+    check(kernels.grouped_block_diag_matmul.launches
+          == kernels.grouped_aug_gemm.launches == 0,
+          "the LM path launched a vision kernel")
+    final = run["final"]
+    check(final.shape == (LM_REQUESTS, LM_GEN), f"generations {final.shape}")
+    check(final.min() >= 0 and final.max() < cfg.vocab, "token ids out of range")
+    # Checks 3 and 4: K3 in the lane against the plain head and the raw
+    # weights, on the lane's own hidden states.
+    with torch.no_grad():
+        heads = lane_head_checks(tap.records, registry, params["head"])
+    del tap
+
+    # -- where a decode step's time goes (CUDA events, the lane's shapes) --
+    rows = LM_TENANTS
+    plan = lane._plan
+    sidx = torch.arange(rows, dtype=torch.int32, device=dev)
+    tpos = torch.full((rows,), LM_PROMPT + LM_GEN - 1, device=dev)
+    caches = model.init_cache(rows, LM_PROMPT + LM_GEN + 1)
+    h0 = torch.zeros((rows, 1, cfg.d_model), dtype=cfg.adtype, device=dev)
+    hN = torch.randn((rows, cfg.d_model), device=dev).to(cfg.adtype)
+    lg = torch.randn((rows, cfg.vocab), device=dev)
+    step_p50 = float(np.median(run["pure_ms"]))
+    with torch.no_grad():
+        trunk_ms = cuda_ms(lambda: S.apply_stack(
+            params, h0, cfg, B.RunState(mode="decode", t=tpos), caches), 5)
+        k3_ms = cuda_ms(lambda: kernels.lm_head_rows_grouped(
+            hN, sidx, plan.arrays["aug_heads"]), 10)
+        sample_ms = cuda_ms(lambda: torch.argmax(lg, dim=-1).cpu(), 10)
+        prefill = make_row_prefill_step(model)
+        one = {"blocks": [{k: c[k][:1] for k in c} for c in caches["blocks"]]}
+        ptoks = torch.from_numpy(served[:1]).to(dev)
+        prefill_ms = cuda_ms(lambda: prefill(
+            params, plan.arrays["aug_embeds"][0], plan.arrays["aug_heads"][0],
+            ptoks, one), 3)
+        logits_fn = make_batched_decode_logits(model)
+        prof = decode_step_profile(lambda: torch.argmax(logits_fn(
+            params, plan.arrays["aug_embeds"], plan.arrays["aug_heads"], sidx,
+            torch.zeros(rows, dtype=torch.int32, device=dev), tpos, caches,
+        )[0], dim=-1).cpu(), step_p50)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del lane, plan, caches, one
+    torch.cuda.empty_cache()
+
+    # Check 5: the same serving path on a depth-cut twin (2 of the 30
+    # layers, full width), held against an independent teacher-forced plain
+    # forward on the raw weights.  At 30 random layers bf16 rounding is
+    # amplified past the tie margin, so that comparison is made at 2.
+    cfg2 = dataclasses.replace(cfg, n_groups=2)
+    model2 = Model(cfg2, dev)
+    params2 = {"embed": params["embed"], "final_norm": params["final_norm"],
+               "head": params["head"], "blocks": list(params["blocks"])[:2]}
+    lane2 = ContinuousDecodeLane(model2, params2, registry, rows=LM_TENANTS,
+                                 max_len=LM_PROMPT + LM_GEN + 1, device=dev)
+    with torch.no_grad():
+        run2 = run_lane(lane2, served, tenant_of)
+        gap2, exact2 = forward_gaps(S, params2, cfg2, prompts, run2["final"],
+                                    dev)
+    check(bool((gap2 <= TIE_MARGIN_ULPS).all()),
+          f"check 5 (2 layers, plain forward): a generated token is "
+          f"{gap2.max():.2f} bf16 ulps below the plain max "
+          f"(margin {TIE_MARGIN_ULPS})")
+    del lane2
+    torch.cuda.empty_cache()
+
+    tokens = LM_REQUESTS * LM_GEN
+    out = {
+        "phase": "lm_path", "arch": LM_ARCH, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
+        "tenants": LM_TENANTS, "capacity": LM_TENANTS, "rows": rows,
+        "requests": LM_REQUESTS, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+        "decode_steps": run["steps"], "k3_launches": launches,
+        "tokens_per_s": tokens / run["lane_s"], "lane_s": run["lane_s"],
+        "token_lane_s": morph_s,
+        "decode_step_p50_ms": step_p50, "trunk_ms": trunk_ms, "k3_ms": k3_ms,
+        "sampling_ms": sample_ms, "admission_prefill_ms": prefill_ms,
+        "k3_share_of_decode_step": k3_ms / step_p50,
+        "tie_margin_ulps": TIE_MARGIN_ULPS,
+        "lane_head_checks": heads,
+        "decode_step_profile": prof,
+        "twin_2_layers": {"decode_steps": run2["steps"],
+                          "forward_worst_gap_ulps": float(gap2.max()),
+                          "forward_exact_argmax_share": float(exact2.mean())},
+        "weights_init_s": init_s, "host_secret_and_staging_s": setup_s,
+        "peak_mem_gb": peak_gb,
+        "first_generation": final[0][:12].tolist(),
+    }
+    emit(out)
+    return out
 
 
 # -- phases 3 and 4 -----------------------------------------------------------
@@ -375,20 +823,28 @@ def main() -> None:
     main = main_path(dev, core, runtime, kernels)
     torch.cuda.empty_cache()
     churn(dev, core, runtime)
+    torch.cuda.empty_cache()
+    rows["grouped_row_gemm"] = k3_checks(dev, kernels, ref)
+    torch.cuda.empty_cache()
+    lm = lm_path(dev, kernels)
+    launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"])
 
-    source = "src/repro_torch/kernels/csrc/grouped_gemm.cu"
-    replaces = {
-        "grouped_block_diag_matmul": "src/repro/kernels/grouped.py:80",
-        "grouped_aug_gemm": "src/repro/kernels/grouped.py:157",
+    csrc = "src/repro_torch/kernels/csrc/"
+    kernel_rows = {   # name -> (source, replaced TPU kernel)
+        "grouped_block_diag_matmul": ("grouped_gemm.cu",
+                                      "src/repro/kernels/grouped.py:80"),
+        "grouped_aug_gemm": ("grouped_gemm.cu",
+                             "src/repro/kernels/grouped.py:157"),
+        "grouped_row_gemm": ("row_gemm.cu", "src/repro/kernels/grouped.py:206"),
     }
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces[name], "launches": main["launches"][name],
+        {"name": name, "route": "cuda", "source": csrc + src,
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
          "bound_by": rows[name]["bound_by"],
          "library_ms": rows[name]["library_ms"]}
-        for name in replaces
+        for name, (src, replaces) in kernel_rows.items()
     ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

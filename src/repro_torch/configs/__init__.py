@@ -1,0 +1,33 @@
+"""Config registry of the port: the architectures it runs so far.
+
+``get_config(name)`` / ``get_smoke_config(name)``.  The reference's
+registry (``repro.configs``) names ten architectures; the port runs the
+dense global-attention ones as their slices land.  Every other name raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from ..models.base import ModelConfig
+
+ARCHS: tuple[str, ...] = ("deepseek_7b",)
+
+
+def _module(name: str):
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"arch {name!r} is unknown or not ported yet; the port runs {ARCHS}"
+        )
+    return importlib.import_module(f".{name}", __package__)
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).FULL
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke()
+
+
+__all__ = ["ARCHS", "get_config", "get_smoke_config"]

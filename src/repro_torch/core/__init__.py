@@ -7,8 +7,8 @@ Modules (ported from ``repro.core``):
   security   attack-probability calculators (paper §4.2, log-space)
   overhead   compute/transmission overhead models (paper §4.3, eqs. 16-17)
   protocol   provider/developer roles end-to-end (paper Fig. 1), vision half
-
-``core/lm.py`` (the LM adaptation) belongs to a later slice of the port.
+  lm         MoLe for LMs, discrete (token) mode: vocab-permutation morphing,
+             fused Aug-Embedding / Aug-head, the LM session registry
 """
 from .d2r import (
     ConvGeometry,
@@ -30,6 +30,13 @@ from .aug_conv import (
 )
 from .security import MoLeSecurity, analyze as analyze_security
 from .overhead import OverheadReport, analyze as analyze_overhead
+from .lm import (
+    LMSession,
+    LMSessionRegistry,
+    TokenMorpher,
+    fuse_aug_embedding,
+    fuse_aug_head,
+)
 from .protocol import (
     DataProvider,
     Developer,
@@ -48,4 +55,6 @@ __all__ = [
     "OverheadReport", "analyze_overhead",
     "DataProvider", "Developer", "MoLeSession", "SessionRegistry",
     "SlotRegistry",
+    "LMSession", "LMSessionRegistry", "TokenMorpher", "fuse_aug_embedding",
+    "fuse_aug_head",
 ]

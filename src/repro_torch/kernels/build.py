@@ -24,7 +24,10 @@ from pathlib import Path
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"grouped_gemm": _CSRC / "grouped_gemm.cu"}
+SOURCES = {
+    "grouped_gemm": _CSRC / "grouped_gemm.cu",
+    "row_gemm": _CSRC / "row_gemm.cu",
+}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -1,4 +1,4 @@
-"""Slot-indexed grouped GEMMs for the delivery engine, on Hopper.
+"""Slot-indexed grouped GEMMs for the delivery engine and decode, on Hopper.
 
 The engine's microbatch carries a ``(G,)`` vector of *slot indices* into the
 stacked per-tenant secrets (``cores (S, q, q)``, ``c_acs (S, K, N)``).  Both
@@ -10,7 +10,10 @@ gather copy), for any index vector and any shape:
     name (``repro/kernels/grouped.py``): ``x`` viewed as ``(G, B*kappa, q)``
     times the slot's core;
   * :func:`grouped_aug_gemm` replaces ``grouped_aug_gemm``: ``t[g]`` times
-    the slot's Aug-Conv matrix.
+    the slot's Aug-Conv matrix;
+  * :func:`grouped_row_gemm` replaces ``grouped_row_gemm``, the logits step
+    of batched decode: ``h[r]`` times its slot's fused LM head, through the
+    decode-shaped kernel in ``csrc/row_gemm.cu``.
 
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref.py``.
@@ -26,7 +29,7 @@ import torch
 
 from . import build, ref
 
-__all__ = ["grouped_block_diag_matmul", "grouped_aug_gemm"]
+__all__ = ["grouped_block_diag_matmul", "grouped_aug_gemm", "grouped_row_gemm"]
 
 _MAX_GRID_YZ = 65535
 _BM = 64            # rows per block in grouped_gemm.cu
@@ -137,5 +140,77 @@ def grouped_aug_gemm(
     return out
 
 
+@functools.cache
+def _row_kernel():
+    lib = build.load("row_gemm")
+    fn = lib.row_gemm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.row_gemm_error_string.argtypes = [ctypes.c_int]
+    lib.row_gemm_error_string.restype = ctypes.c_char_p
+    return fn, lib.row_gemm_error_string
+
+
+def grouped_row_gemm(
+    h: torch.Tensor,        # (R, K) fp32 or bf16, one decode row per group
+    gidx: torch.Tensor,     # (R,) int32 slot index per row
+    tables: torch.Tensor,   # (S, K, N) fp32 stacked per-slot matrices
+) -> torch.Tensor:
+    """Decode-shaped grouped GEMM ``h[r] @ tables[gidx[r]]`` -> (R, N).
+
+    Contracts in ``h.dtype``: each table entry is rounded to ``h.dtype``
+    before the product, the sum is accumulated in fp32, and the result is
+    ``h.dtype`` — the semantics of the reference's jnp path and of
+    ``models.stack.lm_head``.
+    """
+    name = "grouped_row_gemm"
+    if not (h.device == gidx.device == tables.device):
+        raise ValueError(
+            f"{name}: operands on different devices "
+            f"({h.device}, {gidx.device}, {tables.device})"
+        )
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: h must be float32 or bfloat16, got {h.dtype}")
+    if tables.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32 tables, got {tables.dtype}")
+    if gidx.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 gidx, got {gidx.dtype}")
+    if (h.dim() != 2 or tables.dim() != 3 or gidx.shape != (h.shape[0],)
+            or tables.shape[1] != h.shape[1]):
+        raise ValueError(
+            f"{name}: expected (R, K), (R,), (S, K, N); got "
+            f"{tuple(h.shape)}, {tuple(gidx.shape)}, {tuple(tables.shape)}"
+        )
+    if not (h.is_contiguous() and gidx.is_contiguous()
+            and tables.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if min(h.shape) == 0 or min(tables.shape) == 0:
+        raise ValueError(
+            f"{name}: empty operand {tuple(h.shape)}, {tuple(tables.shape)}"
+        )
+    if h.shape[0] > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: {h.shape[0]} rows exceed the grid limit")
+    if h.device.type == "cpu":
+        return ref.lm_head_rows_grouped_ref(h, gidx, tables)
+    if h.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {h.device}")
+    R, K = h.shape
+    S, _, N = tables.shape
+    out = torch.empty((R, N), dtype=h.dtype, device=h.device)
+    fn, err_str = _row_kernel()
+    err = fn(
+        h.data_ptr(), gidx.data_ptr(), tables.data_ptr(), out.data_ptr(),
+        R, N, K, S, int(h.dtype == torch.bfloat16), h.device.index,
+        torch.cuda.current_stream(h.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"row_gemm launch failed: {err_str(err).decode()} ({err})"
+        )
+    grouped_row_gemm.launches += 1
+    return out
+
+
 grouped_block_diag_matmul.launches = 0
 grouped_aug_gemm.launches = 0
+grouped_row_gemm.launches = 0

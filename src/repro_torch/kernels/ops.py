@@ -1,18 +1,27 @@
-"""Public entry points for the grouped delivery kernels.
+"""Public entry points for the grouped delivery and decode steps.
 
 ``morph_rows_grouped`` and ``aug_conv_forward_grouped`` are the two steps
-of the engine's delivery hot path: per-group secrets are read in place from
-the stacked slot tables by :mod:`repro_torch.kernels.grouped`, for any
-``B``, ``K`` and ``N`` (the CUDA kernel masks its ragged edges, so there is
-no tileability test and no route around the kernel on the card).
+of the engine's vision delivery hot path, ``lm_head_rows_grouped`` the
+logits step of batched decode: per-group (per-row) secrets are read in
+place from the stacked slot tables by :mod:`repro_torch.kernels.grouped`,
+for any shape (the CUDA kernels mask their ragged edges, so there is no
+tileability test and no route around a kernel on the card).
+
+``token_morph_grouped``, ``aug_embed_grouped`` and
+``aug_embed_rows_grouped`` are gathers: torch advanced indexing on every
+device, as the reference routes them to XLA's gather on every backend.
 """
 from __future__ import annotations
 
 import torch
 
-from .grouped import grouped_aug_gemm, grouped_block_diag_matmul
+from . import ref
+from .grouped import grouped_aug_gemm, grouped_block_diag_matmul, grouped_row_gemm
 
-__all__ = ["morph_rows_grouped", "aug_conv_forward_grouped"]
+__all__ = [
+    "morph_rows_grouped", "aug_conv_forward_grouped", "token_morph_grouped",
+    "aug_embed_grouped", "aug_embed_rows_grouped", "lm_head_rows_grouped",
+]
 
 
 def _safe_gidx(gidx, n_slots: int, device: torch.device) -> torch.Tensor:
@@ -43,3 +52,40 @@ def aug_conv_forward_grouped(
 ) -> torch.Tensor:
     """Slot-indexed Aug-Conv forward: t (G, B, K), gidx (G,), c_acs (S, K, N)."""
     return grouped_aug_gemm(t, _safe_gidx(gidx, c_acs.shape[0], t.device), c_acs)
+
+
+def token_morph_grouped(tokens: torch.Tensor, gidx,
+                        perms: torch.Tensor) -> torch.Tensor:
+    """Slot-indexed token morphing: tokens (G, B, L), gidx (G,), perms (S, V)
+    -> morphed (G, B, L); no (G, V) copy of the permutations."""
+    return ref.token_morph_grouped_ref(
+        tokens, _safe_gidx(gidx, perms.shape[0], tokens.device), perms
+    )
+
+
+def aug_embed_grouped(tokens: torch.Tensor, gidx,
+                      tables: torch.Tensor) -> torch.Tensor:
+    """Slot-indexed Aug-Embedding: morphed tokens (G, B, L) gathered from the
+    stacked (S, V, d) tables -> (G, B, L, d)."""
+    return ref.aug_embed_grouped_ref(
+        tokens, _safe_gidx(gidx, tables.shape[0], tokens.device), tables
+    )
+
+
+def aug_embed_rows_grouped(tokens: torch.Tensor, gidx,
+                           tables: torch.Tensor) -> torch.Tensor:
+    """Per-row slot-indexed AugE gather, the batched-decode embedding step:
+    tokens (R,), gidx (R,), tables (S, V, d) -> (R, d)."""
+    return ref.aug_embed_rows_grouped_ref(
+        tokens, _safe_gidx(gidx, tables.shape[0], tokens.device), tables
+    )
+
+
+def lm_head_rows_grouped(h: torch.Tensor, gidx,
+                         heads: torch.Tensor) -> torch.Tensor:
+    """Slot-indexed per-row LM-head GEMM, the batched-decode logits step:
+    h (R, d), gidx (R,), heads (S, d, V) fp32 -> (R, V) morphed-order
+    logits in ``h.dtype`` (K3: :func:`~repro_torch.kernels.grouped.grouped_row_gemm`)."""
+    return grouped_row_gemm(
+        h.contiguous(), _safe_gidx(gidx, heads.shape[0], h.device), heads
+    )

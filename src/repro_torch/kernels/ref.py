@@ -1,12 +1,18 @@
-"""Plain PyTorch versions of the port's CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels and of the LM gathers.
 
 The CPU path of every wrapper in :mod:`repro_torch.kernels.grouped`, and the
 versions ``chip_smoke.py`` holds the kernels against on the card.  They
-repeat the reference's math (``repro.kernels.ref``): operands cast to fp32,
-fp32 products, results cast back to the input dtype.  Grouped versions take
-the ``(G,)`` slot-index vector and the stacked ``(S, ...)`` secrets and index
-one slot per group (a view, no ``(G, ...)`` copy); slot indices clamp into
-``[0, S-1]`` as the kernel clamps them.
+repeat the reference's math (``repro.kernels.ref``): the delivery GEMMs cast
+operands to fp32 and results back to the input dtype; the LM-head GEMMs
+contract in ``h.dtype`` (the weights cast to it), as ``models.stack.lm_head``
+does.  Grouped versions take the slot-index vector and the stacked
+``(S, ...)`` secrets and index one slot per group or row (a view or an
+advanced-indexing gather, never a ``(G, ...)`` copy of the stack); slot
+indices clamp into ``[0, S-1]`` as the kernels clamp them.
+
+The token-morph and Aug-Embedding functions are gathers; they have no CUDA
+kernel (the reference routes them to XLA's gather on every backend too), so
+these are also their implementations on the card.
 """
 from __future__ import annotations
 
@@ -17,6 +23,14 @@ __all__ = [
     "aug_gemm_ref",
     "block_diag_matmul_grouped_ref",
     "aug_gemm_grouped_ref",
+    "token_morph_batched_ref",
+    "token_morph_grouped_ref",
+    "aug_embed_batched_ref",
+    "aug_embed_grouped_ref",
+    "aug_embed_rows_batched_ref",
+    "aug_embed_rows_grouped_ref",
+    "lm_head_rows_grouped_ref",
+    "lm_head_rows_batched_ref",
 ]
 
 
@@ -39,6 +53,10 @@ def _slots(gidx: torch.Tensor, n_slots: int) -> list[int]:
     return [min(max(int(i), 0), n_slots - 1) for i in gidx.tolist()]
 
 
+def _clamped(gidx: torch.Tensor, n_slots: int) -> torch.Tensor:
+    return gidx.to(torch.int64).clamp(0, n_slots - 1)
+
+
 def block_diag_matmul_grouped_ref(
     x: torch.Tensor, gidx: torch.Tensor, cores: torch.Tensor, kappa: int
 ) -> torch.Tensor:
@@ -57,3 +75,66 @@ def aug_gemm_grouped_ref(
         aug_gemm_ref(t[g], c_acs[s])
         for g, s in enumerate(_slots(gidx, c_acs.shape[0]))
     ])
+
+
+def token_morph_batched_ref(tokens: torch.Tensor,
+                            perms: torch.Tensor) -> torch.Tensor:
+    """Per-group token morphing: tokens (G, B, L), perms (G, V) -> (G, B, L)."""
+    g = torch.arange(tokens.shape[0], device=tokens.device)
+    return perms[g[:, None, None], tokens.long()]
+
+
+def token_morph_grouped_ref(tokens: torch.Tensor, gidx: torch.Tensor,
+                            perms: torch.Tensor) -> torch.Tensor:
+    """Slot-indexed token morphing: tokens (G, B, L), gidx (G,), perms (S, V)."""
+    g = _clamped(gidx, perms.shape[0])
+    return perms[g[:, None, None], tokens.long()]
+
+
+def aug_embed_batched_ref(tokens: torch.Tensor,
+                          tables: torch.Tensor) -> torch.Tensor:
+    """Per-group Aug-Embedding: tokens (G, B, L), tables (G, V, d)
+    -> (G, B, L, d)."""
+    g = torch.arange(tokens.shape[0], device=tokens.device)
+    return tables[g[:, None, None], tokens.long()]
+
+
+def aug_embed_grouped_ref(tokens: torch.Tensor, gidx: torch.Tensor,
+                          tables: torch.Tensor) -> torch.Tensor:
+    """Slot-indexed Aug-Embedding: tokens (G, B, L), gidx (G,),
+    tables (S, V, d) -> (G, B, L, d)."""
+    g = _clamped(gidx, tables.shape[0])
+    return tables[g[:, None, None], tokens.long()]
+
+
+def aug_embed_rows_batched_ref(tokens: torch.Tensor,
+                               tables: torch.Tensor) -> torch.Tensor:
+    """Per-row AugE gather, one table per row: tokens (R,), tables
+    (R, V, d) -> (R, d)."""
+    r = torch.arange(tokens.shape[0], device=tokens.device)
+    return tables[r, tokens.long()]
+
+
+def aug_embed_rows_grouped_ref(tokens: torch.Tensor, gidx: torch.Tensor,
+                               tables: torch.Tensor) -> torch.Tensor:
+    """Per-row slot-indexed AugE gather (batched decode: one token per row):
+    tokens (R,), gidx (R,), tables (S, V, d) -> (R, d)."""
+    return tables[_clamped(gidx, tables.shape[0]), tokens.long()]
+
+
+def lm_head_rows_grouped_ref(h: torch.Tensor, gidx: torch.Tensor,
+                             heads: torch.Tensor) -> torch.Tensor:
+    """Per-row slot-indexed LM-head GEMM: h (R, d), gidx (R,), heads
+    (S, d, V) -> (R, V) in ``h.dtype``; each row contracts against its
+    slot's head cast to ``h.dtype`` (fp32 accumulation on the card)."""
+    return torch.cat([
+        torch.matmul(h[r : r + 1], heads[s].to(h.dtype))
+        for r, s in enumerate(_slots(gidx, heads.shape[0]))
+    ])
+
+
+def lm_head_rows_batched_ref(h: torch.Tensor,
+                             heads: torch.Tensor) -> torch.Tensor:
+    """Per-row LM-head GEMM, one head per row: h (R, d), heads (R, d, V)
+    -> (R, V), contraction in ``h.dtype``."""
+    return torch.bmm(h[:, None, :], heads.to(h.dtype))[:, 0]

@@ -1,0 +1,269 @@
+"""Model substrate on PyTorch: configs and parameter initialisation.
+
+Ported from ``repro.models.base``.  The config dataclasses are the
+reference's, copied verbatim so that a config reads the same in both
+packages.  The reference's ``ParamDef`` schema keeps its shape and init
+rule but drops the logical sharding axes (one device); ``init_params`` draws
+every parameter from an explicit ``torch.Generator`` on the target device,
+with the reference's init rules (the numbers differ from ``jax.random``'s:
+tests carry the reference's parameters over with
+``repro_torch.models.api.params_from_jax``).  :class:`ParamTree` is the
+``nn.Module`` that holds a nested parameter tree and is indexed by name like
+the reference's parameter dicts (``params["blocks"][i]["mix"]["wq"]``).
+
+This slice of the port runs dense attention stacks only:
+:func:`check_supported` raises ``NotImplementedError`` for every config that
+needs a block kind, mixer or frontend of a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+__all__ = [
+    "MoECfg", "MLACfg", "RnnCfg", "RwkvCfg", "FrontendCfg", "MoLeCfg",
+    "ModelConfig", "ParamDef", "ParamTree", "check_supported",
+    "init_params", "torch_dtype",
+]
+
+# ---------------------------------------------------------------------------
+# Configs (the reference's, in repro.models.base, copied)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_routed: int
+    n_shared: int
+    top_k: int
+    d_ff_expert: int
+    first_dense_ff: int | None = None   # dense FFN width for prefix layers
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+    norm_topk: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MLACfg:
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class RnnCfg:
+    """RG-LRU recurrent block (Griffin / RecurrentGemma)."""
+
+    d_rnn: int = 0            # 0 => same as d_model
+    conv_width: int = 4
+    c: float = 8.0            # decay sharpness constant
+    block_width_divisor: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RwkvCfg:
+    head_dim: int = 64
+    chunk: int = 16           # chunked linear-attention chunk length
+    subchunk: int = 0         # >0: GEMM-form intra-chunk (EXPERIMENTS §Perf h3)
+    ddlerp_rank: int = 32     # low-rank data-dependent interpolation (token shift)
+    decay_rank: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendCfg:
+    """Stubbed modality frontend: input_specs provides precomputed embeddings."""
+
+    kind: str                 # "vision" | "audio"
+    d_in: int                 # per-position feature dim delivered by the stub
+    n_tokens: int             # number of frontend positions (patches / frames)
+    cross_gated: bool = True  # tanh-gated cross-attn (llama-3.2-vision style)
+    enc_layers: int = 0       # encoder depth (whisper-style enc-dec only)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoLeCfg:
+    """MoLe secure-delivery feature flags (DESIGN.md §4)."""
+
+    enabled: bool = False
+    mode: str = "token"       # "token" (vocab permutation) | "embedding" (block-diag)
+    kappa: int = 1
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str               # dense | moe | hybrid | ssm | vlm | audio
+    vocab: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    block_pattern: tuple[str, ...]        # layer kinds, scanned n_groups times
+    n_groups: int
+    prefix_pattern: tuple[str, ...] = ()  # unscanned leading layers
+    suffix_pattern: tuple[str, ...] = ()  # unscanned trailing layers
+    norm: str = "rmsnorm"                 # rmsnorm | layernorm
+    act: str = "swiglu"                   # swiglu | geglu | gelu
+    parallel_block: bool = False          # command-r style attn+ffn in parallel
+    post_norm: bool = False               # gemma2 extra post-sublayer norms
+    rope_theta: float = 10_000.0
+    sliding_window: int | None = None
+    attn_scale: float | None = None       # None => head_dim ** -0.5
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    scale_embedding: bool = False
+    tie_embeddings: bool = False
+    qkv_bias: bool = False
+    moe: MoECfg | None = None
+    mla: MLACfg | None = None
+    rnn: RnnCfg | None = None
+    rwkv: RwkvCfg | None = None
+    frontend: FrontendCfg | None = None
+    mole: MoLeCfg = dataclasses.field(default_factory=MoLeCfg)
+    dtype: str = "bfloat16"               # activation dtype
+    param_dtype: str = "bfloat16"
+    flash_block_kv: int = 1024            # flash-scan KV chunk
+    dense_attn_max_seq: int = 1024        # use dense attention at/below this
+    scan_unroll: bool = False             # unroll layer scans (analysis passes:
+                                          # XLA:CPU cost_analysis counts while
+                                          # bodies once; see launch/dryrun.py)
+    fused_ce: bool = True                 # chunked softmax-CE (never builds
+                                          # (B,S,V) logits; §Perf beyond-paper 4)
+    source: str = ""                      # provenance note
+
+    @property
+    def n_layers(self) -> int:
+        return (
+            len(self.prefix_pattern)
+            + self.n_groups * len(self.block_pattern)
+            + len(self.suffix_pattern)
+        )
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def layer_kinds(self) -> list[str]:
+        return (
+            list(self.prefix_pattern)
+            + list(self.block_pattern) * self.n_groups
+            + list(self.suffix_pattern)
+        )
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (the configs name dtypes as JAX
+    does)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless this slice of the port runs
+    ``cfg``: a dense stack of global self-attention blocks (``("attn",)``),
+    no frontend.  Nothing else is computed in its place."""
+    later = []
+    if cfg.family != "dense":
+        later.append(f"family={cfg.family!r}")
+    for name in ("moe", "mla", "rnn", "rwkv", "frontend"):
+        if getattr(cfg, name) is not None:
+            later.append(name)
+    if tuple(cfg.block_pattern) != ("attn",):
+        later.append(f"block_pattern={cfg.block_pattern!r}")
+    if cfg.prefix_pattern or cfg.suffix_pattern:
+        later.append("prefix/suffix layers")
+    if cfg.sliding_window is not None:
+        later.append("sliding_window")
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(later)} not ported yet (this slice runs "
+            f"dense global-attention stacks; MoE, MLA, recurrent, RWKV, local "
+            f"attention and frontends arrive with later slices of the port)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    init: str = "normal"        # normal | zeros | ones | neg_ones | embed
+    scale: float | None = None  # None => 1/sqrt(fan_in) for normal
+    dtype: torch.dtype | None = None   # None => caller's default dtype
+
+
+def _init_one(d: ParamDef, dtype: torch.dtype, generator: torch.Generator,
+              device) -> torch.Tensor:
+    dtype = d.dtype or dtype
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "neg_ones":
+        return torch.full(d.shape, -1, dtype=dtype, device=device)
+    scale = d.scale
+    if scale is None:
+        if d.init == "embed":
+            scale = 1.0
+        else:
+            fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+            scale = 1.0 / math.sqrt(fan_in)
+    v = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return v.mul_(scale).to(dtype)
+
+
+def init_params(schema, dtype: torch.dtype, generator: torch.Generator | None,
+                device):
+    """Concrete tensors for a schema (nested dicts / lists of ``ParamDef``),
+    leaf by leaf in the schema's order: ``zeros`` / ``ones`` / ``neg_ones``,
+    else a standard normal drawn in fp32 times the scale, then cast."""
+    if isinstance(schema, ParamDef):
+        return _init_one(schema, dtype, generator, device)
+    if isinstance(schema, dict):
+        return {k: init_params(v, dtype, generator, device)
+                for k, v in schema.items()}
+    return [init_params(v, dtype, generator, device) for v in schema]
+
+
+class ParamTree(nn.Module):
+    """A nested parameter tree as an ``nn.Module``.
+
+    Built from nested dicts / lists of tensors; indexed by name (or position
+    for lists) like the reference's parameter pytrees, so the functional
+    blocks read ``p["mix"]["wq"]`` in both packages.  Parameters do not
+    require gradients: this slice serves; training comes later.
+    """
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = tuple(tree)
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            elif isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+            else:
+                raise TypeError(f"{k}: unsupported leaf {type(v).__name__}")
+
+    def __getitem__(self, key: str):
+        if key not in self._keys:
+            raise KeyError(key)
+        return getattr(self, key)

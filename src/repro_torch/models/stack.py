@@ -1,0 +1,134 @@
+"""Layer-stack assembly on PyTorch: schema and apply for a full model.
+
+Ported from ``repro.models.stack`` for dense global-attention stacks
+(``block_pattern=("attn",)``).  A model is: token embedding -> ``n_groups``
+attention blocks -> final norm -> LM head.  The reference scans over
+stacked ``(n_groups, ...)`` block parameters; here ``params["blocks"]`` and
+``caches["blocks"]`` are per-layer lists and :func:`apply_stack` loops over
+them.
+"""
+from __future__ import annotations
+
+import torch
+
+from .base import ModelConfig, ParamDef, check_supported
+from . import blocks as B
+from . import layers as L
+
+__all__ = [
+    "block_schema", "model_schema", "model_cache_schema", "apply_block",
+    "apply_stack", "embed_tokens", "head_matrix", "lm_head", "forward",
+    "decode_step",
+]
+
+# ---------------------------------------------------------------------------
+# Schemas
+# ---------------------------------------------------------------------------
+
+
+def block_schema(cfg: ModelConfig) -> dict:
+    sch = {"norm1": ParamDef((cfg.d_model,), init="zeros"),
+           "mix": B.schema_attn(cfg)}
+    if not cfg.parallel_block:
+        sch["norm2"] = ParamDef((cfg.d_model,), init="zeros")
+    sch["ffn"] = B.schema_ffn(cfg)
+    if cfg.post_norm:
+        sch["post_norm1"] = ParamDef((cfg.d_model,), init="zeros")
+        sch["post_norm2"] = ParamDef((cfg.d_model,), init="zeros")
+    return sch
+
+
+def model_schema(cfg: ModelConfig) -> dict:
+    check_supported(cfg)
+    sch = {"embed": ParamDef((cfg.vocab, cfg.d_model), init="embed",
+                             scale=0.02)}
+    sch["final_norm"] = ParamDef((cfg.d_model,), init="zeros")
+    if not cfg.tie_embeddings:
+        sch["head"] = ParamDef((cfg.d_model, cfg.vocab), scale=0.02)
+    sch["blocks"] = [block_schema(cfg) for _ in range(cfg.n_layers)]
+    return sch
+
+
+def model_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    check_supported(cfg)
+    return {"blocks": [B.cache_attn(cfg, batch, max_len)
+                       for _ in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+
+def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache):
+    if cfg.parallel_block:  # command-r: shared input norm, attn + ffn in parallel
+        n = L.norm(h, p["norm1"], cfg.norm)
+        a, cache = B.apply_attn(p["mix"], n, cfg, rs, cache)
+        fo = B.apply_ffn(p["ffn"], n, cfg)
+        return h + a + fo, cache
+
+    n = L.norm(h, p["norm1"], cfg.norm)
+    a, cache = B.apply_attn(p["mix"], n, cfg, rs, cache)
+    if cfg.post_norm:
+        a = L.norm(a, p["post_norm1"], cfg.norm)
+    h = h + a
+    fo = B.apply_ffn(p["ffn"], L.norm(h, p["norm2"], cfg.norm), cfg)
+    if cfg.post_norm:
+        fo = L.norm(fo, p["post_norm2"], cfg.norm)
+    return h + fo, cache
+
+
+def apply_stack(params, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState,
+                caches: dict | None):
+    """Run every block in order.  Returns (h, caches|None); caches are
+    written in place (see :mod:`repro_torch.models.blocks`)."""
+    new = [] if caches is not None else None
+    for i, p in enumerate(params["blocks"]):
+        c = caches["blocks"][i] if caches is not None else None
+        h, nc = apply_block(p, h, cfg, rs, c)
+        if new is not None:
+            new.append(nc)
+    return h, ({"blocks": new} if caches is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# Full model entry points
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = params["embed"][tokens].to(cfg.adtype)
+    if cfg.scale_embedding:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    return h
+
+
+def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def lm_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm, then logits contracted in ``h.dtype`` (the head cast to
+    it), returned in fp32 after the optional soft-cap."""
+    h = L.norm(h, params["final_norm"], cfg.norm)
+    w = head_matrix(params, cfg)
+    logits = torch.matmul(h, w.to(h.dtype))
+    return L.softcap(logits.float(), cfg.final_softcap)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            caches: dict | None = None, write_cache: bool = False):
+    """Full-sequence forward (prefill).  Returns (logits, caches)."""
+    rs = B.RunState(mode="full", write_cache=write_cache)
+    h = embed_tokens(params, tokens, cfg)
+    h, new_caches = apply_stack(params, h, cfg, rs, caches)
+    return lm_head(params, h, cfg), new_caches
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, t,
+                caches: dict):
+    """One-token decode: token (B, 1) at position ``t`` (int or (B,))."""
+    rs = B.RunState(mode="decode", t=t)
+    h = embed_tokens(params, token, cfg)
+    h, new_caches = apply_stack(params, h, cfg, rs, caches)
+    return lm_head(params, h, cfg), new_caches

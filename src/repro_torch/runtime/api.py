@@ -12,10 +12,11 @@ addressed through one request type:
     priority) that the scheduling layer accounts against.
 
 The descriptor keeps all three lanes of the reference (``"rows"``,
-``"tokens"``, ``"features"``) so requests look the same in both packages;
-this slice of the port serves the vision ``"rows"`` lane, and
-:func:`normalize` rejects the LM lanes, as the reference does for an engine
-without an LM registry.
+``"tokens"``, ``"features"``) so requests look the same in both packages.
+The port serves the vision ``"rows"`` lane and the LM ``"tokens"`` lane
+(``deliver="tokens"`` for morphed tokens, ``"embed"`` for Aug-embedded
+features); the continuous ``"features"`` lane is not ported yet and
+:func:`normalize` raises ``NotImplementedError`` for it.
 
 Payloads stay numpy on the host until the engine stages a coalesced
 microbatch on its device.
@@ -162,6 +163,47 @@ def _normalize_rows(engine, req: DeliveryRequest) -> np.ndarray:
     raise ValueError(f"expected rank-2 rows or rank-4 images, got {data.shape}")
 
 
+def _normalize_tokens(engine, req: DeliveryRequest) -> np.ndarray:
+    reg = engine.lm_registry
+    if reg is None:
+        raise ValueError("engine has no LM registry")
+    if req.tenant_id not in reg:
+        raise KeyError(f"unknown LM tenant {req.tenant_id!r}")
+    tokens = np.asarray(req.payload)
+    if tokens.ndim != 2 or not np.issubdtype(tokens.dtype, np.integer):
+        raise ValueError(
+            f"expected int tokens of shape (b, L), got {tokens.dtype} "
+            f"{tokens.shape}"
+        )
+    _require_nonempty(req, tokens.shape[0], "sequence")
+    max_seq = engine.seq_buckets[-1]
+    if tokens.shape[1] > max_seq:
+        raise ValueError(
+            f"request for tenant {req.tenant_id!r}: sequence length "
+            f"{tokens.shape[1]} exceeds the largest seq bucket {max_seq}; "
+            f"split the request into <= {max_seq}-token chunks, or "
+            f"construct the engine with larger seq_buckets"
+        )
+    _require_nonempty(req, tokens.shape[1], "token per sequence")
+    v = reg.vocab
+    if tokens.min() < 0 or tokens.max() >= v:
+        raise ValueError(f"token ids out of range [0, {v})")
+    return tokens.astype(np.int32)
+
+
+def _normalize_features(engine, req: DeliveryRequest) -> np.ndarray:
+    raise NotImplementedError(
+        "the continuous LM features lane is not ported yet (a later slice)"
+    )
+
+
+_NORMALIZERS = {
+    "rows": _normalize_rows,
+    "tokens": _normalize_tokens,
+    "features": _normalize_features,
+}
+
+
 def normalize(request: DeliveryRequest, engine) -> DeliveryRequest:
     """Validate ``request`` against ``engine``'s registries and return a copy
     whose payload is the canonical ndarray its lane's queue stores.
@@ -177,10 +219,5 @@ def normalize(request: DeliveryRequest, engine) -> DeliveryRequest:
             f"expected a DeliveryRequest, got {type(request).__name__} "
             f"(the legacy tenant_id+payload calling convention was removed)"
         )
-    if request.lane != "rows":
-        raise ValueError(
-            f"engine has no LM registry: lane {request.lane!r} is served by "
-            f"the LM lanes, which are not ported yet"
-        )
-    payload = _normalize_rows(engine, request)
+    payload = _NORMALIZERS[request.lane](engine, request)
     return dataclasses.replace(request, payload=payload)

@@ -1,18 +1,24 @@
-"""Batched multi-tenant MoLe delivery engine on PyTorch — the vision lane.
+"""Batched multi-tenant MoLe delivery engine on PyTorch.
 
-Ported from ``repro.runtime.engine``.  Many provider sessions (one per
-tenant, each with its own secrets) are registered in a
-:class:`~repro_torch.core.protocol.SessionRegistry`; incoming requests are
-coalesced into padded microbatches (``repro_torch.runtime.queue``) and the
-provider-side morph plus the developer-side Aug-Conv forward run as two
-grouped-GEMM launches over the whole microbatch:
+Ported from ``repro.runtime.engine``: the vision lane and the LM token lane.
+Many provider sessions (one per tenant, each with its own secrets) are
+registered in a :class:`~repro_torch.core.protocol.SessionRegistry` (vision)
+and/or a :class:`~repro_torch.core.lm.LMSessionRegistry` (LM tokens);
+incoming requests are coalesced into padded microbatches
+(``repro_torch.runtime.queue``).  On the vision lane the provider-side morph
+plus the developer-side Aug-Conv forward run as two grouped-GEMM launches
+over the whole microbatch:
 
     (G, B, F_in) --morph cores[gidx]--> (G, B, F_in) --@ augs[gidx]--> (G, B, F_out)
 
 Groups never mix tenants, so tenant A's rows are only ever morphed with
 tenant A's secrets.  Both steps read each group's secrets **in place** from
 the stacked ``(S, ...)`` device tensors through the hand-written CUDA
-kernels of :mod:`repro_torch.kernels.grouped`.
+kernels of :mod:`repro_torch.kernels.grouped`.  On the token lane, prompts
+coalesce into length-bucketed ``(G, B, L)`` microbatches and the morph is a
+gather through each group's slot of the stacked ``(S, V)`` permutations
+(plus, for ``deliver="embed"`` requests, a gather through the ``(S, V, d)``
+Aug-Embedding stack, staged only once such a request has been seen).
 
 **Where the engine runs.**  ``device=None`` means the card (``"cuda"``); the
 CPU runs only when asked for (``device="cpu"``), and then the kernels'
@@ -28,14 +34,15 @@ microbatch k+1 may evict and reuse a slot that microbatch k (same flush
 round, not yet executed) still points at.  The reference's functional
 ``.at[].set`` patch leaves k's arrays untouched; here a patch writes in
 place only while no pending work item holds the stacks, and otherwise
-clones them first.
+clones them first.  The rule covers every stack of a plan: the vision
+cores and Aug-Conv matrices and the LM permutations and AugE tables.
 
 Not ported, deliberately: ``_delivery_step_small`` (the reference routes
 tiny microbatches there on its jnp backend only; on the card both steps are
 always the grouped kernels), the ``backend`` switch
 (``repro.kernels.dispatch``: the tensor's device picks the implementation),
-and ``sharding.hints.hint`` (a no-op on one device).  The LM lanes
-(``lm_registry=``) belong to a later slice.
+and ``sharding.hints.hint`` (a no-op on one device).  The continuous LM
+``features`` lane belongs to a later slice (its registry raises).
 
 This class is **not** thread-safe.
 """
@@ -52,8 +59,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.d2r import reroll_batch
+from repro_torch.core.lm import LMSessionRegistry
 from repro_torch.core.protocol import SessionRegistry
-from repro_torch.kernels.ops import aug_conv_forward_grouped, morph_rows_grouped
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import (
+    aug_conv_forward_grouped, aug_embed_grouped, morph_rows_grouped,
+    token_morph_grouped,
+)
 
 from . import api
 from .api import DeliveryRequest, DeliveryResult
@@ -63,23 +75,6 @@ from .resilience import EngineSnapshot, StragglerMonitor
 __all__ = ["EngineStats", "MoLeDeliveryEngine", "resolve_device"]
 
 _log = logging.getLogger(__name__)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller names
-    another.  Raises when CUDA is asked for (or defaulted to) and absent.
-    On the card, fp32 products and convolutions are held to full fp32
-    (TF32 off), as the reference computes them."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the plain "
-                "versions on the CPU"
-            )
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
 
 
 def _window_quantile(xs, q: float) -> float:
@@ -419,8 +414,10 @@ class _WorkItem:
     until :meth:`MoLeDeliveryEngine.execute_flush` has consumed it.
     """
 
+    lane: str                   # "vision" | "tokens"
     mb: object                  # runtime.queue.Microbatch
     plan: _Plan                 # slot secrets as of this item's coalesce
+    want_embed: bool = False    # tokens lane: run the Aug-Embedding gather
     out: object = None          # host results, set by execute_flush
 
 
@@ -444,8 +441,14 @@ class _FlushWork:
 
 
 class MoLeDeliveryEngine:
-    """Multiplexes many tenants' vision delivery traffic over two grouped
-    kernel launches per microbatch.
+    """Multiplexes many tenants' delivery traffic: two grouped kernel
+    launches per vision microbatch, one slot-indexed gather per token
+    microbatch.
+
+    A tenant is a **vision session** (``registry``: :class:`SessionRegistry`)
+    or an **LM session** (``lm_registry``: :class:`LMSessionRegistry`); one
+    engine can serve either kind or both.  Passing an ``LMSessionRegistry``
+    as the positional ``registry`` routes it to the LM lane.
 
     Every request is a :class:`repro_torch.runtime.DeliveryRequest`
     (validated/normalized once in ``runtime.api``) submitted through
@@ -458,29 +461,32 @@ class MoLeDeliveryEngine:
 
     def __init__(
         self,
-        registry: SessionRegistry | None = None,
+        registry: SessionRegistry | LMSessionRegistry | None = None,
         device=None,
         *,
-        lm_registry=None,
+        lm_registry: LMSessionRegistry | None = None,
         max_rows: int = 64,
         row_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
         group_buckets: tuple[int, ...] = (1, 2, 4, 8, 16),
+        seq_buckets: tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512),
         max_flush_microbatches: int = 64,
         injector=None,
         scheduler=None,
         clock: Callable[[], float] | None = None,
     ):
-        from .queue import FairScheduler, RequestQueue
+        from .queue import FairScheduler, RequestQueue, TokenQueue
 
-        if lm_registry is not None:
-            raise NotImplementedError(
-                "the LM lanes (lm_registry=) are not ported yet: they arrive "
-                "with the LM slice of the port"
-            )
-        if registry is None:
-            raise ValueError("need a vision registry")
+        if isinstance(registry, LMSessionRegistry):
+            if lm_registry is not None:
+                raise ValueError(
+                    "two LM registries given (positional + lm_registry=)"
+                )
+            registry, lm_registry = None, registry
+        if registry is None and lm_registry is None:
+            raise ValueError("need a vision registry, an LM registry, or both")
         self.device = resolve_device(device)
         self.registry = registry
+        self.lm_registry = lm_registry
         self.max_rows = max_rows
         # Bounds one flush round's working set: begin_flush coalesces at
         # most this many microbatches, so peak host memory (padded inputs +
@@ -489,8 +495,10 @@ class MoLeDeliveryEngine:
         self.max_flush_microbatches = int(max_flush_microbatches)
         self.row_buckets = tuple(sorted(row_buckets))
         self.group_buckets = tuple(sorted(group_buckets))
-        # Request ids: a plain int (not itertools.count) so snapshot()/
-        # restore() can serialize and rebuild the allocator.
+        self.seq_buckets = tuple(sorted(seq_buckets))
+        # One id space across every lane.  Request ids: a plain int (not
+        # itertools.count) so snapshot()/restore() can serialize and rebuild
+        # the allocator.
         self._next_rid = 0
 
         def _alloc_rid() -> int:
@@ -499,7 +507,9 @@ class MoLeDeliveryEngine:
             return rid
 
         self._id_alloc = _alloc_rid
-        # One WFQ clock for the engine; weights resolve through the registry
+        # One WFQ clock for the engine: every lane (and a decode lane given
+        # this scheduler) charges its service units against the same
+        # per-tenant records.  Weights resolve through the registries
         # (weight_of), the single source of truth.
         self.scheduler = (
             scheduler if scheduler is not None
@@ -512,11 +522,22 @@ class MoLeDeliveryEngine:
         # tenant -> prediction-window deadline (clock seconds): tenants
         # predictive_prefetch staged and is waiting to score.
         self._predicted: dict[str, float] = {}
-        self.queue = RequestQueue(
-            registry.geom.in_features, max_rows=max_rows,
-            row_buckets=self.row_buckets, group_buckets=self.group_buckets,
-            id_alloc=self._id_alloc, scheduler=self.scheduler,
-            service_lane="vision",
+        self.queue = (
+            RequestQueue(
+                registry.geom.in_features, max_rows=max_rows,
+                row_buckets=self.row_buckets, group_buckets=self.group_buckets,
+                id_alloc=self._id_alloc, scheduler=self.scheduler,
+                service_lane="vision",
+            )
+            if registry is not None else None
+        )
+        self.token_queue = (
+            TokenQueue(
+                max_rows=max_rows, row_buckets=self.row_buckets,
+                group_buckets=self.group_buckets, seq_buckets=self.seq_buckets,
+                id_alloc=self._id_alloc, scheduler=self.scheduler,
+            )
+            if lm_registry is not None else None
         )
         self.stats = EngineStats()
         self.stats.service_share_fn = self.scheduler.service_share
@@ -527,19 +548,32 @@ class MoLeDeliveryEngine:
         self.injector = injector
         self.straggler = StragglerMonitor()
         self._plan: _Plan | None = None
+        self._lm_plan: _Plan | None = None
+        # The stacked (S, V, d_model) AugE tables are by far the largest
+        # secrets; they are staged to the device only once a deliver="embed"
+        # request has been seen — pure token-morph traffic never pays the
+        # upload or the device memory.
+        self._embed_tables_needed = False
         self._results: dict[int, np.ndarray] = {}
         self._request_shape: dict[int, tuple[int, ...]] = {}
+        self._token_deliver: dict[int, str] = {}   # rid -> "tokens" | "embed"
         self._req_info: dict[int, _ReqInfo] = {}
         self._done: set[int] = set()
 
     @property
     def pending_rows(self) -> int:
-        """Unscheduled rows."""
-        return self.queue.pending_rows
+        """Unscheduled rows across every lane (rows == sequences for tokens)."""
+        lanes = (self.queue, self.token_queue)
+        return sum(q.pending_rows for q in lanes if q is not None)
 
     def _registry_of(self, tenant_id: str):
-        """The registry holding ``tenant_id`` (None when unknown)."""
-        return self.registry if tenant_id in self.registry else None
+        """The registry holding ``tenant_id`` (vision first, then LM; None
+        when unknown)."""
+        if self.registry is not None and tenant_id in self.registry:
+            return self.registry
+        if self.lm_registry is not None and tenant_id in self.lm_registry:
+            return self.lm_registry
+        return None
 
     def _weight_of(self, tenant_id: str) -> float:
         """The scheduler's weight resolver: registry weights are re-read on
@@ -559,13 +593,19 @@ class MoLeDeliveryEngine:
         ``capacity`` of them resident (plain LRU).  Returns {tenant_id: slot}.
         """
         slots: dict[str, int] = {}
+        touched_vision = touched_lm = False
         for t in tenant_ids:
-            if t not in self.registry:
+            reg = self._registry_of(t)
+            if reg is None:
                 raise KeyError(f"unknown tenant {t!r}")
-            slots[t] = self.registry.slot_for(t)
-        if slots:
-            # The next flush's plan re-sync then finds version current.
+            slots[t] = reg.slot_for(t)
+            touched_vision |= reg is self.registry
+            touched_lm |= reg is self.lm_registry
+        # The next flush's plan re-sync then finds version current.
+        if touched_vision:
             self._refresh_plan()
+        if touched_lm:
+            self._refresh_lm_plan()
         return slots
 
     def predictive_prefetch(self, horizon_ms: float = 50.0,
@@ -633,6 +673,21 @@ class MoLeDeliveryEngine:
             self.queue.ensure_group_bucket(reg.capacity)
         return self._plan
 
+    def _refresh_lm_plan(self) -> _Plan:
+        reg = self.lm_registry
+        slot_fns = {"perms": reg.slot_perm}
+        if self._embed_tables_needed:
+            slot_fns["aug_embeds"] = reg.slot_aug_embedding
+        prev = self._lm_plan
+        if prev is not None and set(prev.arrays) != set(slot_fns):
+            prev = None   # lane set changed (first embed request): rebuild
+        changed = prev is None or prev.version != reg.version
+        self._lm_plan = _sync_plan(prev, reg, slot_fns, self.device)
+        if changed:
+            self.token_queue.ensure_group_bucket(len(reg))
+            self.token_queue.ensure_group_bucket(reg.capacity)
+        return self._lm_plan
+
     # -- request intake: the typed front door --------------------------------
     def submit(self, request: DeliveryRequest) -> int:
         """Enqueue one :class:`~repro_torch.runtime.DeliveryRequest`.
@@ -661,12 +716,25 @@ class MoLeDeliveryEngine:
             # Replays are re-deliveries, not arrivals: feeding them to the
             # predictor would corrupt the inter-arrival history.
             self._observe_arrival(req.tenant_id)
-        g = self.registry.geom
-        rid = self.queue.submit(
-            req.tenant_id, req.payload, priority=req.priority, rid=rid
-        )
-        n_rows = req.payload.shape[0]
-        self._request_shape[rid] = (n_rows, g.beta, g.n, g.n)
+        if req.lane == "rows":
+            g = self.registry.geom
+            rid = self.queue.submit(
+                req.tenant_id, req.payload, priority=req.priority, rid=rid
+            )
+            n_rows = req.payload.shape[0]
+            self._request_shape[rid] = (n_rows, g.beta, g.n, g.n)
+        else:  # tokens
+            rid = self.token_queue.submit(
+                req.tenant_id, req.payload, priority=req.priority, rid=rid
+            )
+            n_rows, L = req.payload.shape
+            if req.deliver == "embed":
+                self._embed_tables_needed = True
+            self._token_deliver[rid] = req.deliver
+            self._request_shape[rid] = (
+                (n_rows, L) if req.deliver == "tokens"
+                else (n_rows, L, self.lm_registry.d_model)
+            )
         self._req_info[rid] = _ReqInfo(
             request=req, submitted_at=time.monotonic(),
             queue_depth_at_submit=depth,
@@ -685,6 +753,15 @@ class MoLeDeliveryEngine:
             plan.arrays["cores"], plan.arrays["augs"], self.registry.kappa,
         )
 
+    def _execute_tokens(self, tokens: np.ndarray, gidx: np.ndarray,
+                        want_embed: bool, plan: _Plan):
+        return _lm_delivery_step(
+            torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(gidx).to(self.device),
+            plan.arrays["perms"],
+            plan.arrays["aug_embeds"] if want_embed else None,
+        )
+
     # -- phase-split flushing -------------------------------------------------
     def _note_microbatch(self, mb) -> None:
         self.stats.microbatches += 1
@@ -700,31 +777,59 @@ class MoLeDeliveryEngine:
         however deep the backlog; the caller loops until None, which is
         returned when nothing is pending.
         """
-        reg = self.registry
-        if len(reg) == 0:
+        vision_live = self.registry is not None and len(self.registry) > 0
+        lm_live = self.lm_registry is not None and len(self.lm_registry) > 0
+        if not vision_live and not lm_live:
             return None  # nothing registered yet -> nothing can be pending
         t0 = time.monotonic()
         work = _FlushWork(items=[])
-        self._refresh_plan()  # sync group buckets before coalescing
+        cap = self.max_flush_microbatches
+        lanes = []
+        if vision_live:
+            self._refresh_plan()  # sync group buckets before coalescing
+            lanes.append(
+                ("vision", self.queue, self.registry, self._refresh_plan)
+            )
+        if lm_live:
+            self._refresh_lm_plan()
+            lanes.append(
+                ("tokens", self.token_queue, self.lm_registry,
+                 self._refresh_lm_plan)
+            )
         # WFQ lag sampled pre-coalesce: the spread the scheduler is about
-        # to work off.
+        # to work off (one sample per flush: the clock is engine-wide).
         self.stats.record_wfq_lag(self.scheduler.wfq_lag())
         clamped = 0
-        # slot_for activates (and LRU-touches) each tenant on lookup, so
-        # evicted tenants transparently regain a slot; max_groups caps a
-        # microbatch at `capacity` distinct tenants so activations within
-        # one coalesce can never evict each other.  The plan re-sync after
-        # each coalesce pins the slots that microbatch's gidx was built
-        # against (copy-on-write when a later coalesce evicts).
-        while len(work.items) < self.max_flush_microbatches:
-            mb = self.queue.coalesce(reg.slot_for, max_groups=reg.capacity)
-            if mb is None:
-                break
-            self._note_microbatch(mb)
-            clamped += mb.n_clamped_padding
-            plan = self._refresh_plan()
-            plan.holders += 1
-            work.items.append(_WorkItem(mb, plan))
+        # Round-robin the microbatch cap across the live lanes, so one
+        # lane's backlog cannot take the whole round.  slot_for activates
+        # (and LRU-touches) each tenant on lookup, so evicted tenants
+        # transparently regain a slot; max_groups caps a microbatch at
+        # `capacity` distinct tenants so activations within one coalesce can
+        # never evict each other.  The plan re-sync after each coalesce pins
+        # the slots that microbatch's gidx was built against (copy-on-write
+        # when a later coalesce evicts).
+        live = list(lanes)
+        while live and len(work.items) < cap:
+            for entry in list(live):
+                if len(work.items) >= cap:
+                    break
+                lane, queue, reg, refresh = entry
+                mb = queue.coalesce(reg.slot_for, max_groups=reg.capacity)
+                if mb is None:
+                    live.remove(entry)
+                    continue
+                self._note_microbatch(mb)
+                clamped += mb.n_clamped_padding
+                # A token microbatch may mix "tokens" and "embed" requests;
+                # the Aug-Embedding gather runs only when one asked for
+                # features.
+                want_embed = lane == "tokens" and any(
+                    self._token_deliver[sl.request_id] == "embed"
+                    for sl in mb.slices
+                )
+                plan = refresh()
+                plan.holders += 1
+                work.items.append(_WorkItem(lane, mb, plan, want_embed))
         if not work.items:
             return None
         if clamped:
@@ -760,10 +865,20 @@ class MoLeDeliveryEngine:
             t0 = time.monotonic()
             outs = [
                 self._execute(item.mb.x, item.mb.group_tenant, item.plan)
+                if item.lane == "vision" else
+                self._execute_tokens(item.mb.x, item.mb.group_tenant,
+                                     item.want_embed, item.plan)
                 for item in work.items
             ]
             for item, out in zip(work.items, outs):
-                item.out = out.cpu().numpy()
+                if item.lane == "tokens":
+                    morphed, feats = out
+                    item.out = (
+                        morphed.cpu().numpy(),
+                        None if feats is None else feats.cpu().numpy(),
+                    )
+                else:
+                    item.out = out.cpu().numpy()
             dt_ms = (time.monotonic() - t0) * 1e3
         finally:
             # Results are on the host (or the round failed): the stacks are
@@ -791,7 +906,10 @@ class MoLeDeliveryEngine:
         t0 = time.monotonic()
         done: dict[int, np.ndarray] = {}
         for item in work.items:
-            self._publish_rows(item, done)
+            if item.lane == "vision":
+                self._publish_rows(item, done)
+            else:
+                self._publish_tokens(item, done)
         self.stats.record_phase_ms("publish", (time.monotonic() - t0) * 1e3)
         return done
 
@@ -824,14 +942,40 @@ class MoLeDeliveryEngine:
                 self._results[s.request_id] = done[s.request_id]
                 self._mark_done(s.request_id)
 
+    def _publish_tokens(self, item: _WorkItem,
+                        done: dict[int, np.ndarray]) -> None:
+        morphed, feats = item.out
+        seq = item.mb.x.shape[2]     # this lane's padded sequence bucket
+        for s in item.mb.slices:
+            rid = s.request_id
+            shape = self._request_shape[rid]   # (b, L) or (b, L, d)
+            embed = self._token_deliver[rid] == "embed"
+            buf = self._results.get(rid)
+            if buf is None:
+                buf = self._results[rid] = (
+                    np.empty((shape[0], seq, feats.shape[-1]), np.float32)
+                    if embed else np.empty((shape[0], seq), np.int32)
+                )
+            src = feats if embed else morphed
+            buf[s.req_offset : s.req_offset + s.n_rows] = src[
+                s.group, s.group_offset : s.group_offset + s.n_rows
+            ]
+            if s.req_offset + s.n_rows == shape[0]:
+                # Strip the sequence padding back to the true length.
+                done[rid] = np.ascontiguousarray(buf[:, : shape[1]])
+                self._results[rid] = done[rid]
+                self._mark_done(rid)
+
     def flush(self) -> dict[int, np.ndarray]:
         """Run every pending request through padded microbatches.
 
         Chains :meth:`begin_flush` -> :meth:`execute_flush` ->
         :meth:`publish_flush`, in rounds of at most
-        ``max_flush_microbatches``.  Returns {request_id: features
-        (b, beta, n, n)} for all requests completed during this flush
-        (results are also retained until redeemed via :meth:`take`).
+        ``max_flush_microbatches``.  Returns {request_id: result} for all
+        requests completed during this flush (results are also retained
+        until redeemed via :meth:`take`): vision requests resolve to
+        features (b, beta, n, n), token requests to morphed tokens (b, L)
+        or Aug-embedded features (b, L, d_model).
         """
         done: dict[int, np.ndarray] = {}
         while True:
@@ -862,6 +1006,7 @@ class MoLeDeliveryEngine:
             )
         out = self._results.pop(request_id)
         self._request_shape.pop(request_id, None)
+        self._token_deliver.pop(request_id, None)
         self._done.discard(request_id)
         info = self._req_info.pop(request_id)
         req = info.request
@@ -889,26 +1034,41 @@ class MoLeDeliveryEngine:
         self._rebuild_queues()
         self._results.clear()
         self._request_shape.clear()
+        self._token_deliver.clear()
         self._req_info.clear()
         self._done.clear()
 
     def _rebuild_queues(self) -> None:
-        """Replace the queue with an empty twin (same buckets, same id
-        allocator).  Crash recovery's first step: a queue abandoned mid-
+        """Replace every lane's queue with an empty twin (same buckets, same
+        id allocator).  Crash recovery's first step: a queue abandoned mid-
         coalesce may have rows missing; rebuilding and replaying from
         ``_req_info`` is the only state the recovery paths trust."""
-        from .queue import RequestQueue
+        from .queue import RequestQueue, TokenQueue
 
-        # release() hands the dead queue's backlog references back to the
-        # scheduler — otherwise its clock would count them as live forever.
-        self.queue.release()
-        self.queue = RequestQueue(
-            self.queue.feature_dim, max_rows=self.max_rows,
-            row_buckets=self.queue.row_buckets,
-            group_buckets=self.queue.group_buckets,
-            dtype=self.queue.dtype, id_alloc=self._id_alloc,
-            scheduler=self.scheduler, service_lane="vision",
-        )
+        if self.queue is not None:
+            # release() hands the dead queue's backlog references back to
+            # the scheduler — otherwise its clock would count them as live
+            # forever.
+            self.queue.release()
+            self.queue = RequestQueue(
+                self.queue.feature_dim, max_rows=self.max_rows,
+                row_buckets=self.queue.row_buckets,
+                group_buckets=self.queue.group_buckets,
+                dtype=self.queue.dtype, id_alloc=self._id_alloc,
+                scheduler=self.scheduler, service_lane="vision",
+            )
+        if self.token_queue is not None:
+            tq = self.token_queue
+            tq.release()
+            self.token_queue = TokenQueue(
+                max_rows=self.max_rows, row_buckets=tq.row_buckets,
+                group_buckets=tq.group_buckets, seq_buckets=tq.seq_buckets,
+                id_alloc=self._id_alloc, scheduler=self.scheduler,
+            )
+            # Carry the ensured group buckets over: the LM plan may still be
+            # current, so _refresh_lm_plan would not re-ensure them.
+            for g in sorted(tq._ensured_groups):
+                self.token_queue.ensure_group_bucket(g)
 
     # -- crash safety: snapshot / restore ------------------------------------
     def snapshot(self) -> EngineSnapshot:
@@ -919,21 +1079,26 @@ class MoLeDeliveryEngine:
         (``req/<rid>/payload``, still pending) or its finished result
         (``req/<rid>/result``).  Meta: slot bookkeeping, the scheduler's
         fairness state, and one JSON-able descriptor per request.  The
-        layout is the reference's, with ``registries["lm"]`` always None.
+        layout is the reference's (secrets under ``vision/`` and ``lm/``).
         """
         arrays: dict[str, np.ndarray] = {}
-        rmeta, rarrays = self.registry.snapshot_state()
         meta: dict = {
             "next_rid": self._next_rid,
-            "embed_tables_needed": False,
+            "embed_tables_needed": self._embed_tables_needed,
             # Restoring the fairness state means a tenant's banked debt
             # survives a crash.
             "scheduler": self.scheduler.snapshot_state(),
-            "registries": {"vision": rmeta, "lm": None},
+            "registries": {},
             "requests": [],
         }
-        for k, v in rarrays.items():
-            arrays[f"vision/{k}"] = v
+        for lane, reg in (("vision", self.registry), ("lm", self.lm_registry)):
+            if reg is None:
+                meta["registries"][lane] = None
+                continue
+            rmeta, rarrays = reg.snapshot_state()
+            meta["registries"][lane] = rmeta
+            for k, v in rarrays.items():
+                arrays[f"{lane}/{k}"] = v
         for rid in sorted(self._req_info):
             info = self._req_info[rid]
             req = info.request
@@ -972,16 +1137,24 @@ class MoLeDeliveryEngine:
         once.
         """
         meta, arrays = snap.meta, snap.arrays
-        if meta["registries"].get("lm") is not None:
-            raise ValueError(
-                "snapshot has an LM registry; the LM lanes are not ported yet"
+        for lane, reg in (("vision", self.registry), ("lm", self.lm_registry)):
+            rmeta = meta["registries"].get(lane)
+            if (rmeta is None) != (reg is None):
+                raise ValueError(
+                    f"snapshot and engine disagree on the {lane} registry "
+                    f"(snapshot {'has' if rmeta else 'lacks'} one)"
+                )
+            if reg is None:
+                continue
+            prefix = lane + "/"
+            reg.restore_state(
+                rmeta,
+                {k[len(prefix):]: v for k, v in arrays.items()
+                 if k.startswith(prefix)},
             )
-        self.registry.restore_state(
-            meta["registries"]["vision"],
-            {k[len("vision/"):]: v for k, v in arrays.items()
-             if k.startswith("vision/")},
-        )
         self._plan = None
+        self._lm_plan = None
+        self._embed_tables_needed = bool(meta["embed_tables_needed"])
         self.reset_pending()
         # After reset_pending the queue is drained (no backlog refs), so the
         # scheduler state can be swapped wholesale; the replay below
@@ -1056,3 +1229,19 @@ def _delivery_step(x: torch.Tensor, gidx: torch.Tensor, cores: torch.Tensor,
     """
     morphed = morph_rows_grouped(x, gidx, cores, kappa)
     return aug_conv_forward_grouped(morphed, gidx, augs)
+
+
+def _lm_delivery_step(tokens: torch.Tensor, gidx: torch.Tensor,
+                      perms: torch.Tensor,
+                      aug_embeds: torch.Tensor | None):
+    """Token morph (+ optional Aug-Embedding) for one padded microbatch.
+
+    tokens: (G, B, L) int32; gidx: (G,); perms: (S, V) int32; aug_embeds:
+    (S, V, d), or None when no request of the microbatch asked for features.
+    Returns (morphed, feats) with feats None without ``aug_embeds``.  Both
+    are gathers through each group's slot of the stacks, for any ``gidx``.
+    """
+    morphed = token_morph_grouped(tokens, gidx, perms)
+    if aug_embeds is None:
+        return morphed, None
+    return morphed, aug_embed_grouped(morphed, gidx, aug_embeds)

@@ -1,10 +1,11 @@
 """Weighted-fair request queues + padded-microbatch coalescing.
 
 Copied from ``repro.runtime.queue`` (the port may not import the JAX
-package): :class:`FairScheduler`, :class:`RequestQueue`, :class:`Microbatch`
-and :class:`QueuedRequest` are the reference's code, so the port coalesces
-the same microbatches from the same traffic.  ``TokenQueue`` and
-``FairAdmissionQueue`` (the LM lanes) arrive with a later slice.
+package): :class:`FairScheduler`, :class:`RequestQueue`, :class:`Microbatch`,
+:class:`QueuedRequest`, :class:`TokenQueue` (the LM token lane) and
+:class:`FairAdmissionQueue` (decode-lane admission) are the reference's
+code, so the port coalesces the same microbatches and admits the same
+sequences from the same traffic.
 
 Requests arrive as (tenant, rows) with a per-request priority; tenants are
 many, batches are small.  The coalescer packs pending rows into a *padded
@@ -53,6 +54,11 @@ an independent clock, inflating a multi-lane tenant's share by up to the
 number of lanes it touched).  A stand-alone queue builds a private scheduler
 and behaves exactly as before.
 
+LM token traffic coalesces through :class:`TokenQueue`: the same packing,
+but requests are int32 token sequences and microbatches are additionally
+**length-bucketed** — one padded-sequence-length bucket per microbatch, so a
+16-token probe never pads out to a co-tenant's 512-token prompt.
+
 The queues are deliberately synchronous and **not thread-safe** (``submit`` /
 ``coalesce``); the reference's async front door
 (``repro.runtime.async_engine``) serializes access behind its lock and
@@ -69,11 +75,14 @@ from typing import Callable, Iterable, Mapping
 import numpy as np
 
 __all__ = [
+    "AdmittedSequence",
+    "FairAdmissionQueue",
     "FairScheduler",
     "GroupSlice",
     "Microbatch",
     "QueuedRequest",
     "RequestQueue",
+    "TokenQueue",
 ]
 
 
@@ -697,3 +706,277 @@ class RequestQueue:
             n_real_groups=len(chunks), n_real_rows=n_real_rows,
             n_clamped_padding=n_clamped,
         )
+
+
+class TokenQueue:
+    """Length-bucketed weighted-fair delivery queue for LM token requests.
+
+    A token request is a ``(b, L)`` int32 batch of sequences; ``L`` is padded
+    up to the smallest ``seq_buckets`` entry at submission (pad id 0 — the
+    padded positions are sliced away on reassembly, so the id only has to be
+    a valid gather index).  Internally one :class:`RequestQueue` runs per
+    sequence bucket (rows of width ``L_bucket``), so every microbatch is
+    ``(G, B, L_bucket)`` with the exact same WFQ scheduling, slot-sorted
+    row/group bucketing, and padding-group behavior as the vision rows
+    lane; ``coalesce`` serves the bucket holding the oldest
+    pending request, which keeps cross-bucket traffic FIFO-fair.
+
+    Every per-bucket queue charges the **same** :class:`FairScheduler`
+    (the engine's shared one when given, a private one otherwise), so a
+    tenant spreading sequences over many length buckets holds one fairness
+    record, not one per bucket.
+    """
+
+    def __init__(
+        self,
+        *,
+        max_rows: int = 64,
+        row_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64),
+        group_buckets: tuple[int, ...] = (1, 2, 4, 8, 16),
+        seq_buckets: tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512),
+        id_alloc: Callable[[], int] | None = None,
+        scheduler: FairScheduler | None = None,
+        service_lane: str = "tokens",
+    ):
+        self.max_rows = max_rows
+        self.row_buckets = tuple(sorted(row_buckets))
+        self.group_buckets = tuple(sorted(group_buckets))
+        self.seq_buckets = tuple(sorted(seq_buckets))
+        if id_alloc is None:
+            # All per-bucket queues must share one id space (rids order the
+            # cross-bucket FIFO and key the engine's result table).
+            counter = itertools.count()
+            id_alloc = lambda: next(counter)
+        self._id_alloc = id_alloc
+        self.scheduler = scheduler if scheduler is not None else FairScheduler()
+        self.service_lane = service_lane
+        self._queues: dict[int, RequestQueue] = {}   # seq bucket -> lane
+        self._ensured_groups: set[int] = set()
+
+    def __len__(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    @property
+    def pending_rows(self) -> int:
+        return sum(q.pending_rows for q in self._queues.values())
+
+    def pending_rows_by_tenant(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for q in self._queues.values():
+            for t, n in q.pending_rows_by_tenant().items():
+                out[t] = out.get(t, 0) + n
+        return out
+
+    def wfq_lag(self) -> float:
+        """Virtual-time spread on the shared scheduler (all buckets charge
+        one clock, so there is one spread, not one per bucket)."""
+        return self.scheduler.wfq_lag()
+
+    def ensure_group_bucket(self, n: int) -> None:
+        self._ensured_groups.add(n)
+        for q in self._queues.values():
+            q.ensure_group_bucket(n)
+
+    def release(self) -> None:
+        """Release every per-bucket queue (see :meth:`RequestQueue.release`)."""
+        for q in self._queues.values():
+            q.release()
+
+    def seq_bucket_for(self, seq_len: int) -> int:
+        """Padded sequence length a request of ``seq_len`` coalesces at."""
+        return bucketize(seq_len, self.seq_buckets)
+
+    def submit(
+        self,
+        tenant_id: str,
+        tokens: np.ndarray,
+        *,
+        priority: int = 0,
+        weight: float | None = None,
+        rid: int | None = None,
+    ) -> int:
+        tokens = np.asarray(tokens)
+        if tokens.ndim != 2:
+            raise ValueError(f"expected tokens (b, L), got {tokens.shape}")
+        b, L = tokens.shape
+        if L > self.seq_buckets[-1]:
+            # Front doors check this too (api.normalize names the request);
+            # raising here keeps stand-alone queue users off bucketize's
+            # bare "N exceeds largest bucket" internals error.
+            raise ValueError(
+                f"request for tenant {tenant_id!r}: sequence length {L} "
+                f"exceeds the largest seq bucket {self.seq_buckets[-1]}; "
+                f"split the request into <= {self.seq_buckets[-1]}-token "
+                f"chunks or construct the queue with larger seq_buckets"
+            )
+        Lb = self.seq_bucket_for(L)
+        lane = self._queues.get(Lb)
+        if lane is None:
+            lane = RequestQueue(
+                Lb, max_rows=self.max_rows, row_buckets=self.row_buckets,
+                group_buckets=self.group_buckets, dtype=np.int32,
+                id_alloc=self._id_alloc, scheduler=self.scheduler,
+                service_lane=self.service_lane,
+            )
+            for g in sorted(self._ensured_groups):
+                lane.ensure_group_bucket(g)
+            self._queues[Lb] = lane
+        padded = np.zeros((b, Lb), np.int32)
+        padded[:, :L] = tokens
+        return lane.submit(
+            tenant_id, padded, priority=priority, weight=weight, rid=rid
+        )
+
+    def coalesce(
+        self,
+        tenant_index: Mapping[str, int] | Callable[[str], int],
+        max_groups: int | None = None,
+    ) -> Microbatch | None:
+        """One padded ``(G, B, L_bucket)`` microbatch from the seq bucket
+        whose head-of-line request is oldest; None when nothing is pending."""
+        live = [
+            (q.oldest_pending_id, q)
+            for q in self._queues.values()
+            if q.oldest_pending_id is not None
+        ]
+        if not live:
+            return None
+        _, lane = min(live, key=lambda kv: kv[0])
+        return lane.coalesce(tenant_index, max_groups)
+
+
+@dataclasses.dataclass
+class AdmittedSequence:
+    """One decode sequence handed out by :class:`FairAdmissionQueue`."""
+
+    seq_id: int
+    tenant_id: str
+    prompt: np.ndarray        # (L,) int32, already morphed by the submitter
+    max_new_tokens: int
+    priority: int = 0
+
+
+class FairAdmissionQueue:
+    """WFQ admission for the continuous-batching decode lane.
+
+    The decode lane's scarce resource is *rows x steps*: a sequence
+    admitted to a row occupies it for ``max_new_tokens`` decode steps.
+    This queue runs the exact weighted-fair-queueing arithmetic of
+    :class:`RequestQueue` — it charges the same (possibly engine-shared)
+    :class:`FairScheduler` — but hands out one *sequence* at a time
+    (``take()``), charging its decode-step count times the scheduler's
+    ``decode_step_units`` exchange rate as the service units.  A heavy
+    tenant queueing many long generations is throttled between steps, not
+    between requests; with the engine's scheduler shared, its decode
+    appetite also counts against its morph-lane share (and vice versa).
+
+    Emptied tenants are **not** forgotten: the scheduler's debt-carrying
+    prune keeps a drained tenant's advanced virtual time until the global
+    clock catches up, so a submit-right-after-take tenant re-enters where
+    it left off instead of at the clock (under-paying) — the lane-deletion
+    bug the pre-unification per-queue bookkeeping had.
+    """
+
+    def __init__(
+        self,
+        scheduler: FairScheduler | None = None,
+        *,
+        step_units: float | None = None,
+    ):
+        self.scheduler = scheduler if scheduler is not None else FairScheduler()
+        self.step_units = (
+            self.scheduler.decode_step_units if step_units is None
+            else float(step_units)
+        )
+        if not self.step_units > 0:
+            raise ValueError(
+                f"step_units must be positive, got {self.step_units}"
+            )
+        self._backlogs: dict[str, list] = {}
+        self._pick: list[tuple[float, int, str]] = []
+        self._seq = itertools.count()
+        self._next_id = 0
+        self._pending = 0
+
+    def __len__(self) -> int:
+        return self._pending
+
+    # Legacy spellings (see RequestQueue).
+    @property
+    def _vnow(self) -> float:
+        return self.scheduler.vnow
+
+    @property
+    def _lanes(self) -> dict[str, _TenantLane]:
+        return self.scheduler._tenants
+
+    @property
+    def _weights(self) -> dict[str, float]:
+        return self.scheduler._weights
+
+    def snapshot_items(self) -> list[AdmittedSequence]:
+        """Every queued (not yet taken) sequence, in arrival order — the
+        decode lane's crash snapshot replays these through ``submit`` with
+        their original ``seq_id``s."""
+        items = [e for blog in self._backlogs.values() for e in blog]
+        return [item for _, _, item in sorted(items, key=lambda e: e[1])]
+
+    def release(self) -> None:
+        """Drop every queued sequence, returning backlog refs (see
+        :meth:`RequestQueue.release`)."""
+        for tenant in self._backlogs:
+            self.scheduler.exit_backlog(tenant)
+        self._backlogs.clear()
+        self._pick.clear()
+        self._pending = 0
+
+    def submit(self, tenant_id: str, prompt: np.ndarray, max_new_tokens: int,
+               *, priority: int = 0, weight: float | None = None,
+               sid: int | None = None) -> int:
+        """Queue one sequence; returns its lane-unique ``seq_id``.  ``sid``
+        overrides id allocation for crash-recovery replay (see
+        :meth:`RequestQueue.submit`'s ``rid``)."""
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if weight is not None:
+            self.scheduler.set_weight(tenant_id, weight)
+        blog = self._backlogs.get(tenant_id)
+        if blog is None:
+            blog = self._backlogs[tenant_id] = []
+        rec = (
+            self.scheduler.enter_backlog(tenant_id) if not blog
+            else self.scheduler.lane(tenant_id)
+        )
+        if sid is not None:
+            sid = int(sid)
+            self._next_id = max(self._next_id, sid + 1)
+        else:
+            sid = self._next_id
+            self._next_id += 1
+        item = AdmittedSequence(
+            seq_id=sid, tenant_id=tenant_id,
+            prompt=np.asarray(prompt, np.int32).reshape(-1),
+            max_new_tokens=int(max_new_tokens), priority=priority,
+        )
+        heapq.heappush(blog, (-priority, next(self._seq), item))
+        heapq.heappush(self._pick, (rec.vtime, blog[0][1], tenant_id))
+        self._pending += 1
+        return sid
+
+    def take(self) -> AdmittedSequence | None:
+        """Dequeue the next sequence under WFQ, or None when empty."""
+        tenant = _pick_backlogged(self._pick, self._backlogs, self.scheduler)
+        if tenant is None:
+            return None
+        sched = self.scheduler
+        rec = sched.peek(tenant)
+        sched.advance_clock()
+        blog = self._backlogs[tenant]
+        item = heapq.heappop(blog)[2]
+        if not blog:
+            del self._backlogs[tenant]
+            sched.exit_backlog(tenant)
+        sched.charge(rec, item.max_new_tokens * self.step_units, "decode")
+        sched.prune()
+        self._pending -= 1
+        return item

@@ -244,6 +244,8 @@ def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.runtime.engine" in mods
     assert "repro_torch.launch.serve" in mods
+    assert {"repro_torch.runtime.decode", "repro_torch.models.api",
+            "repro_torch.core.lm", "repro_torch.launch.steps"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import ConvGeometry, SessionRegistry  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     aug_conv_forward_grouped, grouped_aug_gemm, grouped_block_diag_matmul,
-    morph_rows_grouped, ref,
+    grouped_row_gemm, lm_head_rows_grouped, morph_rows_grouped, ref,
 )
 from repro_torch.runtime import DeliveryRequest, MoLeDeliveryEngine  # noqa: E402
 
@@ -66,6 +66,31 @@ def test_grouped_block_diag_kernel_matches_plain(rng, cuda, name, B, kappa, q):
     ).cpu()
     assert grouped_block_diag_matmul.launches == before + 1
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(GIDX_CASES))
+@pytest.mark.parametrize("K,N", [(512, 2048), (300, 1000), (129, 131)])
+def test_grouped_row_gemm_kernel_matches_plain(rng, cuda, name, dtype, K, N):
+    """K3 against its plain version: fp32 within 1e-4 * max|plain|; bf16
+    within two bf16 units in the last place of max|plain| (each side rounds
+    once; the sums run in other orders).  N = 131 runs the scalar variant."""
+    h = _rand(rng, 4, K).to(dtype)
+    tables = _rand(rng, 6, K, N, scale=K ** -0.5)
+    gidx = torch.tensor(GIDX_CASES[name], dtype=torch.int32)
+    safe = gidx.clamp(0, 5)
+    want = ref.lm_head_rows_grouped_ref(
+        h.to(cuda), safe.to(cuda), tables.to(cuda)
+    ).float().cpu()
+    before = grouped_row_gemm.launches
+    got = lm_head_rows_grouped(h.to(cuda), gidx.numpy(), tables.to(cuda))
+    torch.cuda.synchronize()
+    assert grouped_row_gemm.launches == before + 1
+    assert got.dtype == dtype and got.shape == (4, N)
+    scale = float(want.abs().max())
+    bound = (1e-4 * scale if dtype == torch.float32
+             else 2 * 2.0 ** (np.floor(np.log2(scale)) - 7))
+    assert float((got.float().cpu() - want).abs().max()) <= bound
 
 
 def test_ops_launch_kernels_for_any_shape(rng, cuda):

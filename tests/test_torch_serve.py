@@ -36,7 +36,7 @@ def test_delivery_mode_matches_reference_launcher(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--async"], ["--mode", "lm"], ["--mode", "serve"],
+    ["--async"], ["--mode", "lm", "--async"], ["--mode", "serve"],
 ])
 def test_unported_modes_raise(argv):
     with pytest.raises(NotImplementedError, match="not ported yet"):
