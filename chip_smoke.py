@@ -61,11 +61,48 @@ printing one JSON line; any failure raises and exits non-zero:
                 margin).  Printed, not gated: tokens/s, decode-step p50,
                 where a decode step's time goes (trunk, K3, sampling), the
                 admission prefill's time and a profiled step's idle share.
-  7. the ``kernels`` line (K1, K2, K3), the card's name and power limit,
-     and the final ``{"ok": true, ...}`` line.
+  7. kernels_k45 the single-tenant / per-group morph (``block_diag_matmul``,
+                K4) and Aug-Conv (``aug_gemm``, K5) against their plain
+                versions in fp32 and bf16: K4 at (R, kappa, q) = (256, 1,
+                3072), the VGG-16/CIFAR morph, (256, 3, 1024), (1024, 8,
+                960) and ragged (37, 3, 100); ``morph_rows_batched`` at
+                (4, 64, 3072) with 4 cores; K5 at (256, 3072) x (3072,
+                65536); ``aug_conv_forward_batched`` at (4, 64, 3072) x
+                (4, 3072, 65536); ragged K5 (7, 33) x (33, 9).  Bound: fp32
+                max|kernel - plain| <= 1e-4 * max|plain|, bf16 two bf16
+                ulps of max|plain|.  Times kernel, plain version (in fp32
+                that is one ``torch.matmul``) and one library call
+                (``torch.matmul`` in the operand dtype: cuBLAS, in bf16 on
+                the tensor cores) at the VGG-16 shapes.
+  8. vgg_path   the paper's developer path at VGG-16/CIFAR width (13 convs
+                64..512, 32x32, 10 classes), random weights from a seeded
+                generator on the card: one provider (``DataProvider``,
+                kappa=1) whose C^{ac} (805 MB fp32) is built from the VGG's
+                own first-layer kernels; 256 seeded images.  The provider
+                morphs the batch (K4, ``kernels.morph_rows``) and the
+                developer runs Aug-VGG-16 on the morphed rows (K5 in the
+                first layer, ``models.cnn.apply``).  Gated: (1) K4's rows
+                equal ``DataProvider.morph_batch`` (plain) within 1e-4 *
+                max; (2) K5's first-layer features equal
+                ``conv_reference(D, K)[:, perm]`` within 1e-4 * max|conv|;
+                (3) Aug-VGG-16 logits (permutation absorbed into
+                ``convs[0].b`` and ``convs[1].w``) equal plain VGG-16 logits
+                on the raw images (cuDNN, TF32 off) within 1e-3 *
+                max|plain|, and the argmax agrees wherever the top-2 gap
+                exceeds twice that; (4) three SGD steps (batch 64, lr 1e-3)
+                from the two parameter sets (the plain first conv frozen, as
+                C^{ac} is), and the loss on a fourth batch after them, agree
+                within 1e-3 relative; (5) K4 and K5
+                launched once per call made, K1-K3 not at all.  Printed,
+                not gated: plain and Aug-VGG-16 forward p50 (batch 256,
+                CUDA events), K4 per batch, the measured compute overhead
+                aug/plain - 1 beside the derived 0.636 and the paper's 0.09.
+  9. the ``kernels`` line (K1-K5), the card's name and power limit, and the
+     final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -99,6 +136,17 @@ K3_R, K3_K, K3_N = 4, 4096, 102400
 K3_RAGGED = [(3, 3000, 1000), (3, 3000, 999)]
 LM_ARCH, LM_TENANTS, LM_REQUESTS, LM_PROMPT, LM_GEN = "deepseek_7b", 4, 8, 32, 16
 TIE_MARGIN_ULPS = 4             # bf16 units in the last place of max|logit|
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+# K4/K5 (kernels_k45) and the developer path (vgg_path).
+K4_SHAPES = [(256, 1, 3072), (256, 3, 1024), (1024, 8, 960), (37, 3, 100)]
+K4_BATCHED = (4, 64, 3072)      # (G, B, F), kappa = 1, one core per group
+K5_MAIN = (256, 3072, 65536)    # (B, K, N): VGG-16/CIFAR Aug-Conv, batch 256
+K5_BATCHED = (4, 64, 3072, 65536)
+K5_RAGGED = (7, 33, 9)
+VGG_BATCH, VGG_STEP_BATCH, VGG_STEPS, VGG_LR = 256, 64, 3, 1e-3
+VGG_LOGIT_TOL = 1e-3            # x max|plain logits|: 10x the first layer's
+VGG_LOSS_RTOL = 1e-3
+PAPER_OVERHEAD = 0.09           # "VGG-16 on CIFAR ... computational overhead only 9%"
 
 
 def bf16_ulp(x: float) -> float:
@@ -114,6 +162,14 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def release() -> None:
+    """Free what the last phase left on the card before the next starts: its
+    engines and registries sit in reference cycles, which only the cyclic
+    collector frees, and otherwise stay live into a later phase's peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def emit(obj: dict) -> None:
@@ -134,9 +190,27 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def cuda_times(fn, iters: int) -> list[float]:
+    """Device time of each of ``iters`` calls of ``fn`` (after one warm-up),
+    CUDA events around each."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def bound_ms(n_bytes: float, flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
+    t_ops = flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -801,6 +875,296 @@ def churn(dev, core, runtime) -> None:
           "evictions": reg.evictions, "max_err_vs_per_request": worst})
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+def k45_checks(dev, kernels, ref) -> dict:
+    """K4 and K5 vs their plain versions in fp32 and bf16 at the VGG-16
+    shapes, the benchmark shapes and ragged ones; returns their error and
+    timing rows (fp32, the developer path's type)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    checks = []
+    rows = {"block_diag_matmul": {"max_abs_err": 0.0},
+            "aug_gemm": {"max_abs_err": 0.0}}
+    dtypes = (torch.float32, torch.bfloat16)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def hold(name, tag, dtype, got, want):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        lim = REL_TOL * scale if dtype == torch.float32 else 2 * bf16_ulp(scale)
+        dt = str(dtype).split(".")[-1]
+        checks.append({"kernel": name, "case": f"{tag}/{dt}",
+                       "max_abs_err": err, "limit": lim})
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {tag}/{dt}: got {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{name} {tag}/{dt}: non-finite")
+        check(err <= lim, f"{name} {tag}/{dt}: |kernel - plain| {err} > {lim}")
+        if dtype == torch.float32:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    def timed(dtype, run_kernel, run_plain, run_library, n_bytes, flops, iters):
+        times = [cuda_ms(run_kernel, iters), cuda_ms(run_plain, iters),
+                 cuda_ms(run_kernel, iters), cuda_ms(run_plain, iters),
+                 cuda_ms(run_library, iters)]
+        rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        b, by = bound_ms(n_bytes, flops, rate)
+        return {"ms": (times[0] + times[2]) / 2,
+                "plain_ms": (times[1] + times[3]) / 2, "library_ms": times[4],
+                "bound_ms": b, "bound_by": by, "runs_ms": times}
+
+    # K4: single-tenant morphs, then the per-group form.
+    for R, kappa, q in K4_SHAPES:
+        x32, core32 = randn(R, kappa * q), randn(q, q, scale=q ** -0.5)
+        for dtype in dtypes:
+            x, core = x32.to(dtype), core32.to(dtype)
+            hold("block_diag_matmul", f"R{R}_kappa{kappa}_q{q}", dtype,
+                 kernels.morph_rows(x, core, kappa),
+                 ref.block_diag_matmul_ref(x, core, kappa))
+            if (R, kappa, q) == K4_SHAPES[0]:
+                sz = 4 if dtype == torch.float32 else 2
+                # The library call: one cuBLAS product of the (R*kappa, q)
+                # view in the operand dtype.
+                xv = x.view(R * kappa, q)
+                row = timed(
+                    dtype,
+                    lambda: kernels.block_diag_matmul(x, core, kappa),
+                    lambda: ref.block_diag_matmul_ref(x, core, kappa),
+                    lambda: torch.matmul(xv, core),
+                    sz * (2 * R * kappa * q + q * q), 2 * R * kappa * q * q, 20)
+                row["timed_shape"] = f"x({R},{kappa * q}) core({q},{q}) kappa={kappa}"
+                if dtype == torch.float32:
+                    row["plain_is"] = "one torch.matmul (fp32, TF32 off)"
+                    rows["block_diag_matmul"].update(row)
+                else:
+                    rows["block_diag_matmul"]["bf16"] = row
+    G, Bg, F = K4_BATCHED
+    x32, cores32 = randn(G, Bg, F), randn(G, F, F, scale=F ** -0.5)
+    for dtype in dtypes:
+        x, cores = x32.to(dtype), cores32.to(dtype)
+        hold("block_diag_matmul", f"batched_G{G}_B{Bg}_F{F}", dtype,
+             kernels.morph_rows_batched(x, cores, 1),
+             ref.block_diag_matmul_batched_ref(x, cores, 1))
+    del x32, cores32, x, cores
+
+    # K5: single-tenant at the developer path's shape, per-group, ragged.
+    B, K, N = K5_MAIN
+    t32, c32 = randn(B, K), randn(K, N, scale=K ** -0.5)
+    for dtype in dtypes:
+        t, c = t32.to(dtype), c32.to(dtype)
+        hold("aug_gemm", f"B{B}_K{K}_N{N}", dtype,
+             kernels.aug_conv_forward(t, c), ref.aug_gemm_ref(t, c))
+        sz = 4 if dtype == torch.float32 else 2
+        row = timed(dtype,
+                    lambda: kernels.aug_gemm(t, c),
+                    lambda: ref.aug_gemm_ref(t, c),
+                    lambda: torch.matmul(t, c),
+                    sz * (B * K + K * N + B * N), 2 * B * K * N, 10)
+        row["timed_shape"] = f"t({B},{K}) c_ac({K},{N})"
+        if dtype == torch.float32:
+            row["plain_is"] = "one torch.matmul (fp32, TF32 off)"
+            rows["aug_gemm"].update(row)
+        else:
+            rows["aug_gemm"]["bf16"] = row
+    del t32, c32, t, c
+    torch.cuda.empty_cache()
+    G, Bg, K, N = K5_BATCHED
+    t32, c32 = randn(G, Bg, K), randn(G, K, N, scale=K ** -0.5)
+    for dtype in dtypes:
+        t, c = t32.to(dtype), c32.to(dtype)
+        hold("aug_gemm", f"batched_G{G}_B{Bg}_K{K}_N{N}", dtype,
+             kernels.aug_conv_forward_batched(t, c), ref.aug_gemm_batched_ref(t, c))
+        del t, c
+    del t32, c32
+    torch.cuda.empty_cache()
+    B, K, N = K5_RAGGED
+    t32, c32 = randn(B, K), randn(K, N, scale=K ** -0.5)
+    for dtype in dtypes:
+        t, c = t32.to(dtype), c32.to(dtype)
+        hold("aug_gemm", f"ragged_B{B}_K{K}_N{N}", dtype,
+             kernels.aug_conv_forward(t, c), ref.aug_gemm_ref(t, c))
+    emit({"phase": "kernels_k45", "checks": len(checks),
+          "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
+          "rows": rows})
+    return rows
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+def absorbed(params: dict, perm: torch.Tensor) -> dict:
+    """The parameter set Aug-VGG needs to compute plain VGG: conv-0's output
+    channels (its bias) and conv-1's input channels permuted by the secret
+    channel permutation (tests/test_vgg.py)."""
+    out = {"convs": [dict(c) for c in params["convs"]], "head": params["head"]}
+    out["convs"][0]["b"] = params["convs"][0]["b"][perm]
+    out["convs"][1] = {"w": params["convs"][1]["w"][:, perm],
+                       "b": params["convs"][1]["b"]}
+    return out
+
+
+def sgd_losses(model, batches, aug_matrix=None) -> list[float]:
+    """Loss of each of ``VGG_STEPS`` SGD steps on ``batches[:VGG_STEPS]``
+    (before its update), then the loss on the next batch after them."""
+    import torch.nn.functional as F
+
+    opt = torch.optim.SGD(model.parameters(), lr=VGG_LR)
+    losses = []
+    for xb, yb in batches[:VGG_STEPS]:
+        opt.zero_grad()
+        loss = F.cross_entropy(model(xb, aug_matrix), yb)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    xb, yb = batches[VGG_STEPS]
+    with torch.no_grad():
+        losses.append(float(F.cross_entropy(model(xb, aug_matrix), yb)))
+    return losses
+
+
+def vgg_path(dev, core, kernels) -> dict:
+    """The paper's developer path at VGG-16/CIFAR width: provider morph (K4),
+    Aug-VGG-16 inference and training (K5), gated against plain VGG-16 on
+    the raw images; the measured compute overhead."""
+    from repro_torch.models import cnn
+
+    cfg = cnn.vgg16()
+    geom = cfg.first_geom
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    params = cnn.init(cfg, gen, dev)
+    x = torch.randn((VGG_BATCH, geom.alpha, geom.m, geom.m), generator=gen,
+                    device=dev)
+    labels = torch.randint(0, cfg.classes, (VGG_BATCH,), generator=gen,
+                           device=dev)
+    # Provider: secrets from a numpy seed, C^{ac} from the developer's own
+    # first-layer kernels (host float64 fusion, built once).
+    t0 = time.monotonic()
+    prov = core.DataProvider(geom, kappa=1, seed=SEED)
+    kern = cnn.first_layer_kernels(params, cfg)
+    aug = prov.build_aug_conv(kern.cpu().numpy())
+    secrets_s = time.monotonic() - t0
+    core_t = torch.from_numpy(prov._core.matrix).to(dev)
+    mat = torch.from_numpy(aug.matrix).to(dev)          # what the developer gets
+    perm = torch.from_numpy(aug.channel_perm).to(dev)
+    p_aug = absorbed(params, perm)
+    plain_model, aug_model = cnn.VGG(params, cfg), cnn.VGG(p_aug, cfg)
+    # The Aug model's first layer is the fixed C^{ac}; the plain model's
+    # first conv is frozen with it, so both train the same function.
+    plain_model.convs[0]["w"].requires_grad_(False)
+
+    # -- the main path: the provider morphs, the developer infers and trains
+    names = ("grouped_block_diag_matmul", "grouped_aug_gemm", "grouped_row_gemm",
+             "block_diag_matmul", "aug_gemm")
+    for name in names:
+        setattr(getattr(kernels, name), "launches", 0)
+    with torch.no_grad():
+        rows = kernels.morph_rows(core.unroll_batch(x), core_t, 1)
+        aug_logits = cnn.apply(p_aug, rows, cfg, aug_matrix=mat)
+        feats = kernels.aug_conv_forward(rows, mat)
+    step = VGG_STEP_BATCH
+    batches = [(rows[i : i + step], labels[i : i + step])
+               for i in range(0, VGG_BATCH, step)]
+    aug_losses = sgd_losses(aug_model, batches, mat)
+    torch.cuda.synchronize()
+    launches = {n: getattr(kernels, n).launches for n in names}
+    k5_calls = 2 + VGG_STEPS + 1
+    check(launches["block_diag_matmul"] == 1,
+          f"gate 5: K4 launched {launches['block_diag_matmul']} times for 1 call")
+    check(launches["aug_gemm"] == k5_calls,
+          f"gate 5: K5 launched {launches['aug_gemm']} times for {k5_calls} calls")
+    check(all(launches[n] == 0 for n in names[:3]),
+          f"gate 5: the developer path launched a grouped kernel: {launches}")
+
+    # Plain VGG-16 on the raw images (cuDNN, TF32 off), no kernel of ours.
+    with torch.no_grad():
+        plain_logits = cnn.apply(params, x, cfg)
+        want_rows = prov.morph_batch(x)
+        conv = core.conv_reference(x, kern, geom)[:, perm]
+    plain_losses = sgd_losses(plain_model, [(x[i : i + step], labels[i : i + step])
+                                            for i in range(0, VGG_BATCH, step)])
+    # Gate 1: K4 against the provider's plain morph.
+    err1 = float((rows - want_rows).abs().max())
+    lim1 = REL_TOL * float(want_rows.abs().max())
+    check(rows.shape == (VGG_BATCH, geom.in_features), f"rows {tuple(rows.shape)}")
+    check(err1 <= lim1, f"gate 1: |K4 - morph_batch| {err1} > {lim1}")
+    # Gate 2: eq. 5 on the first layer.
+    feats = core.reroll_batch(feats, geom.beta, geom.n)
+    err2 = float((feats - conv).abs().max())
+    lim2 = REL_TOL * float(conv.abs().max())
+    check(err2 <= lim2, f"gate 2: |K5 features - conv[:, perm]| {err2} > {lim2}")
+    # Gate 3: the whole network.
+    check(aug_logits.shape == plain_logits.shape == (VGG_BATCH, cfg.classes),
+          f"logits {tuple(aug_logits.shape)}")
+    check(bool(torch.isfinite(aug_logits).all()), "non-finite Aug-VGG logits")
+    err3 = float((aug_logits - plain_logits).abs().max())
+    lim3 = VGG_LOGIT_TOL * float(plain_logits.abs().max())
+    check(err3 <= lim3, f"gate 3: |Aug-VGG - VGG logits| {err3} > {lim3}")
+    top2 = plain_logits.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * lim3
+    same = aug_logits.argmax(-1) == plain_logits.argmax(-1)
+    check(bool(same[decided].all()),
+          f"gate 3: argmax differs on {int((~same & decided).sum())} images "
+          f"with a top-2 gap above {2 * lim3}")
+    # Gate 4: training parity.
+    rel4 = max(abs(a - p) / abs(p) for a, p in zip(aug_losses, plain_losses))
+    check(rel4 <= VGG_LOSS_RTOL,
+          f"gate 4: losses {aug_losses} vs {plain_losses} (rel {rel4})")
+    del feats, conv, want_rows, plain_model, aug_model
+    torch.cuda.empty_cache()
+
+    # -- where the time goes (CUDA events, batch 256, after the gates) ------
+    from repro_torch.core import overhead
+
+    xr = core.unroll_batch(x)
+    w0, b0 = params["convs"][0]["w"], params["convs"][0]["b"]
+    with torch.no_grad():
+        plain_ms = cuda_times(lambda: cnn.apply(params, x, cfg), 20)
+        aug_ms = cuda_times(lambda: cnn.apply(p_aug, rows, cfg, aug_matrix=mat), 20)
+        k4_ms = cuda_times(lambda: kernels.morph_rows(xr, core_t, 1), 20)
+        k5_ms = cuda_times(lambda: kernels.aug_conv_forward(rows, mat), 20)
+        k5_lib_ms = cuda_times(lambda: torch.matmul(rows, mat), 20)
+        conv0_ms = cuda_times(
+            lambda: torch.nn.functional.conv2d(x, w0, b0, padding=1), 20)
+    plain_p50, aug_p50 = float(np.median(plain_ms)), float(np.median(aug_ms))
+    k5_p50, k5_lib_p50 = float(np.median(k5_ms)), float(np.median(k5_lib_ms))
+    derived = overhead.analyze(
+        alpha=geom.alpha, beta=geom.beta, m=geom.m, n=geom.n, p=geom.p,
+        kappa=1, network_macs=overhead.vgg16_cifar_macs(),
+        dataset_images=60_000,
+    )
+    out = {
+        "phase": "vgg_path", "convs": len(cfg.conv_shapes()),
+        "widths": [co for _, co in cfg.conv_shapes()],
+        "image": [geom.alpha, geom.m, geom.m], "classes": cfg.classes,
+        "batch": VGG_BATCH, "kappa": 1, "c_ac_mb": mat.numel() * 4 / 1e6,
+        "launches": {"block_diag_matmul": launches["block_diag_matmul"],
+                     "aug_gemm": launches["aug_gemm"]},
+        "gate1_err": err1, "gate1_limit": lim1,
+        "gate2_err": err2, "gate2_limit": lim2,
+        "gate3_err": err3, "gate3_limit": lim3,
+        "gate3_decided_images": int(decided.sum()),
+        "gate3_argmax_agree_all": float(same.float().mean()),
+        "gate4_losses_aug": aug_losses, "gate4_losses_plain": plain_losses,
+        "gate4_max_rel": rel4,
+        "plain_forward_p50_ms": plain_p50, "aug_forward_p50_ms": aug_p50,
+        "k4_per_batch_p50_ms": float(np.median(k4_ms)),
+        "k5_per_batch_p50_ms": k5_p50,
+        "k5_library_fp32_p50_ms": k5_lib_p50,
+        "plain_first_conv_p50_ms": float(np.median(conv0_ms)),
+        "measured_overhead": aug_p50 / plain_p50 - 1,
+        # the same forward with fp32 torch.matmul's time in K5's place
+        "overhead_at_library_k5": (aug_p50 - k5_p50 + k5_lib_p50) / plain_p50 - 1,
+        "derived_overhead_eq17": derived.compute_overhead_ratio,
+        "paper_overhead": PAPER_OVERHEAD,
+        "extra_macs_per_image": derived.aug_extra_macs_per_sample,
+        "network_macs_per_image": derived.network_macs_per_sample,
+        "host_secret_build_s": secrets_s,
+    }
+    emit(out)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; needs a GPU")
@@ -819,15 +1183,20 @@ def main() -> None:
               for n, r in report.items()}})
 
     rows = kernel_checks(dev, kernels, ref)
-    torch.cuda.empty_cache()
+    release()
     main = main_path(dev, core, runtime, kernels)
-    torch.cuda.empty_cache()
+    release()
     churn(dev, core, runtime)
-    torch.cuda.empty_cache()
+    release()
     rows["grouped_row_gemm"] = k3_checks(dev, kernels, ref)
-    torch.cuda.empty_cache()
+    release()
     lm = lm_path(dev, kernels)
-    launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"])
+    release()
+    rows.update(k45_checks(dev, kernels, ref))
+    release()
+    vgg = vgg_path(dev, core, kernels)
+    launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
+                    **vgg["launches"])
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernel_rows = {   # name -> (source, replaced TPU kernel)
@@ -836,6 +1205,9 @@ def main() -> None:
         "grouped_aug_gemm": ("grouped_gemm.cu",
                              "src/repro/kernels/grouped.py:157"),
         "grouped_row_gemm": ("row_gemm.cu", "src/repro/kernels/grouped.py:206"),
+        "block_diag_matmul": ("grouped_gemm.cu",
+                              "src/repro/kernels/block_diag.py:45"),
+        "aug_gemm": ("grouped_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src,

@@ -1,36 +1,57 @@
-// Slot-indexed grouped SGEMM for the MoLe delivery engine (sm_90a).
+// Grouped GEMM for MoLe's morph and Aug-Conv products (sm_90a).
 //
-//   out[g] = a[g] @ b[clamp(gidx[g], 0, S - 1)]
-//   a (G, M, K), b (S, K, N), out (G, M, N), gidx (G,) int32; all fp32,
-//   row-major and contiguous.
+//   out[g] = a[g] @ b[slot(g)],  slot(g) = clamp(gidx[g], 0, S - 1), or g
+//                                when gidx is null
+//   a (G, M, K), b (S, K, N), out (G, M, N), gidx (G,) int32 or null;
+//   row-major and contiguous; a, b and out of one element type T.
 //
-// One kernel serves both delivery kernels of the TPU reference:
-//   * grouped_aug_gemm (src/repro/kernels/grouped.py:157): a = t (G, B, K),
-//     b = the stacked Aug-Conv matrices c_acs (S, K, N);
-//   * grouped_block_diag_matmul (src/repro/kernels/grouped.py:80): a = x
+// One kernel serves four TPU kernels of the reference, through two entry
+// points: grouped_sgemm (K1/K2, slot-indexed, fp32) and gemm_typed (K4/K5,
+// gidx null, fp32 or bf16):
+//   * grouped_aug_gemm (src/repro/kernels/grouped.py:157), K2: a = t
+//     (G, B, K), b = the stacked Aug-Conv matrices c_acs (S, K, N), fp32;
+//   * grouped_block_diag_matmul (src/repro/kernels/grouped.py:80), K1: a = x
 //     (G, B, kappa*q) viewed as (G, B*kappa, q), b = the stacked cores
-//     (S, q, q) -- reshape(x[g], (B, kappa, q)) @ core is that product.
-// The Pallas kernels scalar-prefetch gidx and DMA the slot's tile out of the
-// stack through an index_map.  Here each block reads its own gidx[g] from
-// device memory and forms the slot's base pointer: no (G, K, N) gather copy
-// exists.  The clamp is memory safety, not only parity: a pointer past slot
-// S-1 reads out of bounds.
+//     (S, q, q) -- reshape(x[g], (B, kappa, q)) @ core is that product; fp32;
+//   * block_diag_matmul (src/repro/kernels/block_diag.py:45), K4: the same
+//     morph with one core per group (cores (G, q, q)) or, at G = 1, the
+//     single-tenant x (R, kappa*q) @ blockdiag(core); gidx null;
+//   * aug_gemm (src/repro/kernels/aug_gemm.py:41), K5: t (G, B, K) @
+//     c_acs (G, K, N) or, at G = 1, the developer's T @ C^{ac}; gidx null.
+// K1/K2 run in fp32 only.  K4/K5 take fp32 or bf16, as the Pallas kernels
+// do: bf16 is converted to fp32 on load, the products are fp32 FFMA into an
+// fp32 accumulator, and each output is rounded once
+// (__float2bfloat16_rn), so the result is the reference's
+// einsum(..., preferred_element_type=f32).astype(bf16).
 //
-// What bounds it on an H100 at the slice's main-path shape (VGG-16/CIFAR
-// first layer, kappa = 1): grouped_aug_gemm at G=4, B=64, K=3072, N=65536
-// reads 3.2 GB of weights (0.96 ms at 3.35 TB/s) and does 103 GFLOP in fp32
-// (1.54 ms at 67 TFLOP/s): it is bound by fp32 FFMA issue, not by memory.
-// TF32 tensor cores would be faster but keep only ~3 decimal digits; the
-// reference accumulates in full fp32, so this kernel stays on FFMA.
+// The Pallas grouped kernels scalar-prefetch gidx and DMA the slot's tile
+// out of the stack through an index_map.  Here each block reads its own
+// gidx[g] from device memory and forms the slot's base pointer: no
+// (G, K, N) gather copy exists.  The clamp is memory safety, not only
+// parity: a pointer past slot S-1 reads out of bounds.  A null gidx means
+// slot = group index, which serves K4/K5's per-group operands with no index
+// vector copied to the card per call.
+//
+// What bounds it on an H100 at the main-path shapes (VGG-16/CIFAR first
+// layer, kappa = 1): K2 at G=4, B=64 and K5 at B=256 each do 103 GFLOP in
+// fp32 (1.54 ms at 67 TFLOP/s) against 3.2 GB and 0.8 GB of weights (0.96
+// and 0.24 ms at 3.35 TB/s): both are bound by fp32 FFMA issue, not by
+// memory.  K1/K4 at 256 rows do 4.8 GFLOP (0.07 ms) on 96 blocks, fewer
+// than the 132 SMs.  TF32 tensor cores would be faster but keep only ~3
+// decimal digits; the reference accumulates in full fp32, so this kernel
+// stays on FFMA, for bf16 operands too (they halve the bytes, not the
+// FFMA work).
 //
 // Design: a classic register-blocked SGEMM.  A 64 x 128 output tile per
 // block of 128 threads, each thread an 8 x 8 micro-tile (two 4-wide runs in
 // each direction so shared-memory reads are float4 and conflict-light),
-// BK = 8 slices of a and b staged in double-buffered shared memory, fp32
-// FFMA with an fp32 accumulator.  Every ragged edge of M, N and K is masked
-// (loads fill zero, stores are skipped), so any shape runs.  wgmma/TMA and a
-// split-K path for the narrow morph GEMM (q x q at small G*M) are later work.
+// BK = 8 slices of a and b staged (as fp32) in double-buffered shared
+// memory, fp32 FFMA with an fp32 accumulator.  Every ragged edge of M, N and
+// K is masked (loads fill zero, stores are skipped), so any shape runs.
+// wgmma/TMA and a split-K path for the narrow morph GEMM (q x q at small
+// G*M) are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,16 +61,34 @@ constexpr int BN = 128;
 constexpr int BK = 8;
 constexpr int THREADS = 128;   // (BM / 8) * (BN / 8)
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+    return __float2bfloat16_rn(x);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-grouped_sgemm_kernel(const float* __restrict__ a, const int* __restrict__ gidx,
-                     const float* __restrict__ b, float* __restrict__ out,
-                     int M, int N, int K, int S) {
+grouped_gemm_kernel(const T* __restrict__ a, const int* __restrict__ gidx,
+                    const T* __restrict__ b, T* __restrict__ out,
+                    int M, int N, int K, int S) {
     const int g = blockIdx.z;
-    int slot = gidx[g];
-    slot = slot < 0 ? 0 : (slot > S - 1 ? S - 1 : slot);
-    const float* A = a + (size_t)g * M * K;
-    const float* B = b + (size_t)slot * K * N;
-    float* C = out + (size_t)g * M * N;
+    int slot = g;
+    if (gidx != nullptr) {
+        slot = gidx[g];
+        slot = slot < 0 ? 0 : (slot > S - 1 ? S - 1 : slot);
+    }
+    const T* A = a + (size_t)g * M * K;
+    const T* B = b + (size_t)slot * K * N;
+    T* C = out + (size_t)g * M * N;
 
     const int row0 = blockIdx.y * BM;
     const int col0 = blockIdx.x * BN;
@@ -58,9 +97,9 @@ grouped_sgemm_kernel(const float* __restrict__ a, const int* __restrict__ gidx,
     __shared__ __align__(16) float As[2][BK][BM];   // a tile, transposed
     __shared__ __align__(16) float Bs[2][BK][BN];
 
-    // Global -> register staging.  a: thread loads 4 consecutive k of row
-    // tid / 2.  b: thread loads column tid of each of the BK rows (a warp
-    // reads 128 contiguous bytes per row).
+    // Global -> register staging (converted to fp32 here).  a: thread loads
+    // 4 consecutive k of row tid / 2.  b: thread loads column tid of each of
+    // the BK rows (a warp reads one contiguous run of 32 elements per row).
     const int a_row = tid >> 1;
     const int a_k = (tid & 1) * 4;
     float ra[4];
@@ -71,13 +110,13 @@ grouped_sgemm_kernel(const float* __restrict__ a, const int* __restrict__ gidx,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int k = k0 + a_k + i;
-            ra[i] = (r < M && k < K) ? A[(size_t)r * K + k] : 0.0f;
+            ra[i] = (r < M && k < K) ? to_float(A[(size_t)r * K + k]) : 0.0f;
         }
         const int c = col0 + tid;
 #pragma unroll
         for (int i = 0; i < BK; ++i) {
             const int k = k0 + i;
-            rb[i] = (k < K && c < N) ? B[(size_t)k * N + c] : 0.0f;
+            rb[i] = (k < K && c < N) ? to_float(B[(size_t)k * N + c]) : 0.0f;
         }
     };
     auto store_shared = [&](int buf) {
@@ -126,6 +165,7 @@ grouped_sgemm_kernel(const float* __restrict__ a, const int* __restrict__ gidx,
         __syncthreads();
     }
 
+    // Epilogue: the only rounding to T, once per output.
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
         const int r = row0 + (i < 4 ? ty * 4 + i : 32 + ty * 4 + (i - 4));
@@ -133,29 +173,49 @@ grouped_sgemm_kernel(const float* __restrict__ a, const int* __restrict__ gidx,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
             const int c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-            if (c < N) C[(size_t)r * N + c] = acc[i][j];
+            if (c < N) C[(size_t)r * N + c] = from_float<T>(acc[i][j]);
         }
     }
 }
 
-}  // namespace
-
-// Launches on `stream` (PyTorch's current stream) and does not synchronise.
-// Returns cudaGetLastError() after the launch: a refused launch never runs,
-// and the caller must check the code.  The caller validates shapes (G, M, N
-// >= 1, grid limits), dtypes and contiguity before passing pointers.
-extern "C" int grouped_sgemm(const void* a, const void* gidx, const void* b,
-                             void* out, int G, int M, int N, int K, int S,
-                             int device, void* stream) {
+template <typename T>
+int launch(const void* a, const void* gidx, const void* b, void* out, int G,
+           int M, int N, int K, int S, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, G);
-    grouped_sgemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(a), static_cast<const int*>(gidx),
-        static_cast<const float*>(b), static_cast<float*>(out), M, N, K, S);
+    grouped_gemm_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(a), static_cast<const int*>(gidx),
+        static_cast<const T*>(b), static_cast<T*>(out), M, N, K, S);
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* grouped_sgemm_error_string(int code) {
+}  // namespace
+
+// Every entry point launches on `stream` (PyTorch's current stream) and does
+// not synchronise.  It returns cudaGetLastError() after the launch: a refused
+// launch never runs, and the caller must check the code.  The caller
+// validates shapes (G, M, N >= 1, grid limits), dtypes and contiguity before
+// passing pointers.
+
+// K1/K2: slot-indexed, fp32.  gidx (G,) int32 into a stack of S slots.
+extern "C" int grouped_sgemm(const void* a, const void* gidx, const void* b,
+                             void* out, int G, int M, int N, int K, int S,
+                             int device, void* stream) {
+    return launch<float>(a, gidx, b, out, G, M, N, K, S, device, stream);
+}
+
+// K4/K5: one matrix per group (b has G slots, slot = group index); fp32 or
+// bf16 operands (bf16 != 0).  K4 passes x viewed as (G, rows*kappa, q).
+extern "C" int gemm_typed(const void* a, const void* b, void* out, int G,
+                          int M, int N, int K, int bf16, int device,
+                          void* stream) {
+    return bf16 ? launch<__nv_bfloat16>(a, nullptr, b, out, G, M, N, K, G,
+                                        device, stream)
+                : launch<float>(a, nullptr, b, out, G, M, N, K, G, device,
+                                stream);
+}
+
+extern "C" const char* grouped_gemm_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,10 +1,11 @@
 """Slot-indexed grouped GEMMs for the delivery engine and decode, on Hopper.
 
 The engine's microbatch carries a ``(G,)`` vector of *slot indices* into the
-stacked per-tenant secrets (``cores (S, q, q)``, ``c_acs (S, K, N)``).  Both
-wrappers launch the hand-written CUDA kernel in ``csrc/grouped_gemm.cu``,
-which reads each group's slot straight out of the stack (no ``(G, ...)``
-gather copy), for any index vector and any shape:
+stacked per-tenant secrets (``cores (S, q, q)``, ``c_acs (S, K, N)``).  The
+two delivery wrappers launch the slot-indexed entry point of the
+hand-written CUDA kernel in ``csrc/grouped_gemm.cu`` (bound in
+:mod:`.gemm`), which reads each group's slot straight out of the stack (no
+``(G, ...)`` gather copy), for any index vector and any shape:
 
   * :func:`grouped_block_diag_matmul` replaces the Pallas kernel of the same
     name (``repro/kernels/grouped.py``): ``x`` viewed as ``(G, B*kappa, q)``
@@ -15,6 +16,10 @@ gather copy), for any index vector and any shape:
     of batched decode: ``h[r]`` times its slot's fused LM head, through the
     decode-shaped kernel in ``csrc/row_gemm.cu``.
 
+The same CUDA source also serves the single-tenant and per-group kernels
+(K4 in :mod:`.block_diag`, K5 in :mod:`.aug_gemm`) through its other entry
+point, ``gemm_typed``, with a null slot-index pointer (slot = group index).
+
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref.py``.
 There is no other switch.  Each wrapper counts its kernel launches in a
@@ -22,41 +27,23 @@ plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from . import build, ref
+from . import gemm, ref
 
 __all__ = ["grouped_block_diag_matmul", "grouped_aug_gemm", "grouped_row_gemm"]
-
-_MAX_GRID_YZ = 65535
-_BM = 64            # rows per block in grouped_gemm.cu
-
-
-@functools.cache
-def _kernel():
-    lib = build.load("grouped_gemm")
-    fn = lib.grouped_sgemm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.grouped_sgemm_error_string.argtypes = [ctypes.c_int]
-    lib.grouped_sgemm_error_string.restype = ctypes.c_char_p
-    return fn, lib.grouped_sgemm_error_string
 
 
 def _check(name: str, a: torch.Tensor, gidx: torch.Tensor,
            b: torch.Tensor) -> None:
     """What the kernel takes: one device, fp32 operands, int32 gidx (G,),
-    contiguous, non-empty, within the grid limits."""
-    if not (a.device == gidx.device == b.device):
+    contiguous, non-empty, within the grid limits (:func:`gemm.check_operands`)."""
+    if gidx.device != a.device:
         raise ValueError(
             f"{name}: operands on different devices "
             f"({a.device}, {gidx.device}, {b.device})"
         )
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32 operands, got {a.dtype}, {b.dtype}")
+    gemm.check_operands(name, a, b, (torch.float32,))
     if gidx.dtype != torch.int32:
         raise TypeError(f"{name}: expected int32 gidx, got {gidx.dtype}")
     if a.dim() != 3 or b.dim() != 3 or gidx.shape != (a.shape[0],):
@@ -64,28 +51,8 @@ def _check(name: str, a: torch.Tensor, gidx: torch.Tensor,
             f"{name}: expected (G, B, F), (G,), (S, ., .); got "
             f"{tuple(a.shape)}, {tuple(gidx.shape)}, {tuple(b.shape)}"
         )
-    if not (a.is_contiguous() and gidx.is_contiguous() and b.is_contiguous()):
+    if not gidx.is_contiguous():
         raise ValueError(f"{name}: operands must be contiguous")
-    if min(a.shape) == 0 or min(b.shape) == 0:
-        raise ValueError(f"{name}: empty operand {tuple(a.shape)}, {tuple(b.shape)}")
-    if a.shape[0] > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: {a.shape[0]} groups exceed the grid limit")
-
-
-def _launch(a, gidx, b, out, M: int, N: int, K: int) -> None:
-    """out[g] = a[g] (M, K) @ b[gidx[g]] (K, N) on the current stream."""
-    if -(-M // _BM) > _MAX_GRID_YZ:
-        raise ValueError(f"{M} rows per group exceed the grid limit")
-    fn, err_str = _kernel()
-    err = fn(
-        a.data_ptr(), gidx.data_ptr(), b.data_ptr(), out.data_ptr(),
-        a.shape[0], M, N, K, b.shape[0], a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"grouped_sgemm launch failed: {err_str(err).decode()} ({err})"
-        )
 
 
 def grouped_block_diag_matmul(
@@ -110,10 +77,10 @@ def grouped_block_diag_matmul(
         return ref.block_diag_matmul_grouped_ref(x, gidx, cores, kappa)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_block_diag_matmul: no kernel for {x.device}")
-    out = torch.empty_like(x)
-    _launch(x, gidx, cores, out, M=B * kappa, N=q, K=q)
+    out = gemm.grouped("grouped_block_diag_matmul", x.view(G, B * kappa, q),
+                       gidx, cores)
     grouped_block_diag_matmul.launches += 1
-    return out
+    return out.view_as(x)
 
 
 def grouped_aug_gemm(
@@ -134,21 +101,9 @@ def grouped_aug_gemm(
         return ref.aug_gemm_grouped_ref(t, gidx, c_acs)
     if t.device.type != "cuda":
         raise ValueError(f"grouped_aug_gemm: no kernel for {t.device}")
-    out = torch.empty((G, B, N), dtype=t.dtype, device=t.device)
-    _launch(t, gidx, c_acs, out, M=B, N=N, K=K)
+    out = gemm.grouped("grouped_aug_gemm", t, gidx, c_acs)
     grouped_aug_gemm.launches += 1
     return out
-
-
-@functools.cache
-def _row_kernel():
-    lib = build.load("row_gemm")
-    fn = lib.row_gemm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.row_gemm_error_string.argtypes = [ctypes.c_int]
-    lib.row_gemm_error_string.restype = ctypes.c_char_p
-    return fn, lib.row_gemm_error_string
 
 
 def grouped_row_gemm(
@@ -188,25 +143,13 @@ def grouped_row_gemm(
         raise ValueError(
             f"{name}: empty operand {tuple(h.shape)}, {tuple(tables.shape)}"
         )
-    if h.shape[0] > _MAX_GRID_YZ:
+    if h.shape[0] > gemm.MAX_GRID_YZ:
         raise ValueError(f"{name}: {h.shape[0]} rows exceed the grid limit")
     if h.device.type == "cpu":
         return ref.lm_head_rows_grouped_ref(h, gidx, tables)
     if h.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {h.device}")
-    R, K = h.shape
-    S, _, N = tables.shape
-    out = torch.empty((R, N), dtype=h.dtype, device=h.device)
-    fn, err_str = _row_kernel()
-    err = fn(
-        h.data_ptr(), gidx.data_ptr(), tables.data_ptr(), out.data_ptr(),
-        R, N, K, S, int(h.dtype == torch.bfloat16), h.device.index,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"row_gemm launch failed: {err_str(err).decode()} ({err})"
-        )
+    out = gemm.rows(name, h, gidx, tables)
     grouped_row_gemm.launches += 1
     return out
 

@@ -1,11 +1,21 @@
-"""Public entry points for the grouped delivery and decode steps.
+"""Public entry points for the morph, Aug-Conv and decode-logits kernels.
+
+``morph_rows`` and ``aug_conv_forward`` are the single-tenant steps of the
+paper's own protocol: the provider morphs a batch of unrolled rows (K4,
+:func:`~repro_torch.kernels.block_diag.block_diag_matmul`) and the
+developer's first layer multiplies morphed rows by the fused Aug-Conv matrix
+(K5, :func:`~repro_torch.kernels.aug_gemm.aug_gemm`).  ``morph_rows_batched``
+and ``aug_conv_forward_batched`` launch the same kernels once over a group
+axis with one secret per group, as the reference ``vmap``s K4/K5.
 
 ``morph_rows_grouped`` and ``aug_conv_forward_grouped`` are the two steps
 of the engine's vision delivery hot path, ``lm_head_rows_grouped`` the
 logits step of batched decode: per-group (per-row) secrets are read in
-place from the stacked slot tables by :mod:`repro_torch.kernels.grouped`,
-for any shape (the CUDA kernels mask their ragged edges, so there is no
-tileability test and no route around a kernel on the card).
+place from the stacked slot tables by :mod:`repro_torch.kernels.grouped`.
+
+Every kernel masks its ragged edges, so these take any shape: there is no
+tileability test and no route around a kernel on the card.  The activation
+operand is made contiguous here; the secret operands must already be.
 
 ``token_morph_grouped``, ``aug_embed_grouped`` and
 ``aug_embed_rows_grouped`` are gathers: torch advanced indexing on every
@@ -16,12 +26,40 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .aug_gemm import aug_gemm
+from .block_diag import block_diag_matmul
 from .grouped import grouped_aug_gemm, grouped_block_diag_matmul, grouped_row_gemm
 
 __all__ = [
+    "morph_rows", "aug_conv_forward", "morph_rows_batched",
+    "aug_conv_forward_batched",
     "morph_rows_grouped", "aug_conv_forward_grouped", "token_morph_grouped",
     "aug_embed_grouped", "aug_embed_rows_grouped", "lm_head_rows_grouped",
 ]
+
+
+def morph_rows(x: torch.Tensor, core: torch.Tensor, kappa: int) -> torch.Tensor:
+    """Provider-side morphing: x (R, kappa*q) @ blockdiag(core) (K4)."""
+    return block_diag_matmul(x.contiguous(), core, int(kappa))
+
+
+def aug_conv_forward(t: torch.Tensor, c_ac: torch.Tensor) -> torch.Tensor:
+    """Developer-side Aug-Conv layer: t (B, K) @ c_ac (K, N) (K5)."""
+    return aug_gemm(t.contiguous(), c_ac)
+
+
+def morph_rows_batched(x: torch.Tensor, cores: torch.Tensor,
+                       kappa: int) -> torch.Tensor:
+    """Per-group morphing: x (G, B, kappa*q) with cores (G, q, q), one K4
+    launch over the group axis."""
+    return block_diag_matmul(x.contiguous(), cores, int(kappa))
+
+
+def aug_conv_forward_batched(t: torch.Tensor,
+                             c_acs: torch.Tensor) -> torch.Tensor:
+    """Per-group Aug-Conv forward: t (G, B, K) @ c_acs (G, K, N) -> (G, B, N),
+    one K5 launch over the group axis."""
+    return aug_gemm(t.contiguous(), c_acs)
 
 
 def _safe_gidx(gidx, n_slots: int, device: torch.device) -> torch.Tensor:

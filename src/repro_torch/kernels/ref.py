@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels and of the LM gathers.
 
-The CPU path of every wrapper in :mod:`repro_torch.kernels.grouped`, and the
-versions ``chip_smoke.py`` holds the kernels against on the card.  They
-repeat the reference's math (``repro.kernels.ref``): the delivery GEMMs cast
-operands to fp32 and results back to the input dtype; the LM-head GEMMs
+The CPU path of every kernel wrapper (:mod:`.grouped`, :mod:`.block_diag`,
+:mod:`.aug_gemm`), and the versions ``chip_smoke.py`` holds the kernels
+against on the card.  They repeat the reference's math
+(``repro.kernels.ref``): the morph and Aug-Conv GEMMs cast operands to fp32,
+compute, and round once back to the input dtype; the LM-head GEMMs
 contract in ``h.dtype`` (the weights cast to it), as ``models.stack.lm_head``
 does.  Grouped versions take the slot-index vector and the stacked
 ``(S, ...)`` secrets and index one slot per group or row (a view or an
@@ -21,6 +22,8 @@ import torch
 __all__ = [
     "block_diag_matmul_ref",
     "aug_gemm_ref",
+    "block_diag_matmul_batched_ref",
+    "aug_gemm_batched_ref",
     "block_diag_matmul_grouped_ref",
     "aug_gemm_grouped_ref",
     "token_morph_batched_ref",
@@ -47,6 +50,23 @@ def block_diag_matmul_ref(x: torch.Tensor, core: torch.Tensor,
 def aug_gemm_ref(t: torch.Tensor, c_ac: torch.Tensor) -> torch.Tensor:
     """t (B, K) @ c_ac (K, N) in fp32."""
     return torch.matmul(t.float(), c_ac.float()).to(t.dtype)
+
+
+def block_diag_matmul_batched_ref(x: torch.Tensor, cores: torch.Tensor,
+                                  kappa: int) -> torch.Tensor:
+    """Per-group morphing, one core per group: x (G, B, kappa*q), cores
+    (G, q, q) -> (G, B, kappa*q)."""
+    G, B, F = x.shape
+    q = cores.shape[-1]
+    blocks = x.reshape(G, B * kappa, q).float()
+    out = torch.bmm(blocks, cores.float())
+    return out.reshape(G, B, F).to(x.dtype)
+
+
+def aug_gemm_batched_ref(t: torch.Tensor, c_acs: torch.Tensor) -> torch.Tensor:
+    """Per-group Aug-Conv forward: t (G, B, K) @ c_acs (G, K, N) -> (G, B, N)
+    in fp32."""
+    return torch.bmm(t.float(), c_acs.float()).to(t.dtype)
 
 
 def _slots(gidx: torch.Tensor, n_slots: int) -> list[int]:

@@ -1,10 +1,12 @@
-"""Model zoo on PyTorch: the dense token LMs the port serves so far.
+"""Model zoo on PyTorch: the dense token LMs the port serves so far, and the
+paper's VGG.
 
   base    configs (copied from ``repro.models.base``) + parameter init
   layers  norms, RoPE, dense/decode attention, gated MLPs
   blocks  the dense global self-attention block
   stack   embedding -> blocks -> final norm -> LM head
   api     ``Model`` and ``params_from_jax``
+  cnn     VGG-16 on CIFAR with the Aug-Conv first layer (paper §4.4)
 """
 from .base import (
     FrontendCfg,
@@ -20,9 +22,10 @@ from .base import (
     init_params,
 )
 from .api import Model, params_from_jax
+from . import cnn
 
 __all__ = [
     "FrontendCfg", "MLACfg", "MoECfg", "MoLeCfg", "ModelConfig", "ParamDef",
     "ParamTree", "RnnCfg", "RwkvCfg", "check_supported", "init_params",
-    "Model", "params_from_jax",
+    "Model", "params_from_jax", "cnn",
 ]

@@ -9,11 +9,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import ConvGeometry, SessionRegistry  # noqa: E402
-from repro_torch.kernels import (  # noqa: E402
-    aug_conv_forward_grouped, grouped_aug_gemm, grouped_block_diag_matmul,
-    grouped_row_gemm, lm_head_rows_grouped, morph_rows_grouped, ref,
+from repro_torch.core import (  # noqa: E402
+    ConvGeometry, DataProvider, SessionRegistry, conv_reference,
 )
+from repro_torch.kernels import (  # noqa: E402
+    aug_conv_forward, aug_conv_forward_batched, aug_conv_forward_grouped,
+    aug_gemm, block_diag_matmul, grouped_aug_gemm, grouped_block_diag_matmul,
+    grouped_row_gemm, lm_head_rows_grouped, morph_rows, morph_rows_batched,
+    morph_rows_grouped, ref,
+)
+from repro_torch.models import cnn  # noqa: E402
 from repro_torch.runtime import DeliveryRequest, MoLeDeliveryEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -91,6 +96,106 @@ def test_grouped_row_gemm_kernel_matches_plain(rng, cuda, name, dtype, K, N):
     bound = (1e-4 * scale if dtype == torch.float32
              else 2 * 2.0 ** (np.floor(np.log2(scale)) - 7))
     assert float((got.float().cpu() - want).abs().max()) <= bound
+
+
+def _hold(got, want, dtype):
+    """fp32 within 1e-4 * max|plain|; bf16 within two bf16 units in the last
+    place of max|plain| (each side accumulates in fp32 and rounds once)."""
+    scale = float(want.float().abs().max())
+    bound = (1e-4 * scale if dtype == torch.float32
+             else 2 * 2.0 ** (np.floor(np.log2(scale)) - 7))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got.float().cpu() - want.float().cpu()).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,R,kappa,q", [
+    (None, 64, 1, 768), (None, 37, 3, 100), (None, 256, 3, 128),
+    (3, 20, 2, 130), (2, 64, 1, 256),
+])
+def test_block_diag_kernel_matches_plain(rng, cuda, dtype, G, R, kappa, q):
+    """K4, single-tenant (G None) and one core per group."""
+    lead = () if G is None else (G,)
+    x = _rand(rng, *lead, R, kappa * q).to(dtype)
+    core = _rand(rng, *lead, q, q, scale=q ** -0.5).to(dtype)
+    plain = (ref.block_diag_matmul_ref if G is None
+             else ref.block_diag_matmul_batched_ref)
+    want = plain(x.to(cuda), core.to(cuda), kappa)
+    before = block_diag_matmul.launches
+    got = block_diag_matmul(x.to(cuda), core.to(cuda), kappa)
+    torch.cuda.synchronize()
+    assert block_diag_matmul.launches == before + 1
+    _hold(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,B,K,N", [
+    (None, 7, 33, 9), (None, 64, 768, 4096), (None, 130, 257, 129),
+    (2, 8, 256, 128), (3, 5, 300, 1000),
+])
+def test_aug_gemm_kernel_matches_plain(rng, cuda, dtype, G, B, K, N):
+    """K5, single-tenant (G None) and one matrix per group."""
+    lead = () if G is None else (G,)
+    t = _rand(rng, *lead, B, K).to(dtype)
+    c = _rand(rng, *lead, K, N, scale=K ** -0.5).to(dtype)
+    plain = ref.aug_gemm_ref if G is None else ref.aug_gemm_batched_ref
+    want = plain(t.to(cuda), c.to(cuda))
+    before = aug_gemm.launches
+    got = aug_gemm(t.to(cuda), c.to(cuda))
+    torch.cuda.synchronize()
+    assert aug_gemm.launches == before + 1
+    _hold(got, want, dtype)
+
+
+def test_k4_k5_entry_points_and_refusals_on_card(rng, cuda):
+    """The four public entry points launch one kernel each; an operand that
+    requires grad and mixed dtypes raise on the card as on the CPU."""
+    x, core = _rand(rng, 6, 20).to(cuda), _rand(rng, 10, 10).to(cuda)
+    t, c = _rand(rng, 6, 20).to(cuda), _rand(rng, 20, 9).to(cuda)
+    n4, n5 = block_diag_matmul.launches, aug_gemm.launches
+    morph_rows(x, core, 2)
+    morph_rows_batched(x[None], core[None], 2)
+    aug_conv_forward(t, c)
+    aug_conv_forward_batched(t[None], c[None])
+    assert (block_diag_matmul.launches, aug_gemm.launches) == (n4 + 2, n5 + 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        aug_gemm(t, c.clone().requires_grad_())
+    with pytest.raises(TypeError, match="one dtype"):
+        block_diag_matmul(x, core.bfloat16(), 2)
+
+
+def test_vgg_small_aug_path_on_card_equals_plain(rng, cuda):
+    """Aug-VGG through K4 and K5 on the card, with the channel permutation
+    absorbed, against plain VGG on the raw images (cuDNN, TF32 off): within
+    1e-3 * max|plain logits|; K5's first-layer features against the
+    convolution within 1e-4 * max|conv|."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    cfg = cnn.vgg_small()
+    params = cnn.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    geom = cfg.first_geom
+    prov = DataProvider(geom, kappa=1, seed=0)
+    kern = cnn.first_layer_kernels(params, cfg)
+    aug = prov.build_aug_conv(kern.cpu().numpy())
+    perm = torch.from_numpy(aug.channel_perm).to(dev)
+    p2 = {"convs": [dict(cv) for cv in params["convs"]], "head": params["head"]}
+    p2["convs"][0]["b"] = params["convs"][0]["b"][perm]
+    p2["convs"][1] = {"w": params["convs"][1]["w"][:, perm],
+                      "b": params["convs"][1]["b"]}
+    x = _rand(rng, 8, 3, cfg.image_size, cfg.image_size).to(dev)
+    core = torch.from_numpy(prov._core.matrix).to(dev)
+    mat = torch.from_numpy(aug.matrix).to(dev)
+    n4, n5 = block_diag_matmul.launches, aug_gemm.launches
+    rows = morph_rows(x.reshape(8, -1), core, 1)
+    via_aug = cnn.apply(p2, rows, cfg, aug_matrix=mat)
+    feats = aug_conv_forward(rows, mat).reshape(8, geom.beta, geom.n, geom.n)
+    torch.cuda.synchronize()
+    assert (block_diag_matmul.launches, aug_gemm.launches) == (n4 + 1, n5 + 2)
+    plain = cnn.apply(params, x, cfg)
+    assert float((via_aug - plain).abs().max()) <= 1e-3 * float(plain.abs().max())
+    conv = conv_reference(x, kern, geom)[:, perm]
+    assert float((feats - conv).abs().max()) <= 1e-4 * float(conv.abs().max())
 
 
 def test_ops_launch_kernels_for_any_shape(rng, cuda):
