@@ -97,8 +97,35 @@ printing one JSON line; any failure raises and exits non-zero:
                 not gated: plain and Aug-VGG-16 forward p50 (batch 256,
                 CUDA events), K4 per batch, the measured compute overhead
                 aug/plain - 1 beside the derived 0.636 and the paper's 0.09.
-  9. the ``kernels`` line (K1-K5), the card's name and power limit, and the
-     final ``{"ok": true, ...}`` line.
+  9. kernels_k6 the RWKV-6 chunked scan (``wkv6_chunked``, K6) against both
+                plain versions, the chunked form (``ref.wkv6_chunked_ref``)
+                and the token recurrence (``ref.wkv6_ref``), in fp32 at 40
+                heads of 64, chunk 128: T = 1024, T = 384 (300 padded),
+                160 heads at T = 128, and T = 32 < chunk; inputs as the
+                reference's wkv6 sweep draws them, s0 nonzero.  Bound: out
+                and final state within 1e-4 * max|plain|.  Times kernel and
+                plain chunked version at (40, 384); no PyTorch call
+                computes the scan (library_ms null).
+ 10. rwkv_path  ``serve --mode lm`` at rwkv6_3b FULL width (32 layers,
+                d_model 2560, 40 heads of 64, vocab 65536, bf16), random
+                weights from a seeded generator on the card: 4 tenants at
+                capacity 4, 8 requests of 300 prompt tokens (every
+                admission prefill is 3 chunks of 128 with 84 padded), 16
+                generated tokens each.  Gated as lm_path, checks 1-4
+                (check 2 also: K6 launched exactly once per layer per
+                admission prefill, 32 x 8), then (5) K6's output and final
+                state on one layer's operands, as the first admission
+                prefill handed them over, against the token recurrence
+                within 1e-4 * max, and (6) the 2-layer twin against a plain
+                forward whose time-mix runs the token recurrence in K6's
+                place, with the tie margin.  Printed, not gated: as
+                lm_path, K6's time per prefill and its share of the
+                admission prefill.  Peak memory is read per LM phase
+                (reset at its start).  Every path phase sets all six
+                launch counters to 0 before its run and fails if a kernel
+                not on its path was launched.
+ 11. the ``kernels`` line (K1-K6, each launched on its path), the card's
+     name and power limit, and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -114,6 +141,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+KERNEL_NAMES = ("grouped_block_diag_matmul", "grouped_aug_gemm",
+                "grouped_row_gemm", "block_diag_matmul", "aug_gemm",
+                "wkv6_chunked")
 REL_TOL = 1e-4
 GIDX_CASES = {      # over a 6-slot table, as in tests/test_grouped_kernels.py
     "identity": [0, 1, 2, 3],
@@ -131,10 +161,19 @@ MAIN_GEOM = dict(alpha=3, beta=64, m=32, p=3)       # kappa = 1
 CHURN_GEOM = dict(alpha=3, beta=16, m=16, p=3)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# exp2 (the SFU's ex2): 16 results per SM per clock against the 128 fp32
+# lanes' 256 flops, so the fp32 peak / 16.
+EX2_PER_S = FP32_FLOP_PER_S / 16
 # K3 and the LM path: deepseek_7b FULL, 4 decode rows.
 K3_R, K3_K, K3_N = 4, 4096, 102400
 K3_RAGGED = [(3, 3000, 1000), (3, 3000, 999)]
 LM_ARCH, LM_TENANTS, LM_REQUESTS, LM_PROMPT, LM_GEN = "deepseek_7b", 4, 8, 32, 16
+# K6 (kernels_k6) and the RWKV path (rwkv_path): rwkv6_3b FULL, 40 heads of
+# 64, chunk 128.  A 300-token prompt pads to 3 chunks (84 padded tokens).
+RWKV_ARCH, RWKV_PROMPT = "rwkv6_3b", 300
+K6_D, K6_CHUNK = 64, 128
+K6_CASES = [(40, 1024), (40, 384), (160, 128), (40, 32)]    # (BH, T)
+K6_MAIN = (40, 384)             # the prefill's shape: B = 1, T = 300 padded
 TIE_MARGIN_ULPS = 4             # bf16 units in the last place of max|logit|
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # K4/K5 (kernels_k45) and the developer path (vgg_path).
@@ -205,6 +244,13 @@ def cuda_times(fn, iters: int) -> list[float]:
         end.synchronize()
         out.append(start.elapsed_time(end))
     return out
+
+
+def cuda_p50(fn, reps: int, inner: int) -> float:
+    """Device time per call of ``fn``: CUDA events around ``inner``
+    back-to-back calls (so the host's launch time overlaps the device's
+    work), the p50 over ``reps`` such groups, after one warm-up."""
+    return float(np.median([cuda_ms(fn, inner) for _ in range(reps)]))
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -396,7 +442,98 @@ def k3_checks(dev, kernels, ref) -> dict:
     return row
 
 
-# -- phase 6 ------------------------------------------------------------------
+# -- phase 9 ------------------------------------------------------------------
+
+def k6_bound(BH: int, T: int, D: int) -> tuple[float, str]:
+    """The least time the card could take for one K6 call: each input read
+    once and each output written once (fp32), against the operations that
+    every exact form of the scan does, whichever is slower.  Each (head,
+    token) reads its query row out of the (D, D) state and adds its
+    rank-one k v^T to it, D^2 multiply-adds each (4 D^2 flops on the fp32
+    lanes), and needs at least one decay per channel (D exp2 on the SFU).
+    The token recurrence does these and D^2 decay multiplies more; the
+    chunked forms add their intra-chunk scores (the kernel's own form
+    L (L - 1) / 2 * D exp2 a chunk, the reference's boundary-referenced
+    subchunk form far fewer).  Neither surplus is counted, so the bound
+    holds whatever form and chunk a kernel takes."""
+    n_tok = BH * T
+    flops = n_tok * 4 * D * D
+    ex2 = n_tok * D
+    n_bytes = 4 * (4 * BH * T * D + BH * D + BH * D * D      # r k v logw, u, s0
+                   + BH * T * D + BH * D * D)                  # out, s_final
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "operations": max(flops / FP32_FLOP_PER_S, ex2 / EX2_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def k6_checks(dev, kernels, ref) -> dict:
+    """K6 against both plain versions (the chunked form and the token
+    recurrence) on the card in fp32, at the prefill's width (D 64, chunk
+    128) and the shapes of ``K6_CASES``, with the input distribution of the
+    reference's wkv6 sweep and a nonzero s0; returns its error and timing
+    row (timed at ``K6_MAIN``, the rwkv_path prefill's shape)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    checks, row = [], {"max_abs_err": 0.0}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    timed, per_case = None, {}
+    for BH, T in K6_CASES:
+        r, k, v = randn(BH, T, K6_D), randn(BH, T, K6_D), randn(BH, T, K6_D)
+        logw = -torch.exp(randn(BH, T, K6_D))
+        u, s0 = randn(BH, K6_D), randn(BH, K6_D, K6_D) * 0.1
+        ops = (r, k, v, logw, u, s0)
+        got_o, got_s = kernels.wkv6_chunked(*ops, chunk=K6_CHUNK)
+        torch.cuda.synchronize()
+        chunked = ref.wkv6_chunked_ref(*ops, chunk=K6_CHUNK)
+        o, s = ref.wkv6_ref(r[None], k[None], v[None], logw[None], u, s0[None])
+        for plain, (want_o, want_s) in (("chunked", chunked),
+                                        ("recurrence", (o[0], s[0]))):
+            for tag, got, want in (("out", got_o, want_o), ("state", got_s, want_s)):
+                err = float((got - want).abs().max())
+                lim = REL_TOL * float(want.abs().max())
+                case = f"BH{BH}_T{T}/{tag}_vs_{plain}"
+                checks.append({"case": case, "max_abs_err": err, "limit": lim})
+                check(got.shape == want.shape and got.dtype == torch.float32,
+                      f"K6 {case}: got {tuple(got.shape)} {got.dtype}")
+                check(bool(torch.isfinite(got).all()), f"K6 {case}: non-finite")
+                check(err <= lim, f"K6 {case}: |kernel - plain| {err} > {lim}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+        if (BH, T) == K6_MAIN:
+            timed = ops
+        per_case[f"BH{BH}_T{T}"] = {
+            "ms": cuda_p50(lambda: kernels.wkv6_chunked(*ops, chunk=K6_CHUNK),
+                           5, 10),
+            "bound_ms": k6_bound(BH, T, K6_D)[0]}
+        del chunked, o, s
+    # Timed at the prefill's shape, kernel and plain chunked version in
+    # turns.  No single PyTorch call computes this scan: library_ms is null.
+    BH, T = K6_MAIN
+    run_k = lambda: kernels.wkv6_chunked(*timed, chunk=K6_CHUNK)  # noqa: E731
+    run_p = lambda: ref.wkv6_chunked_ref(*timed, chunk=K6_CHUNK)  # noqa: E731
+    runs = [cuda_p50(fn, 5, n)
+            for fn, n in ((run_k, 10), (run_p, 2), (run_k, 10), (run_p, 2))]
+    b, by = k6_bound(BH, T, K6_D)
+    # Beside the bound, not in it: the floor of the chunked form this
+    # kernel takes, its intra-chunk decays alone (L (L - 1) / 2 * D exp2 a
+    # chunk) at the SFU's rate.
+    n_chunks = BH * (T // min(K6_CHUNK, T))
+    L = min(K6_CHUNK, T)
+    form_floor = n_chunks * L * (L - 1) // 2 * K6_D / EX2_PER_S * 1e3
+    row.update(ms=(runs[0] + runs[2]) / 2, plain_ms=(runs[1] + runs[3]) / 2,
+               library_ms=None, bound_ms=b, bound_by=by,
+               chunked_form_exp2_floor_ms=form_floor,
+               timed_shape=f"r/k/v/logw ({BH}, {T}, {K6_D}) fp32, chunk {K6_CHUNK}",
+               runs_ms=runs, per_case=per_case)
+    emit({"phase": "kernels_k6", "checks": len(checks),
+          "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
+          "row": row})
+    return row
+
+
+# -- phases 6 and 10 (lm_path, rwkv_path) ------------------------------------
 
 class HeadTap:
     """Records what the decode lane hands K3 at every batched decode step.
@@ -535,7 +672,8 @@ def forward_gaps(S, params, cfg, prompts, final, dev):
     seqs = torch.from_numpy(np.concatenate([prompts, final], axis=1)).to(dev)
     logits, _ = S.forward(params, cfg, seqs)
     check(bool(torch.isfinite(logits).all()), "plain logits non-finite")
-    return gaps_in_ulps(logits[:, LM_PROMPT - 1 : LM_PROMPT - 1 + LM_GEN], final)
+    P = prompts.shape[1]
+    return gaps_in_ulps(logits[:, P - 1 : P - 1 + LM_GEN], final)
 
 
 def decode_step_profile(fn, step_ms: float) -> dict:
@@ -567,9 +705,93 @@ def decode_step_profile(fn, step_ms: float) -> dict:
     }
 
 
-def lm_path(dev, kernels) -> dict:
-    """``serve --mode lm`` at deepseek_7b FULL: the token lane, then the
-    continuous-batched decode lane; gated checks 1-5 and a time breakdown."""
+class ScanTap:
+    """Counts the decode lane's admission prefills and keeps what one of
+    them hands K6.
+
+    While installed, the lane's prefill step and
+    ``repro_torch.models.blocks.wkv6_chunked`` (the name the time-mix calls)
+    are wrapped.  At the first prefill, the operands (r, k, v, logw, u, s0)
+    of the call ``layer`` (0-based) and K6's outputs are cloned.  Each
+    wrapper calls the real function once, so launch counts are unchanged.
+    """
+
+    def __init__(self, lane, layer: int):
+        from repro_torch.models import blocks
+
+        self.lane, self.blocks, self.layer = lane, blocks, layer
+        self.prefills, self.calls, self.captured = 0, 0, None
+        self._scan, self._prefill = blocks.wkv6_chunked, lane._prefill
+
+    def _count_prefill(self, *args):
+        self.prefills += 1
+        return self._prefill(*args)
+
+    def _wkv6(self, *ops, chunk):
+        out = self._scan(*ops, chunk=chunk)
+        if self.prefills == 1 and self.calls == self.layer:
+            self.captured = {"ops": [a.clone() for a in ops], "chunk": chunk,
+                             "out": out[0].clone(), "s": out[1].clone()}
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        self.blocks.wkv6_chunked = self._wkv6
+        self.lane._prefill = self._count_prefill
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.wkv6_chunked = self._scan
+        self.lane._prefill = self._prefill
+
+
+class PlainScan:
+    """While installed, the time-mix runs the token recurrence
+    ``ref.wkv6_ref`` in place of K6 (an independent plain scan)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        from repro_torch.models import blocks
+
+        def plain(r, k, v, logw, u, s0, *, chunk):
+            out, s = ref.wkv6_ref(r[None], k[None], v[None], logw[None], u,
+                                  s0[None])
+            return out[0].to(r.dtype), s[0]
+
+        self.blocks, self._scan = blocks, blocks.wkv6_chunked
+        blocks.wkv6_chunked = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.wkv6_chunked = self._scan
+
+
+def k6_against_recurrence(captured) -> dict:
+    """Check 5 of rwkv_path: K6's output and final state, as the lane's
+    prefill got them, against the token recurrence on the same operands,
+    within 1e-4 * max|plain|."""
+    from repro_torch.kernels import ref
+
+    r, k, v, logw, u, s0 = captured["ops"]
+    want_o, want_s = ref.wkv6_ref(r[None], k[None], v[None], logw[None], u,
+                                  s0[None])
+    res = {"shape": list(r.shape)}
+    for tag, got, want in (("out", captured["out"], want_o[0]),
+                           ("state", captured["s"], want_s[0])):
+        err = float((got.float() - want).abs().max())
+        lim = REL_TOL * float(want.abs().max())
+        check(bool(torch.isfinite(got).all()), f"check 5: K6 {tag} non-finite")
+        check(err <= lim, f"check 5: |K6 {tag} - recurrence| {err} > {lim}")
+        res[f"{tag}_max_abs_err"], res[f"{tag}_limit"] = err, lim
+    return res
+
+
+def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
+    """``serve --mode lm`` at ``arch`` FULL: the token lane, then the
+    continuous-batched decode lane; gated checks and a time breakdown.
+    For an RWKV stack also: K6 launched once per layer per admission
+    prefill, K6 on one layer's captured operands against the token
+    recurrence, and the twin's plain forward through that recurrence."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -583,7 +805,10 @@ def lm_path(dev, kernels) -> dict:
         ContinuousDecodeLane, DeliveryRequest, MoLeDeliveryEngine,
     )
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    rwkv = cfg.rwkv is not None
+    torch.cuda.reset_peak_memory_stats()
+    max_len = prompt_len + LM_GEN + 1
     model = Model(cfg, dev)
     t0 = time.monotonic()
     params = model.init(SEED)
@@ -595,25 +820,26 @@ def lm_path(dev, kernels) -> dict:
     registry = LMSessionRegistry(cfg.vocab, cfg.d_model, capacity=LM_TENANTS)
     for i in range(LM_TENANTS):
         registry.register(f"lm-{i}", embed, seed=i, head=head)
-    src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=LM_PROMPT,
+    del embed, head
+    src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
                                  global_batch=LM_REQUESTS, seed=SEED))
     prompts = src.batch(0)["tokens"]
     tenant_of = [f"lm-{r % LM_TENANTS}" for r in range(LM_REQUESTS)]
-    engine = MoLeDeliveryEngine(lm_registry=registry, device=dev,
-                                seq_buckets=(8, 16, LM_PROMPT, 64))
+    engine = MoLeDeliveryEngine(
+        lm_registry=registry, device=dev,
+        seq_buckets=tuple(sorted({8, 16, 64, prompt_len})),
+    )
     lane = ContinuousDecodeLane(
-        model, params, registry, rows=LM_TENANTS,
-        max_len=LM_PROMPT + LM_GEN + 1, device=dev,
-        scheduler=engine.scheduler,
+        model, params, registry, rows=LM_TENANTS, max_len=max_len,
+        device=dev, scheduler=engine.scheduler,
     )
     lane._refresh_plan()            # stage the (S, V, d) / (S, d, V) stacks
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
 
     # -- the main path: provider-side token lane, then the decode lane -----
-    for name in ("grouped_block_diag_matmul", "grouped_aug_gemm",
-                 "grouped_row_gemm"):
-        setattr(getattr(kernels, name), "launches", 0)
+    for name in KERNEL_NAMES:
+        getattr(kernels, name).launches = 0
     t1 = time.monotonic()
     rids = [engine.submit(DeliveryRequest(tenant_of[r], prompts[r : r + 1],
                                           lane="tokens"))
@@ -621,21 +847,29 @@ def lm_path(dev, kernels) -> dict:
     engine.flush()
     served = np.concatenate([engine.take(r) for r in rids])
     morph_s = time.monotonic() - t1
-    with torch.no_grad(), HeadTap(lane) as tap:
+    with torch.no_grad(), HeadTap(lane) as tap, \
+            ScanTap(lane, layer=cfg.n_layers - 1) as scan:
         run = run_lane(lane, served, tenant_of)
-    launches = kernels.grouped_row_gemm.launches
+    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
     # Check 1: the token lane's morphed prompts are numpy's perm[tokens].
     want = np.stack([registry.session(tenant_of[r]).morpher.perm[prompts[r]]
                      for r in range(LM_REQUESTS)])
     check(served.shape == want.shape and np.array_equal(served, want),
           "check 1: morphed prompts differ from perm[tokens]")
-    # Check 2: one K3 launch per batched decode step, and no other kernel.
-    check(launches == run["steps"] == len(tap.records),
-          f"check 2: K3 launched {launches} times for {run['steps']} decode "
-          f"steps ({len(tap.records)} recorded)")
-    check(kernels.grouped_block_diag_matmul.launches
-          == kernels.grouped_aug_gemm.launches == 0,
-          "the LM path launched a vision kernel")
+    # Check 2: one K3 launch per batched decode step; for an RWKV stack one
+    # K6 launch per layer per admission prefill; no other kernel.
+    check(launches["grouped_row_gemm"] == run["steps"] == len(tap.records),
+          f"check 2: K3 launched {launches['grouped_row_gemm']} times for "
+          f"{run['steps']} decode steps ({len(tap.records)} recorded)")
+    check(scan.prefills == LM_REQUESTS,
+          f"{scan.prefills} admission prefills for {LM_REQUESTS} requests")
+    k6_want = cfg.n_layers * scan.prefills if rwkv else 0
+    check(launches["wkv6_chunked"] == k6_want,
+          f"check 2: K6 launched {launches['wkv6_chunked']} times, expected "
+          f"{k6_want} ({cfg.n_layers} layers x {scan.prefills} prefills)")
+    others = {n: c for n, c in launches.items()
+              if n not in ("grouped_row_gemm", "wkv6_chunked") and c}
+    check(not others, f"the LM path launched other kernels: {others}")
     final = run["final"]
     check(final.shape == (LM_REQUESTS, LM_GEN), f"generations {final.shape}")
     check(final.min() >= 0 and final.max() < cfg.vocab, "token ids out of range")
@@ -644,13 +878,21 @@ def lm_path(dev, kernels) -> dict:
     with torch.no_grad():
         heads = lane_head_checks(tap.records, registry, params["head"])
     del tap
+    # Check 5 (RWKV; the twin below is then check 6): K6 on one layer's
+    # operands, as the first admission prefill handed them over, against
+    # the token recurrence.
+    k6_gate = None
+    if rwkv:
+        check(scan.captured is not None, "no K6 call was captured")
+        with torch.no_grad():
+            k6_gate = k6_against_recurrence(scan.captured)
 
     # -- where a decode step's time goes (CUDA events, the lane's shapes) --
     rows = LM_TENANTS
     plan = lane._plan
     sidx = torch.arange(rows, dtype=torch.int32, device=dev)
-    tpos = torch.full((rows,), LM_PROMPT + LM_GEN - 1, device=dev)
-    caches = model.init_cache(rows, LM_PROMPT + LM_GEN + 1)
+    tpos = torch.full((rows,), prompt_len + LM_GEN - 1, device=dev)
+    caches = model.init_cache(rows, max_len)
     h0 = torch.zeros((rows, 1, cfg.d_model), dtype=cfg.adtype, device=dev)
     hN = torch.randn((rows, cfg.d_model), device=dev).to(cfg.adtype)
     lg = torch.randn((rows, cfg.vocab), device=dev)
@@ -667,31 +909,39 @@ def lm_path(dev, kernels) -> dict:
         prefill_ms = cuda_ms(lambda: prefill(
             params, plan.arrays["aug_embeds"][0], plan.arrays["aug_heads"][0],
             ptoks, one), 3)
+        k6_ms = None
+        if rwkv:
+            ops, chunk = scan.captured["ops"], scan.captured["chunk"]
+            k6_ms = cuda_p50(lambda: kernels.wkv6_chunked(*ops, chunk=chunk),
+                             5, 10)
         logits_fn = make_batched_decode_logits(model)
         prof = decode_step_profile(lambda: torch.argmax(logits_fn(
             params, plan.arrays["aug_embeds"], plan.arrays["aug_heads"], sidx,
             torch.zeros(rows, dtype=torch.int32, device=dev), tpos, caches,
         )[0], dim=-1).cpu(), step_p50)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del lane, plan, caches, one
+    del lane, plan, caches, one, scan
     torch.cuda.empty_cache()
 
-    # Check 5: the same serving path on a depth-cut twin (2 of the 30
-    # layers, full width), held against an independent teacher-forced plain
-    # forward on the raw weights.  At 30 random layers bf16 rounding is
-    # amplified past the tie margin, so that comparison is made at 2.
+    # The twin: the same serving path on a depth-cut twin (2 layers, full
+    # width), held against an independent teacher-forced plain forward on
+    # the raw weights (for RWKV through the token recurrence, not K6).  At
+    # full depth random bf16 layers amplify rounding past the tie margin,
+    # so that comparison is made at 2.
     cfg2 = dataclasses.replace(cfg, n_groups=2)
     model2 = Model(cfg2, dev)
     params2 = {"embed": params["embed"], "final_norm": params["final_norm"],
                "head": params["head"], "blocks": list(params["blocks"])[:2]}
     lane2 = ContinuousDecodeLane(model2, params2, registry, rows=LM_TENANTS,
-                                 max_len=LM_PROMPT + LM_GEN + 1, device=dev)
+                                 max_len=max_len, device=dev)
     with torch.no_grad():
         run2 = run_lane(lane2, served, tenant_of)
-        gap2, exact2 = forward_gaps(S, params2, cfg2, prompts, run2["final"],
-                                    dev)
+        with PlainScan():
+            gap2, exact2 = forward_gaps(S, params2, cfg2, prompts,
+                                        run2["final"], dev)
     check(bool((gap2 <= TIE_MARGIN_ULPS).all()),
-          f"check 5 (2 layers, plain forward): a generated token is "
+          f"check {6 if rwkv else 5}, twin (2 layers, plain forward): a "
+          f"generated token is "
           f"{gap2.max():.2f} bf16 ulps below the plain max "
           f"(margin {TIE_MARGIN_ULPS})")
     del lane2
@@ -699,11 +949,13 @@ def lm_path(dev, kernels) -> dict:
 
     tokens = LM_REQUESTS * LM_GEN
     out = {
-        "phase": "lm_path", "arch": LM_ARCH, "layers": cfg.n_layers,
+        "phase": phase, "arch": arch, "layers": cfg.n_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
         "tenants": LM_TENANTS, "capacity": LM_TENANTS, "rows": rows,
-        "requests": LM_REQUESTS, "prompt_len": LM_PROMPT, "gen": LM_GEN,
-        "decode_steps": run["steps"], "k3_launches": launches,
+        "requests": LM_REQUESTS, "prompt_len": prompt_len, "gen": LM_GEN,
+        "decode_steps": run["steps"], "admission_prefills": LM_REQUESTS,
+        "k3_launches": launches["grouped_row_gemm"],
+        "k6_launches": launches["wkv6_chunked"],
         "tokens_per_s": tokens / run["lane_s"], "lane_s": run["lane_s"],
         "token_lane_s": morph_s,
         "decode_step_p50_ms": step_p50, "trunk_ms": trunk_ms, "k3_ms": k3_ms,
@@ -719,6 +971,12 @@ def lm_path(dev, kernels) -> dict:
         "peak_mem_gb": peak_gb,
         "first_generation": final[0][:12].tolist(),
     }
+    if rwkv:
+        out.update(
+            k6_vs_recurrence=k6_gate, k6_ms_per_launch=k6_ms,
+            k6_ms_per_prefill=k6_ms * cfg.n_layers,
+            k6_share_of_admission_prefill=k6_ms * cfg.n_layers / prefill_ms,
+        )
     emit(out)
     return out
 
@@ -765,8 +1023,8 @@ def main_path(dev, core, runtime, kernels) -> dict:
     engine.stats = runtime.EngineStats()
 
     rounds = 5
-    kernels.grouped_block_diag_matmul.launches = 0
-    kernels.grouped_aug_gemm.launches = 0
+    for name in KERNEL_NAMES:
+        getattr(kernels, name).launches = 0
     t0 = time.monotonic()
     feats = []
     for _ in range(rounds):
@@ -774,14 +1032,15 @@ def main_path(dev, core, runtime, kernels) -> dict:
         engine.flush()
         feats.append([engine.take(r) for r in rids])
     dt_engine = time.monotonic() - t0
-    launches = {
-        "grouped_block_diag_matmul": kernels.grouped_block_diag_matmul.launches,
-        "grouped_aug_gemm": kernels.grouped_aug_gemm.launches,
-    }
+    counts = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    launches = {n: counts.pop(n) for n in ("grouped_block_diag_matmul",
+                                           "grouped_aug_gemm")}
     n_mb = engine.stats.microbatches
     check(n_mb >= rounds, f"expected >= {rounds} microbatches, got {n_mb}")
     for name, n in launches.items():
         check(n == n_mb, f"{name} launched {n} times for {n_mb} microbatches")
+    check(not any(counts.values()),
+          f"the vision path launched other kernels: {counts}")
 
     t0 = time.monotonic()
     for q in requests:
@@ -1054,8 +1313,7 @@ def vgg_path(dev, core, kernels) -> dict:
     plain_model.convs[0]["w"].requires_grad_(False)
 
     # -- the main path: the provider morphs, the developer infers and trains
-    names = ("grouped_block_diag_matmul", "grouped_aug_gemm", "grouped_row_gemm",
-             "block_diag_matmul", "aug_gemm")
+    names = KERNEL_NAMES
     for name in names:
         setattr(getattr(kernels, name), "launches", 0)
     with torch.no_grad():
@@ -1073,8 +1331,9 @@ def vgg_path(dev, core, kernels) -> dict:
           f"gate 5: K4 launched {launches['block_diag_matmul']} times for 1 call")
     check(launches["aug_gemm"] == k5_calls,
           f"gate 5: K5 launched {launches['aug_gemm']} times for {k5_calls} calls")
-    check(all(launches[n] == 0 for n in names[:3]),
-          f"gate 5: the developer path launched a grouped kernel: {launches}")
+    check(all(c == 0 for n, c in launches.items()
+              if n not in ("block_diag_matmul", "aug_gemm")),
+          f"gate 5: the developer path launched another kernel: {launches}")
 
     # Plain VGG-16 on the raw images (cuDNN, TF32 off), no kernel of ours.
     with torch.no_grad():
@@ -1190,13 +1449,21 @@ def main() -> None:
     release()
     rows["grouped_row_gemm"] = k3_checks(dev, kernels, ref)
     release()
-    lm = lm_path(dev, kernels)
+    lm = lm_path(dev, kernels, phase="lm_path", arch=LM_ARCH,
+                 prompt_len=LM_PROMPT)
     release()
     rows.update(k45_checks(dev, kernels, ref))
     release()
     vgg = vgg_path(dev, core, kernels)
+    release()
+    rows["wkv6_chunked"] = k6_checks(dev, kernels, ref)
+    release()
+    rwkv = lm_path(dev, kernels, phase="rwkv_path", arch=RWKV_ARCH,
+                   prompt_len=RWKV_PROMPT)
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
-                    **vgg["launches"])
+                    wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
+    check(all(launches[n] > 0 for n in KERNEL_NAMES),
+          f"a kernel was not launched on its path: {launches}")
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernel_rows = {   # name -> (source, replaced TPU kernel)
@@ -1208,6 +1475,7 @@ def main() -> None:
         "block_diag_matmul": ("grouped_gemm.cu",
                               "src/repro/kernels/block_diag.py:45"),
         "aug_gemm": ("grouped_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
+        "wkv6_chunked": ("wkv6.cu", "src/repro/kernels/wkv6.py:71"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src,

@@ -1,9 +1,9 @@
 """Config registry of the port: the architectures it runs so far.
 
 ``get_config(name)`` / ``get_smoke_config(name)``.  The reference's
-registry (``repro.configs``) names ten architectures; the port runs the
-dense global-attention ones as their slices land.  Every other name raises
-``NotImplementedError``.
+registry (``repro.configs``) names ten architectures; the port runs them
+as their slices land (dense global attention, then RWKV-6).  Every other
+name raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import importlib
 
 from ..models.base import ModelConfig
 
-ARCHS: tuple[str, ...] = ("deepseek_7b",)
+ARCHS: tuple[str, ...] = ("deepseek_7b", "rwkv6_3b")
 
 
 def _module(name: str):

@@ -1,16 +1,19 @@
-"""Hand-written Hopper kernels for MoLe's morph, Aug-Conv and decode steps.
+"""Hand-written Hopper kernels for MoLe's morph, Aug-Conv and decode steps
+and the RWKV-6 scan.
 
   block_diag — K4, the single-tenant (or per-group) morph
                ``x @ blockdiag(core)``
   aug_gemm   — K5, the developer's Aug-Conv ``T @ C^{ac}``
   grouped    — slot-indexed grouped GEMMs: morph + Aug-Conv of the delivery
                engine (K1, K2) and the decode logits (K3, ``csrc/row_gemm.cu``)
-  gemm       — the ctypes binding of ``csrc/grouped_gemm.cu``, one CUDA C++
-               kernel behind K1, K2, K4 and K5 (a null slot-index pointer
-               means slot = group index)
   ops        — the public entry points (``morph_rows``, ``aug_conv_forward``
                and their ``_batched`` forms; the engine- and decode-facing
                grouped steps with their gidx clamp), and the LM gathers
+  wkv6       — K6, the RWKV-6 chunked scan (``csrc/wkv6.cu``), on the
+               time-mix prefill of ``rwkv`` blocks
+  gemm       — the ctypes binding of every entry point of ``csrc/``
+               (``grouped_gemm.cu`` is one CUDA C++ kernel behind K1, K2, K4
+               and K5; a null slot-index pointer means slot = group index)
   ref        — plain PyTorch versions: the CPU path and the on-card yardstick
   build      — nvcc build of ``csrc/`` at first use, loaded with ctypes
 
@@ -32,6 +35,7 @@ from .ops import (
     morph_rows_grouped,
     token_morph_grouped,
 )
+from .wkv6 import wkv6_chunked
 from . import ref
 
 __all__ = [
@@ -50,5 +54,6 @@ __all__ = [
     "morph_rows_batched",
     "morph_rows_grouped",
     "token_morph_grouped",
+    "wkv6_chunked",
     "ref",
 ]

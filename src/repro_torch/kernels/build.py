@@ -27,6 +27,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "grouped_gemm": _CSRC / "grouped_gemm.cu",
     "row_gemm": _CSRC / "row_gemm.cu",
+    "wkv6": _CSRC / "wkv6.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -5,6 +5,7 @@ wrappers share.
 slot-indexed, fp32; :mod:`.grouped`) and ``gemm_typed`` (K4 in
 :mod:`.block_diag`, K5 in :mod:`.aug_gemm`: one matrix per group, fp32 or
 bf16 operands).  ``csrc/row_gemm.cu`` has ``row_gemm`` (K3; :mod:`.grouped`).
+``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6 scan; :mod:`.wkv6`).
 Each wrapper counts its own launches; this module counts none.  The
 libraries are built at first use (:mod:`.build`); nothing here runs at
 import.
@@ -18,7 +19,7 @@ import torch
 
 from . import build
 
-__all__ = ["MAX_GRID_YZ", "check_operands", "grouped", "typed", "rows"]
+__all__ = ["MAX_GRID_YZ", "check_operands", "grouped", "typed", "rows", "scan"]
 
 MAX_GRID_YZ = 65535
 _BM = 64            # rows per block in grouped_gemm.cu
@@ -31,6 +32,8 @@ _ENTRIES = {   # symbol -> (library, argtypes)
     "gemm_typed": ("grouped_gemm", [_P] * 3 + [_I] * 6 + [_P]),
     # h, gidx, tables, out, R, N, K, S, bf16, device, stream
     "row_gemm": ("row_gemm", [_P] * 4 + [_I] * 6 + [_P]),
+    # r, k, v, logw, u, s0, out, s_out, BH, T, D, L, P, device, stream
+    "wkv6_chunked": ("wkv6", [_P] * 8 + [_I] * 6 + [_P]),
 }
 
 
@@ -120,3 +123,18 @@ def rows(name: str, h: torch.Tensor, gidx: torch.Tensor,
           tables.data_ptr(), out.data_ptr(), R, N, K, S,
           int(h.dtype == torch.bfloat16))
     return out
+
+
+def scan(name: str, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, L: int,
+         splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 chunked scan on fp32 ``(BH, T, D)`` operands, ``splits``
+    blocks per ``(b, h)`` (K6).  Returns (out (BH, T, D), s_final
+    (BH, D, D)), both fp32."""
+    BH, T, D = r.shape
+    out = torch.empty_like(r)
+    s_out = torch.empty_like(s0)
+    _call(name, "wkv6_chunked", r, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+          logw.data_ptr(), u.data_ptr(), s0.data_ptr(), out.data_ptr(),
+          s_out.data_ptr(), BH, T, D, L, splits)
+    return out, s_out

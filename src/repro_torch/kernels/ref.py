@@ -14,6 +14,12 @@ indices clamp into ``[0, S-1]`` as the kernels clamp them.
 The token-morph and Aug-Embedding functions are gathers; they have no CUDA
 kernel (the reference routes them to XLA's gather on every backend too), so
 these are also their implementations on the card.
+
+The RWKV-6 scan has two plain versions: :func:`wkv6_ref`, the token-by-token
+recurrence (the semantic oracle, ``repro.kernels.ref.wkv6_ref``), and
+:func:`wkv6_chunked_ref`, the chunked form with the Pallas kernel's
+``(BH, T, D)`` signature (``repro.kernels.wkv6.wkv6_chunked``), which is
+the CPU path of :func:`repro_torch.kernels.wkv6.wkv6_chunked`.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ __all__ = [
     "aug_embed_rows_grouped_ref",
     "lm_head_rows_grouped_ref",
     "lm_head_rows_batched_ref",
+    "wkv6_ref",
+    "wkv6_chunked_ref",
 ]
 
 
@@ -158,3 +166,59 @@ def lm_head_rows_batched_ref(h: torch.Tensor,
     """Per-row LM-head GEMM, one head per row: h (R, d), heads (R, d, V)
     -> (R, V), contraction in ``h.dtype``."""
     return torch.bmm(h[:, None, :], heads.to(h.dtype))[:, 0]
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """Naive token-by-token RWKV-6 recurrence (the semantic oracle), in
+    fp32.  r/k/v/logw: (B, H, T, D); u: (H, D); s0: (B, H, D, D).
+
+      out_t = r_t (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+
+    Returns (out (B, H, T, D), s_final (B, H, D, D))."""
+    r, k, v, logw = (a.float() for a in (r, k, v, logw))
+    u = u.float()[None, :, :, None]
+    s = s0.float()
+    outs = []
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        outs.append(torch.einsum("bhd,bhdv->bhv", r[:, :, t], s + u * kv))
+        s = torch.exp(logw[:, :, t])[..., None] * s + kv
+    return torch.stack(outs, dim=2), s
+
+
+def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                     *, chunk: int):
+    """The chunked RWKV-6 scan in plain PyTorch, with the explicit (L, L, D)
+    decay tensor of each chunk (the reference's 3-tensor form).
+
+    r/k/v/logw: (BH, T, D) with logw <= 0; u: (BH, D); s0: (BH, D, D).
+    ``T`` must be a multiple of ``L = min(chunk, T)``.  Computes in fp32;
+    returns (out (BH, T, D) in ``r.dtype``, s_final (BH, D, D) fp32).
+    Every exponent is <= 0."""
+    BH, T, D = r.shape
+    L = min(chunk, T)
+    assert T % L == 0, (T, L)
+    n = T // L
+    rc, kc, vc, lw = (a.float().reshape(BH, n, L, D) for a in (r, k, v, logw))
+    u = u.float()[:, None, :]
+    s = s0.float()
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device),
+                     diagonal=-1)
+    outs = []
+    for c in range(n):
+        rn, kn, vn, lwn = rc[:, c], kc[:, c], vc[:, c], lw[:, c]
+        clw = torch.cumsum(lwn, dim=1)           # inclusive
+        clw_prev = clw - lwn                     # exclusive
+        out = torch.bmm(rn * torch.exp(clw_prev), s)
+        diff = clw_prev[:, :, None, :] - clw[:, None, :, :]      # (BH, t, s, D)
+        diff = diff.masked_fill(~tri[None, :, :, None], float("-inf"))
+        scores = torch.einsum("btd,bsd,btsd->bts", rn, kn, torch.exp(diff))
+        out = out + torch.bmm(scores, vn)
+        out = out + (rn * u * kn).sum(-1, keepdim=True) * vn
+        last = clw[:, -1]                        # (BH, D)
+        k_dec = kn * torch.exp(last[:, None, :] - clw)
+        s = torch.exp(last)[:, :, None] * s + torch.bmm(k_dec.transpose(1, 2), vn)
+        outs.append(out)
+    return torch.cat(outs, dim=1).to(r.dtype), s

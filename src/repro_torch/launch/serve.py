@@ -22,6 +22,8 @@ unmorphs the generations for the provider.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch deepseek_7b --smoke --requests 8 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch rwkv6_3b --smoke --requests 4 --prompt-len 13 --gen 6
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 asks for the plain versions on the CPU.  ``--async``, ``--mode serve`` and

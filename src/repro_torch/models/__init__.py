@@ -1,9 +1,9 @@
-"""Model zoo on PyTorch: the dense token LMs the port serves so far, and the
-paper's VGG.
+"""Model zoo on PyTorch: the token LMs the port serves so far (dense
+global attention, RWKV-6), and the paper's VGG.
 
   base    configs (copied from ``repro.models.base``) + parameter init
   layers  norms, RoPE, dense/decode attention, gated MLPs
-  blocks  the dense global self-attention block
+  blocks  the dense global self-attention block and the RWKV-6 block
   stack   embedding -> blocks -> final norm -> LM head
   api     ``Model`` and ``params_from_jax``
   cnn     VGG-16 on CIFAR with the Aug-Conv first layer (paper §4.4)

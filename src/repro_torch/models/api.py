@@ -1,6 +1,7 @@
 """Model API on PyTorch — what the serving steps and the decode lane use.
 
-Ported from ``repro.models.api`` for plain token LMs.  ``Model(cfg,
+Ported from ``repro.models.api`` for plain token LMs (dense global
+attention and RWKV-6 stacks).  ``Model(cfg,
 device)`` exposes:
 
   schema() / init(generator)          — parameters as a :class:`ParamTree`
@@ -26,7 +27,7 @@ __all__ = ["Model", "params_from_jax"]
 
 
 class Model:
-    """A dense token LM on one device: the card unless the caller names
+    """A token LM on one device: the card unless the caller names
     another (``device="cpu"``); raises when CUDA is asked for and absent."""
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -91,7 +92,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
 
     The reference stacks the scanned block group's leaves on a leading
     ``n_groups`` axis (``tree["blocks"]["b0"]``); the port keeps one dict
-    per layer, so layer ``i`` takes slice ``i`` of every stacked leaf.
+    per layer, so layer ``i`` takes slice ``i`` of every stacked leaf (an
+    rwkv block's ``(5, d)`` / ``(5, rank, d)`` token-shift mixes and its
+    ``(H, hd)`` bonus ``u`` included).
     """
     check_supported(cfg)
 

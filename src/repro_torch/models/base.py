@@ -11,7 +11,7 @@ tests carry the reference's parameters over with
 ``nn.Module`` that holds a nested parameter tree and is indexed by name like
 the reference's parameter dicts (``params["blocks"][i]["mix"]["wq"]``).
 
-This slice of the port runs dense attention stacks only:
+The port runs dense global-attention stacks and RWKV-6 stacks:
 :func:`check_supported` raises ``NotImplementedError`` for every config that
 needs a block kind, mixer or frontend of a later slice.
 """
@@ -171,26 +171,39 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless this slice of the port runs
-    ``cfg``: a dense stack of global self-attention blocks (``("attn",)``),
-    no frontend.  Nothing else is computed in its place."""
+    """Raise ``NotImplementedError`` unless the port runs ``cfg``: a dense
+    stack of global self-attention blocks (``("attn",)``), or an RWKV-6
+    stack (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set, layernorm); no
+    frontend.  Nothing else is computed in its place."""
+    rwkv = tuple(cfg.block_pattern) == ("rwkv",)
     later = []
-    if cfg.family != "dense":
-        later.append(f"family={cfg.family!r}")
-    for name in ("moe", "mla", "rnn", "rwkv", "frontend"):
+    if rwkv:
+        if cfg.family != "ssm":
+            later.append(f"family={cfg.family!r} with rwkv blocks")
+        if cfg.rwkv is None:
+            later.append("rwkv blocks without an RwkvCfg")
+        if cfg.norm != "layernorm":
+            later.append(f"rwkv blocks with norm={cfg.norm!r}")
+    else:
+        if cfg.family != "dense":
+            later.append(f"family={cfg.family!r}")
+        if tuple(cfg.block_pattern) != ("attn",):
+            later.append(f"block_pattern={cfg.block_pattern!r}")
+        if cfg.rwkv is not None:
+            later.append("rwkv")
+    for name in ("moe", "mla", "rnn", "frontend"):
         if getattr(cfg, name) is not None:
             later.append(name)
-    if tuple(cfg.block_pattern) != ("attn",):
-        later.append(f"block_pattern={cfg.block_pattern!r}")
     if cfg.prefix_pattern or cfg.suffix_pattern:
         later.append("prefix/suffix layers")
     if cfg.sliding_window is not None:
         later.append("sliding_window")
     if later:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} not ported yet (this slice runs "
-            f"dense global-attention stacks; MoE, MLA, recurrent, RWKV, local "
-            f"attention and frontends arrive with later slices of the port)"
+            f"{cfg.name}: {', '.join(later)} not ported yet (the port runs "
+            f"dense global-attention stacks and RWKV-6 stacks; MoE, MLA, "
+            f"recurrent, local attention and frontends arrive with later "
+            f"slices of the port)"
         )
 
 

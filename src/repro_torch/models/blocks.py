@@ -1,17 +1,23 @@
-"""Per-layer blocks on PyTorch: the dense global self-attention block.
+"""Per-layer blocks on PyTorch: the dense global self-attention block and
+the RWKV-6 block (time-mix + channel-mix).
 
-Ported from ``repro.models.blocks`` (``RunState``, the dense FFN and the
-self-attention mixer).  The other layer kinds of the reference (MoE, MLA,
-cross-attention, RG-LRU, RWKV, the whisper encoder/decoder layers) belong to
+Ported from ``repro.models.blocks`` (``RunState``, ``mixer_of``/``ffn_of``,
+the dense FFN, the self-attention mixer and the RWKV-6 time-mix and
+channel-mix).  The other layer kinds of the reference (MoE, MLA,
+cross-attention, RG-LRU, the whisper encoder/decoder layers) belong to
 later slices: :func:`repro_torch.models.base.check_supported` refuses their
-configs.
+configs.  The RWKV-6 time-mix runs its prefill scan through K6
+(:func:`repro_torch.kernels.wkv6.wkv6_chunked`); the reference's
+``_wkv_intra_subchunked`` (an XLA form selected by ``subchunk > 0``) is not
+ported, since K6 replaces both of the reference's XLA forms on the card.
 
 Caches differ from the reference in two ways, both because torch updates in
 place where JAX returns new arrays:
 
   * a block **writes its cache tensors in place** (prefill and decode) and
     returns the same dict, so the decode lane's joiner prefills straight
-    into its row's slice of the ``(R, ...)`` caches;
+    into its row's slice of the ``(R, ...)`` caches (the RWKV state ``s``
+    and the token-shift rows ``tm_x``/``cm_x`` too);
   * ``pos`` (absolute position held by each cache slot, -1 = empty) is kept
     per batch row, ``(B, slots)``, so every row of a batched decode step
     masks by its own position ``t[r]``.  The reference keeps one ``(slots,)``
@@ -22,13 +28,16 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
+from ..kernels.wkv6 import wkv6_chunked
 from .base import ModelConfig, ParamDef
 from . import layers as L
 
 __all__ = [
-    "RunState", "schema_ffn", "apply_ffn", "schema_attn", "cache_attn",
-    "apply_attn",
+    "RunState", "mixer_of", "ffn_of", "schema_ffn", "apply_ffn",
+    "schema_attn", "cache_attn", "apply_attn", "schema_rwkv", "cache_rwkv",
+    "apply_rwkv_tm", "apply_rwkv_cm",
 ]
 
 
@@ -39,6 +48,18 @@ class RunState:
     # (B,) tensor of per-row positions (the batched decode lane).
     t: int | torch.Tensor | None = None
     write_cache: bool = False       # prefill: write caches in full mode
+
+
+def mixer_of(kind: str) -> str:
+    return kind[: -len("_moe")] if kind.endswith("_moe") else kind
+
+
+def ffn_of(kind: str) -> str:
+    if kind.endswith("_moe"):
+        return "moe"
+    if kind == "rwkv":
+        return "rwkv_cm"
+    return "dense"
 
 
 # ---------------------------------------------------------------------------
@@ -163,3 +184,187 @@ def apply_attn(
 
     out = torch.einsum("bshk,hkd->bsd", o.to(h.dtype), p["wo"])
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch) — time-mix (chunked linear attention) + channel-mix
+# ---------------------------------------------------------------------------
+
+
+def schema_rwkv(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    w = cfg.rwkv
+    H = d // w.head_dim
+    rank = w.ddlerp_rank
+    return {
+        "tm": {
+            "maa_x": ParamDef((d,), init="zeros"),
+            "maa": ParamDef((5, d), init="zeros"),              # w,k,v,r,g
+            "A": ParamDef((d, 5 * rank), scale=0.02),
+            "B": ParamDef((5, rank, d), scale=0.02),
+            "w0": ParamDef((d,), init="normal", scale=1.0),
+            "w1": ParamDef((d, w.decay_rank), scale=0.02),
+            "w2": ParamDef((w.decay_rank, d), scale=0.02),
+            "u": ParamDef((H, w.head_dim), scale=0.5),
+            "wr": ParamDef((d, d)),
+            "wk": ParamDef((d, d)),
+            "wv": ParamDef((d, d)),
+            "wg": ParamDef((d, d)),
+            "ln_w": ParamDef((d,), init="ones"),
+            "ln_b": ParamDef((d,), init="zeros"),
+            "wo": ParamDef((d, d), scale=0.02),
+        },
+        "cm": {
+            "maa_k": ParamDef((d,), init="zeros"),
+            "maa_r": ParamDef((d,), init="zeros"),
+            "wk": ParamDef((d, cfg.d_ff)),
+            "wv": ParamDef((cfg.d_ff, d), scale=0.02),
+            "wr": ParamDef((d, d), scale=0.02),
+        },
+    }
+
+
+def cache_rwkv(cfg: ModelConfig, batch: int) -> dict:
+    """The recurrent state ``s`` (key x value, fp32) and the last token of
+    each mixer's input (token shift)."""
+    d = cfg.d_model
+    hd = cfg.rwkv.head_dim
+    H = d // hd
+    return {
+        "s": ParamDef((batch, H, hd, hd), init="zeros", dtype=torch.float32),
+        "tm_x": ParamDef((batch, d), init="zeros"),
+        "cm_x": ParamDef((batch, d), init="zeros"),
+    }
+
+
+def _ddlerp(p, x: torch.Tensor, x_prev: torch.Tensor):
+    """Data-dependent token-shift interpolation -> (xw, xk, xv, xr, xg)."""
+    dx = x_prev - x
+    xx = x + dx * p["maa_x"]
+    a = torch.tanh(torch.matmul(xx, p["A"]))
+    a5 = a.reshape(*a.shape[:-1], 5, p["B"].shape[1])      # (..., 5, rank)
+    lora = torch.einsum("...cr,crd->c...d", a5, p["B"])    # (5, ..., d)
+    mix = p["maa"].reshape(5, *([1] * (x.dim() - 1)), x.shape[-1])
+    outs = x[None] + dx[None] * (mix + lora)
+    return tuple(outs[i] for i in range(5))
+
+
+def _shifted(h: torch.Tensor) -> torch.Tensor:
+    """The previous position's input at every position, zero at the first."""
+    return F.pad(h, (0, 0, 1, 0))[:, :-1]
+
+
+def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
+    """Chunked RWKV-6 linear attention through K6.
+
+    r/k/v/logw: (B, H, T, D) fp32; u: (H, D); s0: (B, H, D, D) [key x
+    value].  Pads T at the end to a multiple of ``Lc = min(chunk, T)`` —
+    exact: k = v = 0 add nothing, logw = 0 (decay 1) leaves the state as it
+    is, and the r = 0 rows are sliced away — flattens (B, H), broadcasts
+    ``u`` to (B*H, D) and calls :func:`wkv6_chunked`.  Returns
+    (out (B, H, T, D), s_final (B, H, D, D))."""
+    B, H, T, D = r.shape
+    Lc = min(chunk, T)
+    pad = (-T) % Lc
+
+    def flat(a):
+        if pad:
+            a = F.pad(a, (0, 0, 0, pad))
+        return a.reshape(B * H, T + pad, D).contiguous()
+
+    u_b = u.float()[None].expand(B, H, D).reshape(B * H, D).contiguous()
+    out, s_fin = wkv6_chunked(
+        flat(r), flat(k), flat(v), flat(logw), u_b,
+        s0.reshape(B * H, D, D).contiguous(), chunk=chunk,
+    )
+    return out.reshape(B, H, T + pad, D)[:, :, :T], s_fin.reshape(B, H, D, D)
+
+
+def _decay(p, xw: torch.Tensor) -> torch.Tensor:
+    """Per-channel log-decay, fp32, <= 0."""
+    return -torch.exp(
+        (p["w0"] + torch.matmul(torch.tanh(torch.matmul(xw, p["w1"])),
+                                p["w2"])).float()
+    )
+
+
+def apply_rwkv_tm(
+    p, h: torch.Tensor, cfg: ModelConfig, rs: RunState, cache: dict | None
+) -> tuple[torch.Tensor, dict | None]:
+    w = cfg.rwkv
+    d = cfg.d_model
+    H, D = d // w.head_dim, w.head_dim
+    B = h.shape[0]
+    zeros_D = torch.zeros((D,), dtype=torch.float32, device=h.device)
+
+    if rs.mode == "decode":
+        x = h[:, 0]
+        x_prev = cache["tm_x"].to(x.dtype)
+        xw, xk, xv, xr, xg = _ddlerp(p, x, x_prev)
+        logw = _decay(p, xw).reshape(B, H, D)
+        r_ = torch.matmul(xr, p["wr"]).reshape(B, H, D).float()
+        k_ = torch.matmul(xk, p["wk"]).reshape(B, H, D).float()
+        v_ = torch.matmul(xv, p["wv"]).reshape(B, H, D).float()
+        g_ = F.silu(torch.matmul(xg, p["wg"]))
+        s = cache["s"].float()
+        kv = k_[..., :, None] * v_[..., None, :]
+        u = p["u"].float()[None, :, :, None]
+        out = torch.einsum("bhd,bhdv->bhv", r_, s + u * kv)
+        s_new = torch.exp(logw)[..., None] * s + kv
+        o = L.layer_norm(out, zeros_D).reshape(B, d)
+        o = o * p["ln_w"] + p["ln_b"]
+        o = torch.matmul(o.to(h.dtype) * g_, p["wo"])
+        cache["s"].copy_(s_new)
+        cache["tm_x"].copy_(x)
+        return o[:, None], cache
+
+    # full mode
+    S = h.shape[1]
+    x_prev = _shifted(h)
+    if cache is not None and not rs.write_cache:
+        x_prev[:, 0] = cache["tm_x"].to(h.dtype)
+    xw, xk, xv, xr, xg = _ddlerp(p, h, x_prev)
+    logw = _decay(p, xw)                                    # (B, S, d), <= 0
+
+    def to_h(t):
+        return t.reshape(B, S, H, D).transpose(1, 2).float()
+
+    r_ = to_h(torch.matmul(xr, p["wr"]))
+    k_ = to_h(torch.matmul(xk, p["wk"]))
+    v_ = to_h(torch.matmul(xv, p["wv"]))
+    g_ = F.silu(torch.matmul(xg, p["wg"]))
+    s0 = (cache["s"].float() if (cache is not None and not rs.write_cache)
+          else torch.zeros((B, H, D, D), dtype=torch.float32, device=h.device))
+    out, s_fin = _wkv_chunked(r_, k_, v_, to_h(logw), p["u"], s0, w.chunk)
+    o = L.layer_norm(out.transpose(1, 2), zeros_D)          # (B, S, H, D)
+    o = o.reshape(B, S, d) * p["ln_w"] + p["ln_b"]
+    o = torch.matmul(o.to(h.dtype) * g_, p["wo"])
+    new_cache = None
+    if cache is not None and rs.write_cache:
+        cache["s"].copy_(s_fin)
+        cache["tm_x"].copy_(h[:, -1])
+        new_cache = cache
+    return o, new_cache
+
+
+def apply_rwkv_cm(
+    p, h: torch.Tensor, cfg: ModelConfig, rs: RunState, cache: dict | None
+) -> tuple[torch.Tensor, dict | None]:
+    if rs.mode == "decode":
+        x = h[:, 0]
+        x_prev = cache["cm_x"].to(x.dtype)
+    else:
+        x = h
+        x_prev = _shifted(h)
+        if cache is not None and not rs.write_cache:
+            x_prev[:, 0] = cache["cm_x"].to(h.dtype)
+    xk = x + (x_prev - x) * p["maa_k"]
+    xr = x + (x_prev - x) * p["maa_r"]
+    v = torch.matmul(torch.square(F.relu(torch.matmul(xk, p["wk"]))), p["wv"])
+    out = torch.sigmoid(torch.matmul(xr, p["wr"])) * v
+    if rs.mode == "decode":
+        cache["cm_x"].copy_(x)
+        return out[:, None], cache
+    if cache is not None and rs.write_cache:
+        cache["cm_x"].copy_(h[:, -1])
+    return out, cache

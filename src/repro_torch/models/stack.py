@@ -1,11 +1,11 @@
 """Layer-stack assembly on PyTorch: schema and apply for a full model.
 
 Ported from ``repro.models.stack`` for dense global-attention stacks
-(``block_pattern=("attn",)``).  A model is: token embedding -> ``n_groups``
-attention blocks -> final norm -> LM head.  The reference scans over
-stacked ``(n_groups, ...)`` block parameters; here ``params["blocks"]`` and
-``caches["blocks"]`` are per-layer lists and :func:`apply_stack` loops over
-them.
+(``block_pattern=("attn",)``) and RWKV-6 stacks (``("rwkv",)``).  A model
+is: token embedding -> ``n_groups`` blocks -> final norm -> LM head.  The
+reference scans over stacked ``(n_groups, ...)`` block parameters; here
+``params["blocks"]`` and ``caches["blocks"]`` are per-layer lists and
+:func:`apply_stack` loops over them, each block dispatched on its kind.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from . import blocks as B
 from . import layers as L
 
 __all__ = [
-    "block_schema", "model_schema", "model_cache_schema", "apply_block",
+    "block_schema", "block_cache_schema", "model_schema",
+    "model_cache_schema", "apply_block",
     "apply_stack", "embed_tokens", "head_matrix", "lm_head", "forward",
     "decode_step",
 ]
@@ -26,16 +27,37 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-def block_schema(cfg: ModelConfig) -> dict:
-    sch = {"norm1": ParamDef((cfg.d_model,), init="zeros"),
-           "mix": B.schema_attn(cfg)}
-    if not cfg.parallel_block:
+def block_schema(cfg: ModelConfig, kind: str = "attn") -> dict:
+    mix = B.mixer_of(kind)
+    sch = {"norm1": ParamDef((cfg.d_model,), init="zeros")}
+    if mix == "attn":
+        sch["mix"] = B.schema_attn(cfg)
+    elif mix == "rwkv":
+        rw = B.schema_rwkv(cfg)
+        sch["mix"] = rw["tm"]
+        sch["ffn"] = rw["cm"]
+    else:
+        raise ValueError(f"unknown mixer kind {kind!r}")
+    if B.ffn_of(kind) == "rwkv_cm":
         sch["norm2"] = ParamDef((cfg.d_model,), init="zeros")
-    sch["ffn"] = B.schema_ffn(cfg)
+    else:
+        if not cfg.parallel_block:
+            sch["norm2"] = ParamDef((cfg.d_model,), init="zeros")
+        sch["ffn"] = B.schema_ffn(cfg)
     if cfg.post_norm:
         sch["post_norm1"] = ParamDef((cfg.d_model,), init="zeros")
         sch["post_norm2"] = ParamDef((cfg.d_model,), init="zeros")
     return sch
+
+
+def block_cache_schema(cfg: ModelConfig, kind: str, batch: int,
+                       max_len: int) -> dict:
+    mix = B.mixer_of(kind)
+    if mix == "attn":
+        return B.cache_attn(cfg, batch, max_len)
+    if mix == "rwkv":
+        return B.cache_rwkv(cfg, batch)
+    raise ValueError(f"unknown mixer kind {kind!r}")
 
 
 def model_schema(cfg: ModelConfig) -> dict:
@@ -45,14 +67,14 @@ def model_schema(cfg: ModelConfig) -> dict:
     sch["final_norm"] = ParamDef((cfg.d_model,), init="zeros")
     if not cfg.tie_embeddings:
         sch["head"] = ParamDef((cfg.d_model, cfg.vocab), scale=0.02)
-    sch["blocks"] = [block_schema(cfg) for _ in range(cfg.n_layers)]
+    sch["blocks"] = [block_schema(cfg, kind) for kind in cfg.layer_kinds()]
     return sch
 
 
 def model_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     check_supported(cfg)
-    return {"blocks": [B.cache_attn(cfg, batch, max_len)
-                       for _ in range(cfg.n_layers)]}
+    return {"blocks": [block_cache_schema(cfg, kind, batch, max_len)
+                       for kind in cfg.layer_kinds()]}
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +82,19 @@ def model_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache):
+def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
+                kind: str = "attn"):
+    """One block of layer kind ``kind`` (the reference passes it before
+    ``rs``; here it trails, so callers of attention blocks may omit it)."""
+    if B.mixer_of(kind) == "rwkv":
+        # time-mix and channel-mix both read and write the layer's cache
+        a, cache = B.apply_rwkv_tm(p["mix"], L.norm(h, p["norm1"], cfg.norm),
+                                   cfg, rs, cache)
+        h = h + a
+        fo, cache = B.apply_rwkv_cm(p["ffn"], L.norm(h, p["norm2"], cfg.norm),
+                                    cfg, rs, cache)
+        return h + fo, cache
+
     if cfg.parallel_block:  # command-r: shared input norm, attn + ffn in parallel
         n = L.norm(h, p["norm1"], cfg.norm)
         a, cache = B.apply_attn(p["mix"], n, cfg, rs, cache)
@@ -83,9 +117,10 @@ def apply_stack(params, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState,
     """Run every block in order.  Returns (h, caches|None); caches are
     written in place (see :mod:`repro_torch.models.blocks`)."""
     new = [] if caches is not None else None
+    kinds = cfg.layer_kinds()
     for i, p in enumerate(params["blocks"]):
         c = caches["blocks"][i] if caches is not None else None
-        h, nc = apply_block(p, h, cfg, rs, c)
+        h, nc = apply_block(p, h, cfg, rs, c, kinds[i])
         if new is not None:
             new.append(nc)
     return h, ({"blocks": new} if caches is not None else None)

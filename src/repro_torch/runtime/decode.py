@@ -4,9 +4,10 @@ Ported from ``repro.runtime.decode``.  One shared batched decode step runs
 over a fixed pool of **rows**:
 
   * Row ``r`` holds one tenant *sequence* — its morphed token, its absolute
-    position, its slice of the ``(R, ...)`` KV caches, and the registry slot
-    ``sidx[r]`` whose stacked AugE table / Aug-head serve its embedding and
-    logits (the ``(R, d)``-row grouped GEMM, K3:
+    position, its slice of the ``(R, ...)`` caches (KV slots for attention
+    stacks; the recurrent state and token-shift rows for RWKV), and the
+    registry slot ``sidx[r]`` whose stacked AugE table / Aug-head serve its
+    embedding and logits (the ``(R, d)``-row grouped GEMM, K3:
     ``kernels.ops.lm_head_rows_grouped``).
   * **Continuous batching**: between steps, finished sequences retire and
     queued ones are admitted under weighted fair queueing
@@ -130,8 +131,9 @@ class ContinuousDecodeLane:
         self._reset_rows()
 
     def _reset_rows(self) -> None:
-        # (R, ...) caches; fresh rows are all-empty (pos = -1), so the
-        # decode step computes harmlessly on garbage before any admission.
+        # (R, ...) caches; fresh rows are all-empty (pos = -1, zero RWKV
+        # state), so the decode step computes harmlessly on garbage before
+        # any admission.
         self._caches = self.model.init_cache(self.rows, self.max_len)
         self._row: list[DecodeRow | None] = [None] * self.rows
         self._sidx = np.zeros(self.rows, np.int32)
@@ -195,15 +197,17 @@ class ContinuousDecodeLane:
 
     # -- the continuous-batching loop ----------------------------------------
     def _row_caches(self, row: int) -> dict:
-        """Row ``row``'s slice of the (R, ...) caches (views), emptied."""
+        """Row ``row``'s slice of the (R, ...) caches (views), emptied by
+        cache kind: attention slots zeroed and marked empty (``pos`` = -1),
+        the RWKV state and token-shift rows (``s``, ``tm_x``, ``cm_x``)
+        zeroed."""
         view = {"blocks": [
             {name: c[name][row : row + 1] for name in c}
             for c in self._caches["blocks"]
         ]}
         for c in view["blocks"]:
-            c["k"].zero_()
-            c["v"].zero_()
-            c["pos"].fill_(-1)
+            for name, x in c.items():
+                x.fill_(-1 if name == "pos" else 0)
         return view
 
     def _admit(self) -> None:

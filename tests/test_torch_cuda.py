@@ -4,6 +4,8 @@ port is installed).  Every test needs a GPU and skips without one.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -16,9 +18,10 @@ from repro_torch.kernels import (  # noqa: E402
     aug_conv_forward, aug_conv_forward_batched, aug_conv_forward_grouped,
     aug_gemm, block_diag_matmul, grouped_aug_gemm, grouped_block_diag_matmul,
     grouped_row_gemm, lm_head_rows_grouped, morph_rows, morph_rows_batched,
-    morph_rows_grouped, ref,
+    morph_rows_grouped, ref, wkv6_chunked,
 )
-from repro_torch.models import cnn  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.models import Model, cnn, stack  # noqa: E402
 from repro_torch.runtime import DeliveryRequest, MoLeDeliveryEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -236,3 +239,86 @@ def test_engine_on_card_matches_cpu_under_eviction(rng, cuda):
     for rid, q in zip(rids, reqs):
         want = reg.session(q.tenant_id).deliver(torch.from_numpy(q.payload))
         np.testing.assert_allclose(eng.take(rid), want.numpy(), atol=1e-4)
+
+
+def _scan_ops(rng, BH, T, D):
+    r, k, v = (_rand(rng, BH, T, D) for _ in range(3))
+    logw = -torch.exp(_rand(rng, BH, T, D))
+    return r, k, v, logw, _rand(rng, BH, D), _rand(rng, BH, D, D, scale=0.1)
+
+
+@pytest.mark.parametrize("BH,T,D,chunk", [
+    (4, 64, 16, 16), (4, 128, 16, 32), (4, 96, 64, 32), (40, 384, 64, 128),
+    (160, 128, 64, 128), (3, 100, 64, 128), (1, 256, 64, 128), (2, 12, 16, 4),
+])
+def test_wkv6_kernel_matches_plain(rng, cuda, BH, T, D, chunk):
+    """K6 (fp32) against the plain chunked scan and the token recurrence,
+    out and final state within 1e-4 * max|plain|, over the reference's
+    sweep, the prefill's width (40 heads of 64, chunk 128), T < chunk, one
+    block per SM and many."""
+    ops = _scan_ops(rng, BH, T, D)
+    want_o, want_s = ref.wkv6_chunked_ref(*ops, chunk=chunk)
+    rec_o, rec_s = ref.wkv6_ref(*(a[None] for a in ops[:4]), ops[4],
+                                ops[5][None])
+    before = wkv6_chunked.launches
+    got_o, got_s = wkv6_chunked(*(a.to(cuda) for a in ops), chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv6_chunked.launches == before + 1
+    for got, want in ((got_o, want_o), (got_s, want_s),
+                      (got_o, rec_o[0]), (got_s, rec_s[0])):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_wkv6_kernel_bf16_and_refusals(rng, cuda):
+    """bf16 operands run the fp32 kernel and round ``out`` once (within two
+    bf16 ulps of the plain version's max, which rounds the same way); head
+    sizes and chunks without a kernel raise."""
+    ops = [a.to(cuda) for a in _scan_ops(rng, 8, 64, 64)]
+    bf = [a.bfloat16() for a in ops[:5]] + [ops[5]]
+    got_o, got_s = wkv6_chunked(*bf, chunk=32)
+    want_o, want_s = ref.wkv6_chunked_ref(*bf, chunk=32)
+    torch.cuda.synchronize()
+    assert got_o.dtype == torch.bfloat16 and got_s.dtype == torch.float32
+    scale = float(want_o.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert float((got_o.float() - want_o.float()).abs().max()) <= 2 * ulp
+    assert float((got_s - want_s).abs().max()) <= 1e-4 * float(want_s.abs().max())
+    with pytest.raises(ValueError, match="no kernel"):
+        wkv6_chunked(*[a.to(cuda) for a in _scan_ops(rng, 2, 8, 32)], chunk=8)
+    with pytest.raises(ValueError, match="no kernel"):
+        wkv6_chunked(*[a.to(cuda) for a in _scan_ops(rng, 2, 256, 16)],
+                     chunk=256)
+
+
+def test_rwkv_smoke_model_on_card_equals_cpu(rng, cuda):
+    """The rwkv6_3b smoke model (fp32) on the card, its time-mix prefill
+    through K6 (one launch per layer), against the same weights on the CPU:
+    forward logits within 1e-4 * max, then a prefill and two decode steps,
+    both sides fed the CPU's greedy tokens, logits within 1e-4 * max at
+    every step."""
+    cfg = get_smoke_config("rwkv6_3b")
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    card = Model(cfg, "cuda")
+    params_c = copy.deepcopy(params).to(cuda)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 11)))
+
+    def close(got, want):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+    want, _ = stack.forward(params, cfg, tokens)
+    before = wkv6_chunked.launches
+    got, _ = stack.forward(params_c, cfg, tokens.to(cuda))
+    torch.cuda.synchronize()
+    assert wkv6_chunked.launches == before + cfg.n_layers
+    close(got, want)
+    lc, cc = cpu.prefill(params, {"tokens": tokens}, 16)
+    lg, cg = card.prefill(params_c, {"tokens": tokens.to(cuda)}, 16)
+    close(lg, lc)
+    for t in range(11, 13):
+        tok = torch.argmax(lc[:, 0], -1)[:, None]
+        lc, cc = cpu.decode(params, tok, t, cc)
+        lg, cg = card.decode(params_c, tok.to(cuda), t, cg)
+        close(lg, lc)
