@@ -7,15 +7,22 @@ Needs one NVIDIA GPU (written for an H100) and the CUDA toolkit's ``nvcc``.
 Imports neither ``jax`` nor the JAX package ``repro``.  Phases, each
 printing one JSON line; any failure raises and exits non-zero:
 
-  1. build      compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
+  1. build      compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a;
+                prints each kernel's registers, shared memory and spills
+                (``-Xptxas -v``).
   2. kernels    both grouped kernels against their plain PyTorch versions
                 on the card at VGG-16/CIFAR first-layer width (G=4, B=64,
                 K=q=3072, N=65536; plus kappa=4) and a ragged shape, for
                 every slot-index pattern of the reference's tests plus an
                 out-of-range index that must clamp.  Bound:
-                max|kernel - plain| <= 1e-4 * max|plain|.  Times kernel,
-                plain version and one library call (torch.bmm over the
-                pre-gathered weights, a yardstick the port never calls).
+                max|kernel - plain| <= 1e-4 * max|plain|.  Gated: K1 (the
+                split-K morph kernel) gives the same bits on two calls at
+                the main shape.  Times kernel, plain version and one library
+                call (torch.bmm over the pre-gathered weights, a yardstick
+                the port never calls), and prints, not gated, K1's time at
+                each split of K (the wrapper's rule picks one) and K2's
+                product run on K1's kernel beside K2's own
+                (``on_morph_kernel``).
   3. main_path  ``MoLeDeliveryEngine`` at alpha=3, beta=64, m=32, p=3,
                 kappa=1: 4 tenants at capacity 4, rounds of 256 one-image
                 requests (one (4, 64, 3072) microbatch per flush).  Checks
@@ -70,10 +77,14 @@ printing one JSON line; any failure raises and exits non-zero:
                 65536); ``aug_conv_forward_batched`` at (4, 64, 3072) x
                 (4, 3072, 65536); ragged K5 (7, 33) x (33, 9).  Bound: fp32
                 max|kernel - plain| <= 1e-4 * max|plain|, bf16 two bf16
-                ulps of max|plain|.  Times kernel, plain version (in fp32
-                that is one ``torch.matmul``) and one library call
-                (``torch.matmul`` in the operand dtype: cuBLAS, in bf16 on
-                the tensor cores) at the VGG-16 shapes.
+                ulps of max|plain|.  Gated: K4 gives the same bits on two
+                calls at (256, 3072), fp32 and bf16.  Times kernel, plain
+                version (in fp32 that is one ``torch.matmul``) and one
+                library call (``torch.matmul`` in the operand dtype:
+                cuBLAS, in bf16 on the tensor cores) at the VGG-16 shapes,
+                and prints, not gated, K4's fp32 time at each split of K
+                and K5's product run on K4's kernel beside K5's own
+                (``on_morph_kernel``).
   8. vgg_path   the paper's developer path at VGG-16/CIFAR width (13 convs
                 64..512, 32x32, 10 classes), random weights from a seeded
                 generator on the card: one provider (``DataProvider``,
@@ -253,6 +264,41 @@ def cuda_p50(fn, reps: int, inner: int) -> float:
     return float(np.median([cuda_ms(fn, inner) for _ in range(reps)]))
 
 
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    bits = {4: torch.int32, 2: torch.int16}[x.element_size()]
+    return x.dtype == y.dtype and torch.equal(x.view(bits), y.view(bits))
+
+
+def split_sweep(gemm, name, a, gidx, b) -> dict:
+    """The morph kernel's time (CUDA events, 20 calls) at each of a few
+    splits of K (q = 3072 at the main shapes), through its binding, which
+    counts no launch; printed, not gated."""
+    return {s: cuda_ms(lambda: gemm.morph(name, a, gidx, b, s), 20)
+            for s in (1, 2, 3, 4, 5, 6, 8, 12)}
+
+
+def morph_probe(gemm, name, run_kernel, a, gidx, b, iters: int) -> dict:
+    """Not gated: ``name``'s product on the morph kernel (K1/K4's
+    ``csrc/morph_gemm.cu``, split by its rule), timed in turns with
+    ``name``'s own kernel (CUDA events, ``iters`` calls each), and the
+    largest difference of their outputs: a measure for moving ``name``
+    onto it.  Through the binding, which counts no launch."""
+    def run_morph():
+        return gemm.morph(name, a, gidx, b)
+    times = [cuda_ms(run_morph, iters), cuda_ms(run_kernel, iters),
+             cuda_ms(run_morph, iters), cuda_ms(run_kernel, iters)]
+    want = run_kernel()
+    diff = float((run_morph().view(want.shape).float()
+                  - want.float()).abs().max())
+    del want
+    G, M, K = a.shape
+    return {"morph_ms": (times[0] + times[2]) / 2,
+            "kernel_ms": (times[1] + times[3]) / 2, "runs_ms": times,
+            "splits": gemm.morph_splits(G, M, b.shape[-1], K,
+                                        gemm.sm_count(a.device)),
+            "max_abs_diff": diff}
+
+
 def bound_ms(n_bytes: float, flops: float,
              flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -265,6 +311,7 @@ def bound_ms(n_bytes: float, flops: float,
 def kernel_checks(dev, kernels, ref) -> dict:
     """Both kernels vs their plain versions at full width and a ragged
     shape; returns per-kernel error and timing rows."""
+    from repro_torch.kernels import gemm
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, scale=1.0):
@@ -314,6 +361,10 @@ def kernel_checks(dev, kernels, ref) -> dict:
         library_ms=times[4], bound_ms=b, bound_by=by,
         timed_shape=f"t({G},{B},{K}) c_acs({G},{K},{N}) gidx=arange({G})",
         runs_ms=times,
+        on_morph_kernel=morph_probe(
+            gemm, "grouped_aug_gemm",
+            lambda: kernels.grouped_aug_gemm(t, ident, c_main), t, ident,
+            c_main, 10),
     )
     del c_acs, c_main
     t = randn(G, RAGGED_B, RAGGED_K)
@@ -344,13 +395,20 @@ def kernel_checks(dev, kernels, ref) -> dict:
             ]
             b, by = bound_ms(4 * (2 * G * B * F + G * q * q + G),
                              2 * G * B * F * q)
+            first = kernels.grouped_block_diag_matmul(x, ident, c_main, 1)
+            second = kernels.grouped_block_diag_matmul(x, ident, c_main, 1)
+            check(same_bits(first, second),
+                  "grouped_block_diag_matmul: two calls on the same inputs differ")
             rows["grouped_block_diag_matmul"].update(
                 ms=(times[0] + times[2]) / 2, plain_ms=(times[1] + times[3]) / 2,
                 library_ms=times[4], bound_ms=b, bound_by=by,
                 timed_shape=f"x({G},{B},{F}) cores({G},{q},{q}) kappa=1 gidx=arange({G})",
-                runs_ms=times,
+                runs_ms=times, deterministic=True,
+                splits=gemm.morph_splits(G, B, q, q, gemm.sm_count(dev)),
+                split_sweep_ms=split_sweep(gemm, "grouped_block_diag_matmul",
+                                           x, ident, c_main),
             )
-            del c_main
+            del c_main, first, second
         del cores
     q = RAGGED_N
     x = randn(G, RAGGED_B, RAGGED_K)
@@ -1140,6 +1198,7 @@ def k45_checks(dev, kernels, ref) -> dict:
     """K4 and K5 vs their plain versions in fp32 and bf16 at the VGG-16
     shapes, the benchmark shapes and ragged ones; returns their error and
     timing rows (fp32, the developer path's type)."""
+    from repro_torch.kernels import gemm
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     checks = []
     rows = {"block_diag_matmul": {"max_abs_err": 0.0},
@@ -1194,8 +1253,18 @@ def k45_checks(dev, kernels, ref) -> dict:
                     lambda: torch.matmul(xv, core),
                     sz * (2 * R * kappa * q + q * q), 2 * R * kappa * q * q, 20)
                 row["timed_shape"] = f"x({R},{kappa * q}) core({q},{q}) kappa={kappa}"
+                first = kernels.block_diag_matmul(x, core, kappa)
+                second = kernels.block_diag_matmul(x, core, kappa)
+                check(same_bits(first, second),
+                      f"block_diag_matmul {dtype}: two calls on the same inputs differ")
+                row["deterministic"] = True
+                del first, second
                 if dtype == torch.float32:
                     row["plain_is"] = "one torch.matmul (fp32, TF32 off)"
+                    row["splits"] = gemm.morph_splits(1, R * kappa, q, q,
+                                                      gemm.sm_count(dev))
+                    row["split_sweep_ms"] = split_sweep(
+                        gemm, "block_diag_matmul", xv[None], None, core[None])
                     rows["block_diag_matmul"].update(row)
                 else:
                     rows["block_diag_matmul"]["bf16"] = row
@@ -1222,6 +1291,9 @@ def k45_checks(dev, kernels, ref) -> dict:
                     lambda: torch.matmul(t, c),
                     sz * (B * K + K * N + B * N), 2 * B * K * N, 10)
         row["timed_shape"] = f"t({B},{K}) c_ac({K},{N})"
+        row["on_morph_kernel"] = morph_probe(
+            gemm, "aug_gemm", lambda: kernels.aug_gemm(t, c), t[None], None,
+            c[None], 10)
         if dtype == torch.float32:
             row["plain_is"] = "one torch.matmul (fp32, TF32 off)"
             rows["aug_gemm"].update(row)
@@ -1438,7 +1510,8 @@ def main() -> None:
           "libraries": {
               n: {"seconds": r["seconds"], "path": str(Path(r["path"]).relative_to(ROOT)),
                   "ptxas": [ln.strip() for ln in r["log"].splitlines()
-                            if "registers" in ln or "spill" in ln]}
+                            if "registers" in ln or "spill" in ln
+                            or "entry function" in ln]}
               for n, r in report.items()}})
 
     rows = kernel_checks(dev, kernels, ref)
@@ -1467,12 +1540,12 @@ def main() -> None:
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernel_rows = {   # name -> (source, replaced TPU kernel)
-        "grouped_block_diag_matmul": ("grouped_gemm.cu",
+        "grouped_block_diag_matmul": ("morph_gemm.cu",
                                       "src/repro/kernels/grouped.py:80"),
         "grouped_aug_gemm": ("grouped_gemm.cu",
                              "src/repro/kernels/grouped.py:157"),
         "grouped_row_gemm": ("row_gemm.cu", "src/repro/kernels/grouped.py:206"),
-        "block_diag_matmul": ("grouped_gemm.cu",
+        "block_diag_matmul": ("morph_gemm.cu",
                               "src/repro/kernels/block_diag.py:45"),
         "aug_gemm": ("grouped_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
         "wkv6_chunked": ("wkv6.cu", "src/repro/kernels/wkv6.py:71"),

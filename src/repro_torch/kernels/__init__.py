@@ -12,8 +12,10 @@ and the RWKV-6 scan.
   wkv6       — K6, the RWKV-6 chunked scan (``csrc/wkv6.cu``), on the
                time-mix prefill of ``rwkv`` blocks
   gemm       — the ctypes binding of every entry point of ``csrc/``
-               (``grouped_gemm.cu`` is one CUDA C++ kernel behind K1, K2, K4
-               and K5; a null slot-index pointer means slot = group index)
+               (``morph_gemm.cu``, the split-K morph kernel behind K1 and
+               K4, with its split rule; ``grouped_gemm.cu``, the grouped
+               GEMM behind K2 and K5; a null slot-index pointer means slot =
+               group index)
   ref        — plain PyTorch versions: the CPU path and the on-card yardstick
   build      — nvcc build of ``csrc/`` at first use, loaded with ctypes
 

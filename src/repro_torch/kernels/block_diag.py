@@ -4,12 +4,15 @@ Replaces the Pallas kernel ``block_diag_matmul``
 (``repro/kernels/block_diag.py:45``): ``y = x @ blockdiag(core x kappa)``
 without materialising the block-diagonal matrix.  ``x (R, kappa*q)`` viewed
 as ``(R*kappa, q)`` times the ``(q, q)`` core is that product, so
-:func:`block_diag_matmul` launches K5's GEMM (:func:`.gemm.typed`, the
-``gemm_typed`` entry point of ``csrc/grouped_gemm.cu``) on that view with
-one group (or, for ``x (G, B, kappa*q)`` and ``cores (G, q, q)``, one core
-per group: the reference's ``vmap`` over the group axis as a grid axis).  fp32 or bf16 operands of one dtype, fp32
-accumulation, each output rounded once to the operand dtype; every ragged
-edge is masked, so any shape runs (no tileability route).
+:func:`block_diag_matmul` launches the morph kernel (:func:`.gemm.morph`,
+the ``morph_gemm_typed`` entry point of ``csrc/morph_gemm.cu``, K1's
+kernel) on that view with one group (or, for ``x (G, B, kappa*q)`` and
+``cores (G, q, q)``, one core per group: the reference's ``vmap`` over the
+group axis as a grid axis).  The sum over q is split into slices by
+:func:`.gemm.morph_splits` so that the narrow product fills the card.  fp32
+or bf16 operands of one dtype, fp32 accumulation, each output rounded once
+to the operand dtype; every ragged edge is masked, so any shape runs (no
+tileability route).
 
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref.py``.
@@ -52,7 +55,8 @@ def block_diag_matmul(
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
     G = x.shape[0] if batched else 1
-    out = gemm.typed(name, x.view(G, -1, q), core.view(G, q, q))
+    a = x.view(G, -1, q)
+    out = gemm.morph(name, a, None, core.view(G, q, q))
     block_diag_matmul.launches += 1
     return out.view_as(x)
 

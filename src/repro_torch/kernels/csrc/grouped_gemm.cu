@@ -1,27 +1,22 @@
-// Grouped GEMM for MoLe's morph and Aug-Conv products (sm_90a).
+// Grouped GEMM for MoLe's Aug-Conv products (sm_90a).
 //
 //   out[g] = a[g] @ b[slot(g)],  slot(g) = clamp(gidx[g], 0, S - 1), or g
 //                                when gidx is null
 //   a (G, M, K), b (S, K, N), out (G, M, N), gidx (G,) int32 or null;
 //   row-major and contiguous; a, b and out of one element type T.
 //
-// One kernel serves four TPU kernels of the reference, through two entry
-// points: grouped_sgemm (K1/K2, slot-indexed, fp32) and gemm_typed (K4/K5,
-// gidx null, fp32 or bf16):
+// One kernel serves two TPU kernels of the reference, the Aug-Conv products
+// with a wide output, through two entry points: grouped_sgemm (K2,
+// slot-indexed, fp32) and gemm_typed (K5, gidx null, fp32 or bf16):
 //   * grouped_aug_gemm (src/repro/kernels/grouped.py:157), K2: a = t
 //     (G, B, K), b = the stacked Aug-Conv matrices c_acs (S, K, N), fp32;
-//   * grouped_block_diag_matmul (src/repro/kernels/grouped.py:80), K1: a = x
-//     (G, B, kappa*q) viewed as (G, B*kappa, q), b = the stacked cores
-//     (S, q, q) -- reshape(x[g], (B, kappa, q)) @ core is that product; fp32;
-//   * block_diag_matmul (src/repro/kernels/block_diag.py:45), K4: the same
-//     morph with one core per group (cores (G, q, q)) or, at G = 1, the
-//     single-tenant x (R, kappa*q) @ blockdiag(core); gidx null;
 //   * aug_gemm (src/repro/kernels/aug_gemm.py:41), K5: t (G, B, K) @
 //     c_acs (G, K, N) or, at G = 1, the developer's T @ C^{ac}; gidx null.
-// K1/K2 run in fp32 only.  K4/K5 take fp32 or bf16, as the Pallas kernels
-// do: bf16 is converted to fp32 on load, the products are fp32 FFMA into an
-// fp32 accumulator, and each output is rounded once
-// (__float2bfloat16_rn), so the result is the reference's
+// The morph products K1 and K4, narrow and deep, have their own split-K
+// kernel in morph_gemm.cu.  K2 runs in fp32 only.  K5 takes fp32 or bf16,
+// as the Pallas kernel does: bf16 is converted to fp32 on load, the
+// products are fp32 FFMA into an fp32 accumulator, and each output is
+// rounded once (__float2bfloat16_rn), so the result is the reference's
 // einsum(..., preferred_element_type=f32).astype(bf16).
 //
 // The Pallas grouped kernels scalar-prefetch gidx and DMA the slot's tile
@@ -29,18 +24,18 @@
 // gidx[g] from device memory and forms the slot's base pointer: no
 // (G, K, N) gather copy exists.  The clamp is memory safety, not only
 // parity: a pointer past slot S-1 reads out of bounds.  A null gidx means
-// slot = group index, which serves K4/K5's per-group operands with no index
+// slot = group index, which serves K5's per-group operands with no index
 // vector copied to the card per call.
 //
 // What bounds it on an H100 at the main-path shapes (VGG-16/CIFAR first
 // layer, kappa = 1): K2 at G=4, B=64 and K5 at B=256 each do 103 GFLOP in
 // fp32 (1.54 ms at 67 TFLOP/s) against 3.2 GB and 0.8 GB of weights (0.96
 // and 0.24 ms at 3.35 TB/s): both are bound by fp32 FFMA issue, not by
-// memory.  K1/K4 at 256 rows do 4.8 GFLOP (0.07 ms) on 96 blocks, fewer
-// than the 132 SMs.  TF32 tensor cores would be faster but keep only ~3
-// decimal digits; the reference accumulates in full fp32, so this kernel
-// stays on FFMA, for bf16 operands too (they halve the bytes, not the
-// FFMA work).
+// memory.  They launch 2,048 blocks, several resident on every SM (the
+// morph products' 96 tiles would leave SMs idle; see morph_gemm.cu).  TF32
+// tensor cores would be faster but keep only ~3 decimal digits; the
+// reference accumulates in full fp32, so this kernel stays on FFMA, for
+// bf16 operands too (they halve the bytes, not the FFMA work).
 //
 // Design: a classic register-blocked SGEMM.  A 64 x 128 output tile per
 // block of 128 threads, each thread an 8 x 8 micro-tile (two 4-wide runs in
@@ -48,8 +43,7 @@
 // BK = 8 slices of a and b staged (as fp32) in double-buffered shared
 // memory, fp32 FFMA with an fp32 accumulator.  Every ragged edge of M, N and
 // K is masked (loads fill zero, stores are skipped), so any shape runs.
-// wgmma/TMA and a split-K path for the narrow morph GEMM (q x q at small
-// G*M) are later work.
+// wgmma/TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,15 +192,15 @@ int launch(const void* a, const void* gidx, const void* b, void* out, int G,
 // validates shapes (G, M, N >= 1, grid limits), dtypes and contiguity before
 // passing pointers.
 
-// K1/K2: slot-indexed, fp32.  gidx (G,) int32 into a stack of S slots.
+// K2: slot-indexed, fp32.  gidx (G,) int32 into a stack of S slots.
 extern "C" int grouped_sgemm(const void* a, const void* gidx, const void* b,
                              void* out, int G, int M, int N, int K, int S,
                              int device, void* stream) {
     return launch<float>(a, gidx, b, out, G, M, N, K, S, device, stream);
 }
 
-// K4/K5: one matrix per group (b has G slots, slot = group index); fp32 or
-// bf16 operands (bf16 != 0).  K4 passes x viewed as (G, rows*kappa, q).
+// K5: one matrix per group (b has G slots, slot = group index); fp32 or
+// bf16 operands (bf16 != 0).
 extern "C" int gemm_typed(const void* a, const void* b, void* out, int G,
                           int M, int N, int K, int bf16, int device,
                           void* stream) {

@@ -1,14 +1,17 @@
 """The ctypes binding of the port's CUDA sources and the checks their
 wrappers share.
 
-``csrc/grouped_gemm.cu`` has two entry points: ``grouped_sgemm`` (K1/K2,
-slot-indexed, fp32; :mod:`.grouped`) and ``gemm_typed`` (K4 in
-:mod:`.block_diag`, K5 in :mod:`.aug_gemm`: one matrix per group, fp32 or
-bf16 operands).  ``csrc/row_gemm.cu`` has ``row_gemm`` (K3; :mod:`.grouped`).
-``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6 scan; :mod:`.wkv6`).
-Each wrapper counts its own launches; this module counts none.  The
-libraries are built at first use (:mod:`.build`); nothing here runs at
-import.
+``csrc/grouped_gemm.cu`` has two entry points: ``grouped_sgemm`` (K2,
+slot-indexed, fp32; :mod:`.grouped`) and ``gemm_typed`` (K5 in
+:mod:`.aug_gemm`: one matrix per group, fp32 or bf16 operands).
+``csrc/morph_gemm.cu`` serves the morph, narrow and deep: ``morph_sgemm``
+(K1, slot-indexed, fp32; :mod:`.grouped`) and ``morph_gemm_typed`` (K4 in
+:mod:`.block_diag`, fp32 or bf16), its sum over K split into slices by
+:func:`morph_splits`.  ``csrc/row_gemm.cu`` has ``row_gemm`` (K3;
+:mod:`.grouped`).  ``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6
+scan; :mod:`.wkv6`).  Each wrapper counts its own launches; this module
+counts none.  The libraries are built at first use (:mod:`.build`); nothing
+here runs at import.
 """
 from __future__ import annotations
 
@@ -19,10 +22,17 @@ import torch
 
 from . import build
 
-__all__ = ["MAX_GRID_YZ", "check_operands", "grouped", "typed", "rows", "scan"]
+__all__ = ["MAX_GRID_YZ", "MORPH_BK", "check_operands", "grouped", "typed",
+           "morph", "morph_splits", "sm_count", "rows", "scan"]
 
 MAX_GRID_YZ = 65535
-_BM = 64            # rows per block in grouped_gemm.cu
+_BM = 64            # rows per block in grouped_gemm.cu and morph_gemm.cu
+_MORPH_BN = 128     # columns per block in morph_gemm.cu
+MORPH_BK = 16       # k per pipeline stage in morph_gemm.cu; slices align to it
+_MORPH_RESIDENT = 3     # morph_gemm.cu blocks that fit one SM (launch bounds)
+_MORPH_MIN_SLICE = 8    # k-steps per slice at least
+_MORPH_FILL = 2         # k-steps a block spends filling its pipeline (STAGES - 1)
+_MORPH_MAX_SPLITS = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {   # symbol -> (library, argtypes)
@@ -30,6 +40,10 @@ _ENTRIES = {   # symbol -> (library, argtypes)
     "grouped_sgemm": ("grouped_gemm", [_P] * 4 + [_I] * 6 + [_P]),
     # a, b, out, G, M, N, K, bf16, device, stream
     "gemm_typed": ("grouped_gemm", [_P] * 3 + [_I] * 6 + [_P]),
+    # a, gidx, b, out, ws, G, M, N, K, S, splits, kslice, device, stream
+    "morph_sgemm": ("morph_gemm", [_P] * 5 + [_I] * 8 + [_P]),
+    # a, b, out, ws, G, M, N, K, bf16, splits, kslice, device, stream
+    "morph_gemm_typed": ("morph_gemm", [_P] * 4 + [_I] * 8 + [_P]),
     # h, gidx, tables, out, R, N, K, S, bf16, device, stream
     "row_gemm": ("row_gemm", [_P] * 4 + [_I] * 6 + [_P]),
     # r, k, v, logw, u, s0, out, s_out, BH, T, D, L, P, device, stream
@@ -91,7 +105,7 @@ def _check_rows(name: str, M: int) -> None:
 
 def grouped(name: str, a: torch.Tensor, gidx: torch.Tensor,
             b: torch.Tensor) -> torch.Tensor:
-    """``out[g] = a[g] (M, K) @ b[clamp(gidx[g])] (K, N)``, fp32 (K1/K2)."""
+    """``out[g] = a[g] (M, K) @ b[clamp(gidx[g])] (K, N)``, fp32 (K2)."""
     G, M, K = a.shape
     N = b.shape[-1]
     _check_rows(name, M)
@@ -103,13 +117,98 @@ def grouped(name: str, a: torch.Tensor, gidx: torch.Tensor,
 
 def typed(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``out[g] = a[g] (M, K) @ b[g] (K, N)`` in ``a.dtype`` (fp32 or bf16,
-    fp32 accumulation, one rounding per output) (K4/K5)."""
+    fp32 accumulation, one rounding per output) (K5)."""
     G, M, K = a.shape
     N = b.shape[-1]
     _check_rows(name, M)
     out = torch.empty((G, M, N), dtype=a.dtype, device=a.device)
     _call(name, "gemm_typed", a, a.data_ptr(), b.data_ptr(), out.data_ptr(),
           G, M, N, K, int(a.dtype == torch.bfloat16))
+    return out
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA ``device`` (``multi_processor_count``, which the
+    CUDA runtime reads from ``cudaDevAttrMultiProcessorCount``)."""
+    return _sm_count(device.index)
+
+
+def _kslice(K: int, splits: int) -> int:
+    """``ceil(ceil(K / BK) / splits) * BK``, the length of every slice but
+    the last; raises if ``splits`` would leave a slice empty."""
+    steps = -(-K // MORPH_BK)
+    per = -(-steps // max(splits, 1)) * MORPH_BK
+    if splits < 1 or (splits - 1) * per >= K:
+        raise ValueError(f"morph: {splits} slices of K = {K} leave one empty")
+    return per
+
+
+# Memoised: the rule is a pure function of a few ints, and its loop would
+# otherwise cost each call about as much host time as the rest of the
+# wrapper.
+@functools.lru_cache(maxsize=256)
+def morph_splits(G: int, M: int, N: int, K: int, sms: int) -> int:
+    """How many slices of K the morph kernel sums separately, for ``G``
+    groups of ``(M, K) @ (K, N)`` on a card of ``sms`` SMs.
+
+    1 where the output tiles fill the card by themselves (three blocks on
+    every SM) or K < 256 (two slices of 8 k-steps of 16).  Otherwise the
+    split s that minimises the modelled time of the busiest SM: its blocks,
+    ``ceil(tiles * s / sms)`` but at least 2 (one block of 4 warps leaves an
+    SM half busy), times the k-steps of one slice plus the 2 that fill the
+    pipeline.  Ties go to the smaller s, which writes and adds fewer partial
+    sums.  Only an s whose slices are all non-empty is taken.  At the main
+    shapes (96 tiles, K = 3072, 132 SMs) this is 4: 384 blocks of 48 k-steps.
+    """
+    tiles = G * -(-M // _BM) * -(-N // _MORPH_BN)
+    steps = -(-K // MORPH_BK)
+    if tiles >= _MORPH_RESIDENT * sms:
+        return 1
+    best, best_cost = 1, None
+    for s in range(1, min(_MORPH_MAX_SPLITS,
+                          K // (_MORPH_MIN_SLICE * MORPH_BK)) + 1):
+        per = -(-steps // s)
+        if -(-steps // per) != s:
+            continue
+        cost = max(2, -(-tiles * s // sms)) * (per + _MORPH_FILL)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def morph(name: str, a: torch.Tensor, gidx: torch.Tensor | None,
+          b: torch.Tensor, splits: int | None = None) -> torch.Tensor:
+    """``out[g] = a[g] (M, K) @ b[slot(g)] (K, N)`` on ``csrc/morph_gemm.cu``
+    with K summed in ``splits`` slices of :func:`_kslice` each, the last
+    taking the rest; by default :func:`morph_splits` of the shape and the
+    card's SMs.  With ``gidx`` (K1): fp32, ``slot = clamp(gidx[g], 0, S -
+    1)``.  Without (K4): slot = g, fp32 or bf16 (fp32 accumulation, one
+    rounding per output).  With splits > 1 the partial sums go to an fp32
+    ``(splits, G, M, N)`` workspace allocated here, and the call is two
+    device launches: the tiles, then their sum in slice order."""
+    G, M, K = a.shape
+    N = b.shape[-1]
+    _check_rows(name, M)
+    if splits is None:
+        splits = morph_splits(G, M, N, K, sm_count(a.device))
+    kslice = _kslice(K, splits)
+    out = torch.empty((G, M, N), dtype=a.dtype, device=a.device)
+    ws = (torch.empty((splits, G, M, N), dtype=torch.float32, device=a.device)
+          if splits > 1 else None)
+    ws_ptr = None if ws is None else ws.data_ptr()
+    if gidx is None:
+        _call(name, "morph_gemm_typed", a, a.data_ptr(), b.data_ptr(),
+              out.data_ptr(), ws_ptr, G, M, N, K,
+              int(a.dtype == torch.bfloat16), splits, kslice)
+    else:
+        _call(name, "morph_sgemm", a, a.data_ptr(), gidx.data_ptr(),
+              b.data_ptr(), out.data_ptr(), ws_ptr, G, M, N, K, b.shape[0],
+              splits, kslice)
     return out
 
 

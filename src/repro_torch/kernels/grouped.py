@@ -2,23 +2,25 @@
 
 The engine's microbatch carries a ``(G,)`` vector of *slot indices* into the
 stacked per-tenant secrets (``cores (S, q, q)``, ``c_acs (S, K, N)``).  The
-two delivery wrappers launch the slot-indexed entry point of the
-hand-written CUDA kernel in ``csrc/grouped_gemm.cu`` (bound in
-:mod:`.gemm`), which reads each group's slot straight out of the stack (no
-``(G, ...)`` gather copy), for any index vector and any shape:
+wrappers launch slot-indexed entry points of hand-written CUDA kernels
+(bound in :mod:`.gemm`), which read each group's slot straight out of the
+stack (no ``(G, ...)`` gather copy), for any index vector and any shape:
 
-  * :func:`grouped_block_diag_matmul` replaces the Pallas kernel of the same
-    name (``repro/kernels/grouped.py``): ``x`` viewed as ``(G, B*kappa, q)``
-    times the slot's core;
-  * :func:`grouped_aug_gemm` replaces ``grouped_aug_gemm``: ``t[g]`` times
-    the slot's Aug-Conv matrix;
-  * :func:`grouped_row_gemm` replaces ``grouped_row_gemm``, the logits step
-    of batched decode: ``h[r]`` times its slot's fused LM head, through the
-    decode-shaped kernel in ``csrc/row_gemm.cu``.
+  * :func:`grouped_block_diag_matmul` (K1) replaces the Pallas kernel of the
+    same name (``repro/kernels/grouped.py``): ``x`` viewed as
+    ``(G, B*kappa, q)`` times the slot's core, through the split-K morph
+    kernel in ``csrc/morph_gemm.cu`` (``morph_sgemm``; the split is
+    :func:`.gemm.morph_splits` of the shape and the card's SMs);
+  * :func:`grouped_aug_gemm` (K2) replaces ``grouped_aug_gemm``: ``t[g]``
+    times the slot's Aug-Conv matrix, through ``csrc/grouped_gemm.cu``
+    (``grouped_sgemm``);
+  * :func:`grouped_row_gemm` (K3) replaces ``grouped_row_gemm``, the logits
+    step of batched decode: ``h[r]`` times its slot's fused LM head, through
+    the decode-shaped kernel in ``csrc/row_gemm.cu``.
 
-The same CUDA source also serves the single-tenant and per-group kernels
-(K4 in :mod:`.block_diag`, K5 in :mod:`.aug_gemm`) through its other entry
-point, ``gemm_typed``, with a null slot-index pointer (slot = group index).
+Each of these CUDA sources also has an entry point with a null slot-index
+pointer (slot = group index): ``morph_gemm_typed`` serves K4
+(:mod:`.block_diag`), ``gemm_typed`` K5 (:mod:`.aug_gemm`).
 
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref.py``.
@@ -77,8 +79,8 @@ def grouped_block_diag_matmul(
         return ref.block_diag_matmul_grouped_ref(x, gidx, cores, kappa)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_block_diag_matmul: no kernel for {x.device}")
-    out = gemm.grouped("grouped_block_diag_matmul", x.view(G, B * kappa, q),
-                       gidx, cores)
+    out = gemm.morph("grouped_block_diag_matmul", x.view(G, B * kappa, q),
+                     gidx, cores)
     grouped_block_diag_matmul.launches += 1
     return out.view_as(x)
 

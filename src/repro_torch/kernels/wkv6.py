@@ -23,8 +23,6 @@ backward, like the Pallas kernel: an operand that requires grad raises.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import gemm, ref
@@ -41,12 +39,7 @@ def _splits(BH: int, L: int, device: torch.device) -> int:
     """Blocks per sequence: enough to put one block on every SM at small
     ``BH`` (40 heads at batch 1 get 3 each on 132 SMs), at most 8 and at
     most one query row each."""
-    return max(1, min(_MAX_SPLITS, L, _sm_count(device.index) // BH))
-
-
-@functools.cache
-def _sm_count(index: int | None) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return max(1, min(_MAX_SPLITS, L, gemm.sm_count(device) // BH))
 
 
 def wkv6_chunked(

@@ -20,6 +20,7 @@ from repro_torch.kernels import (  # noqa: E402
     grouped_row_gemm, lm_head_rows_grouped, morph_rows, morph_rows_batched,
     morph_rows_grouped, ref, wkv6_chunked,
 )
+from repro_torch.kernels import gemm  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import Model, cnn, stack  # noqa: E402
 from repro_torch.runtime import DeliveryRequest, MoLeDeliveryEngine  # noqa: E402
@@ -62,8 +63,11 @@ def test_grouped_aug_gemm_kernel_matches_plain(rng, cuda, name, B, K, N):
 
 
 @pytest.mark.parametrize("name", sorted(GIDX_CASES))
-@pytest.mark.parametrize("B,kappa,q", [(8, 2, 128), (3, 3, 100), (65, 1, 70)])
+@pytest.mark.parametrize("B,kappa,q", [(8, 2, 128), (3, 3, 100), (65, 1, 70),
+                                       (64, 1, 3072)])
 def test_grouped_block_diag_kernel_matches_plain(rng, cuda, name, B, kappa, q):
+    """K1 (the morph kernel, split by the wrapper's rule) against its plain
+    version, incl. the main path's (4, 64, 3072) over 6 slots of 3072^2."""
     x = _rand(rng, 4, B, kappa * q)
     cores = _rand(rng, 6, q, q, scale=q ** -0.5)
     gidx = torch.tensor(GIDX_CASES[name], dtype=torch.int32)
@@ -114,10 +118,12 @@ def _hold(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,R,kappa,q", [
     (None, 64, 1, 768), (None, 37, 3, 100), (None, 256, 3, 128),
-    (3, 20, 2, 130), (2, 64, 1, 256),
+    (3, 20, 2, 130), (2, 64, 1, 256), (None, 256, 1, 3072), (4, 64, 1, 3072),
 ])
 def test_block_diag_kernel_matches_plain(rng, cuda, dtype, G, R, kappa, q):
-    """K4, single-tenant (G None) and one core per group."""
+    """K4, single-tenant (G None) and one core per group, incl. the main
+    shapes (q = 3072 at 256 rows and at (4, 64), split by the wrapper's
+    rule)."""
     lead = () if G is None else (G,)
     x = _rand(rng, *lead, R, kappa * q).to(dtype)
     core = _rand(rng, *lead, q, q, scale=q ** -0.5).to(dtype)
@@ -148,6 +154,71 @@ def test_aug_gemm_kernel_matches_plain(rng, cuda, dtype, G, B, K, N):
     torch.cuda.synchronize()
     assert aug_gemm.launches == before + 1
     _hold(got, want, dtype)
+
+
+# The morph kernel's edges, through its binding with the split given:
+# (G, M, q, splits).  BK = 16; "unaligned" rows are not a whole number of
+# 16-byte copies (fp32: q % 4, bf16: q % 8), so they load by masked scalars.
+MORPH_EDGES = [
+    (1, 40, 1000, 3),   # K = 1000 not a multiple of splits * BK = 48
+    (2, 5, 10, 1),      # K < BK
+    (1, 64, 256, 1),    # one slice: the kernel rounds to T itself
+    (3, 70, 70, 2),     # unaligned q = 70, two slices
+    (1, 33, 100, 2),    # q = 100: fp32 rows aligned, bf16 rows not
+    (2, 9, 130, 3),     # unaligned q = 130, the last slice short
+    (1, 130, 384, 5),   # three row tiles, five slices
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,M,q,splits", MORPH_EDGES)
+def test_morph_kernel_edges_per_group(rng, cuda, dtype, G, M, q, splits):
+    """K4's entry point (slot = group) at the kernel's edges against the
+    plain per-group morph: fp32 within 1e-4 * max, bf16 two ulps."""
+    a = _rand(rng, G, M, q).to(dtype).to(cuda)
+    b = _rand(rng, G, q, q, scale=q ** -0.5).to(dtype).to(cuda)
+    got = gemm.morph("block_diag_matmul", a, None, b, splits)
+    want = ref.block_diag_matmul_batched_ref(a, b, 1)
+    torch.cuda.synchronize()
+    _hold(got, want, dtype)
+
+
+@pytest.mark.parametrize("name", sorted(GIDX_CASES))
+@pytest.mark.parametrize("G,M,q,splits", MORPH_EDGES)
+def test_morph_kernel_edges_slot_indexed(rng, cuda, name, G, M, q, splits):
+    """K1's entry point (fp32, gidx clamped into 6 slots) at the kernel's
+    edges against the plain grouped morph, within 1e-4 * max."""
+    a = _rand(rng, 4, M, q).to(cuda)
+    b = _rand(rng, 6, q, q, scale=q ** -0.5).to(cuda)
+    gidx = torch.tensor(GIDX_CASES[name], dtype=torch.int32, device=cuda)
+    got = gemm.morph("grouped_block_diag_matmul", a, gidx, b, splits)
+    want = ref.block_diag_matmul_grouped_ref(a, gidx, b, 1)
+    torch.cuda.synchronize()
+    _hold(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("case", ["K1", "K4/float32", "K4/bfloat16"])
+def test_morph_kernels_are_deterministic(rng, cuda, case):
+    """K1 and K4 at the main shapes, their sums split into slices (no
+    atomics: the slices are added in a fixed order), give the same bits on
+    two calls with the same inputs; so does an explicit split of 4."""
+    if case == "K1":
+        x = _rand(rng, 4, 64, 3072).to(cuda)
+        cores = _rand(rng, 6, 3072, 3072, scale=3072 ** -0.5).to(cuda)
+        gidx = torch.tensor([4, 0, 5, 2], dtype=torch.int32, device=cuda)
+        calls = [lambda: grouped_block_diag_matmul(x, gidx, cores, 1),
+                 lambda: gemm.morph(case, x, gidx, cores, 4)]
+    else:
+        dtype = getattr(torch, case.split("/")[1])
+        x = _rand(rng, 256, 3072).to(dtype).to(cuda)
+        core = _rand(rng, 3072, 3072, scale=3072 ** -0.5).to(dtype).to(cuda)
+        calls = [lambda: block_diag_matmul(x, core, 1),
+                 lambda: gemm.morph(case, x[None], None, core[None], 4)]
+    for call in calls:
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        bits = torch.int32 if first.dtype == torch.float32 else torch.int16
+        assert torch.equal(first.view(bits), second.view(bits))
 
 
 def test_k4_k5_entry_points_and_refusals_on_card(rng, cuda):
