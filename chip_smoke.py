@@ -16,12 +16,17 @@ printing one JSON line; any failure raises and exits non-zero:
                 every slot-index pattern of the reference's tests plus an
                 out-of-range index that must clamp.  Bound:
                 max|kernel - plain| <= 1e-4 * max|plain|.  Gated: K1 (the
-                split-K morph kernel) gives the same bits on two calls at
-                the main shape.  Times kernel, plain version and one library
-                call (torch.bmm over the pre-gathered weights, a yardstick
-                the port never calls), and prints, not gated, K1's time at
-                each split of K (the wrapper's rule picks one) and K2's
-                product run on K1's kernel beside K2's own
+                split-K morph kernel) and K2 (split TF32 on the tensor
+                cores) give the same bits on two calls at the main shape;
+                K2's and torch.bmm's error against a float64 product on the
+                card over the first 8,192 columns (``err_vs_fp64``), K2's
+                within 1e-5 * max|fp64|.  K2's bound is the split form's (3
+                x its flops at 495 TFLOP/s TF32, or its bytes), the fp32
+                FFMA bound beside it.  Times kernel, plain version and
+                one library call (torch.bmm over the pre-gathered weights,
+                a yardstick the port never calls), and prints, not gated,
+                K1's time at each split of K (the wrapper's rule picks one)
+                and K2's product run on K1's FFMA kernel beside K2's own
                 (``on_morph_kernel``).
   3. main_path  ``MoLeDeliveryEngine`` at alpha=3, beta=64, m=32, p=3,
                 kappa=1: 4 tenants at capacity 4, rounds of 256 one-image
@@ -77,13 +82,18 @@ printing one JSON line; any failure raises and exits non-zero:
                 65536); ``aug_conv_forward_batched`` at (4, 64, 3072) x
                 (4, 3072, 65536); ragged K5 (7, 33) x (33, 9).  Bound: fp32
                 max|kernel - plain| <= 1e-4 * max|plain|, bf16 two bf16
-                ulps of max|plain|.  Gated: K4 gives the same bits on two
-                calls at (256, 3072), fp32 and bf16.  Times kernel, plain
-                version (in fp32 that is one ``torch.matmul``) and one
-                library call (``torch.matmul`` in the operand dtype:
-                cuBLAS, in bf16 on the tensor cores) at the VGG-16 shapes,
+                ulps of max|plain|.  Gated: K4 and K5 give the same bits on
+                two calls at their main shapes, fp32 and bf16; K5 fp32's
+                error against a float64 product on the card over the first
+                8,192 columns (``err_vs_fp64``, beside torch.matmul's)
+                within 1e-5 * max|fp64|.  K5 fp32's bound is the split
+                form's, the FFMA bound beside it; bf16 keeps the bf16
+                tensor-core bound.  Times kernel, plain version (in
+                fp32 that is one ``torch.matmul``) and one library call
+                (``torch.matmul`` in the operand dtype: cuBLAS, fp32 with
+                TF32 off, bf16 on the tensor cores) at the VGG-16 shapes,
                 and prints, not gated, K4's fp32 time at each split of K
-                and K5's product run on K4's kernel beside K5's own
+                and K5's product run on K4's FFMA kernel beside K5's own
                 (``on_morph_kernel``).
   8. vgg_path   the paper's developer path at VGG-16/CIFAR width (13 convs
                 64..512, 32x32, 10 classes), random weights from a seeded
@@ -172,6 +182,11 @@ MAIN_GEOM = dict(alpha=3, beta=64, m=32, p=3)       # kappa = 1
 CHURN_GEOM = dict(alpha=3, beta=16, m=16, p=3)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# H100 SXM TF32 dense tensor cores.  K2 and K5 in fp32 run three TF32 passes
+# (split TF32, csrc/aug_gemm.cu), so their bound counts 3x the flops.
+TF32_FLOP_PER_S = 495e12
+FP64_REL_TOL = 1e-5             # split TF32 against a float64 product
+FP64_COLS = 8192                # columns of that product computed
 # exp2 (the SFU's ex2): 16 results per SM per clock against the 128 fp32
 # lanes' 256 flops, so the fp32 peak / 16.
 EX2_PER_S = FP32_FLOP_PER_S / 16
@@ -278,11 +293,11 @@ def split_sweep(gemm, name, a, gidx, b) -> dict:
 
 
 def morph_probe(gemm, name, run_kernel, a, gidx, b, iters: int) -> dict:
-    """Not gated: ``name``'s product on the morph kernel (K1/K4's
-    ``csrc/morph_gemm.cu``, split by its rule), timed in turns with
-    ``name``'s own kernel (CUDA events, ``iters`` calls each), and the
-    largest difference of their outputs: a measure for moving ``name``
-    onto it.  Through the binding, which counts no launch."""
+    """Not gated: ``name``'s product on the morph kernel (K1/K4's FFMA
+    loop in ``csrc/morph_gemm.cu``, split by its rule, the best FFMA loop
+    of the repo), timed in turns with ``name``'s own kernel (CUDA events,
+    ``iters`` calls each), and the largest difference of their outputs.
+    Through the binding, which counts no launch."""
     def run_morph():
         return gemm.morph(name, a, gidx, b)
     times = [cuda_ms(run_morph, iters), cuda_ms(run_kernel, iters),
@@ -304,6 +319,39 @@ def bound_ms(n_bytes: float, flops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def split_tf32_bound(n_bytes: float, flops: float) -> dict:
+    """An fp32 K2/K5 row's bound: the split form's (3 x ``flops`` of TF32 on
+    the tensor cores, or the bytes), and the fp32 FFMA bound beside it."""
+    b, by = bound_ms(n_bytes, 3 * flops, TF32_FLOP_PER_S)
+    return {"bound_ms": b, "bound_by": by,
+            "ffma_bound_ms": bound_ms(n_bytes, flops)[0]}
+
+
+def err_vs_fp64(name: str, a, b, kernel_out, library_out) -> dict:
+    """Kernel and library call against a float64 product of ``a`` (G, M, K)
+    and ``b`` (G, K, N) on the card over the first FP64_COLS columns;
+    gated: the kernel's max error within FP64_REL_TOL * max|fp64|."""
+    cols = min(FP64_COLS, b.shape[-1])
+    want = torch.bmm(a.double(), b[..., :cols].double())
+    scale = float(want.abs().max())
+    err_k = float((kernel_out[..., :cols].double() - want).abs().max())
+    err_l = float((library_out[..., :cols].double() - want).abs().max())
+    del want
+    check(err_k <= FP64_REL_TOL * scale,
+          f"{name}: |kernel - fp64| {err_k} > {FP64_REL_TOL} * {scale}")
+    return {"columns": cols, "max_abs_fp64": scale,
+            "kernel_rel": err_k / scale, "library_rel": err_l / scale,
+            "kernel_over_library": err_k / err_l if err_l > 0 else None,
+            "limit_rel": FP64_REL_TOL}
+
+
+def library_fp32_is_full() -> None:
+    """The fp32 yardsticks are cuBLAS in full fp32: TF32 off."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "fp32 torch.matmul would run in TF32")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -347,6 +395,7 @@ def kernel_checks(dev, kernels, ref) -> dict:
     # same stack, which is the gathered weights for this gidx.
     ident = torch.arange(G, dtype=torch.int32, device=dev)
     c_main = c_acs[:G]
+    library_fp32_is_full()
     times = [
         cuda_ms(lambda: kernels.grouped_aug_gemm(t, ident, c_main), 10),
         cuda_ms(lambda: ref.aug_gemm_grouped_ref(t, ident, c_main), 10),
@@ -354,13 +403,20 @@ def kernel_checks(dev, kernels, ref) -> dict:
         cuda_ms(lambda: ref.aug_gemm_grouped_ref(t, ident, c_main), 10),
         cuda_ms(lambda: torch.bmm(t, c_main), 10),
     ]
-    b, by = bound_ms(4 * (G * B * K + G * K * N + G * B * N + G),
-                     2 * G * B * K * N)
+    first = kernels.grouped_aug_gemm(t, ident, c_main)
+    second = kernels.grouped_aug_gemm(t, ident, c_main)
+    check(same_bits(first, second),
+          "grouped_aug_gemm: two calls on the same inputs differ")
+    fp64 = err_vs_fp64("grouped_aug_gemm", t, c_main, first,
+                       torch.bmm(t, c_main))
+    del first, second
     rows["grouped_aug_gemm"].update(
         ms=(times[0] + times[2]) / 2, plain_ms=(times[1] + times[3]) / 2,
-        library_ms=times[4], bound_ms=b, bound_by=by,
+        library_ms=times[4],
+        **split_tf32_bound(4 * (G * B * K + G * K * N + G * B * N + G),
+                           2 * G * B * K * N),
         timed_shape=f"t({G},{B},{K}) c_acs({G},{K},{N}) gidx=arange({G})",
-        runs_ms=times,
+        runs_ms=times, deterministic=True, err_vs_fp64=fp64,
         on_morph_kernel=morph_probe(
             gemm, "grouped_aug_gemm",
             lambda: kernels.grouped_aug_gemm(t, ident, c_main), t, ident,
@@ -1280,17 +1336,30 @@ def k45_checks(dev, kernels, ref) -> dict:
     # K5: single-tenant at the developer path's shape, per-group, ragged.
     B, K, N = K5_MAIN
     t32, c32 = randn(B, K), randn(K, N, scale=K ** -0.5)
+    library_fp32_is_full()
     for dtype in dtypes:
         t, c = t32.to(dtype), c32.to(dtype)
         hold("aug_gemm", f"B{B}_K{K}_N{N}", dtype,
              kernels.aug_conv_forward(t, c), ref.aug_gemm_ref(t, c))
         sz = 4 if dtype == torch.float32 else 2
+        n_bytes, flops = sz * (B * K + K * N + B * N), 2 * B * K * N
         row = timed(dtype,
                     lambda: kernels.aug_gemm(t, c),
                     lambda: ref.aug_gemm_ref(t, c),
                     lambda: torch.matmul(t, c),
-                    sz * (B * K + K * N + B * N), 2 * B * K * N, 10)
+                    n_bytes, flops, 10)
         row["timed_shape"] = f"t({B},{K}) c_ac({K},{N})"
+        first = kernels.aug_gemm(t, c)
+        second = kernels.aug_gemm(t, c)
+        check(same_bits(first, second),
+              f"aug_gemm {dtype}: two calls on the same inputs differ")
+        row["deterministic"] = True
+        if dtype == torch.float32:
+            row.update(split_tf32_bound(n_bytes, flops))
+            row["err_vs_fp64"] = err_vs_fp64(
+                "aug_gemm", t[None], c[None], first[None],
+                torch.matmul(t, c)[None])
+        del first, second
         row["on_morph_kernel"] = morph_probe(
             gemm, "aug_gemm", lambda: kernels.aug_gemm(t, c), t[None], None,
             c[None], 10)
@@ -1511,7 +1580,7 @@ def main() -> None:
               n: {"seconds": r["seconds"], "path": str(Path(r["path"]).relative_to(ROOT)),
                   "ptxas": [ln.strip() for ln in r["log"].splitlines()
                             if "registers" in ln or "spill" in ln
-                            or "entry function" in ln]}
+                            or "entry function" in ln or "Performance" in ln]}
               for n, r in report.items()}})
 
     rows = kernel_checks(dev, kernels, ref)
@@ -1542,12 +1611,11 @@ def main() -> None:
     kernel_rows = {   # name -> (source, replaced TPU kernel)
         "grouped_block_diag_matmul": ("morph_gemm.cu",
                                       "src/repro/kernels/grouped.py:80"),
-        "grouped_aug_gemm": ("grouped_gemm.cu",
-                             "src/repro/kernels/grouped.py:157"),
+        "grouped_aug_gemm": ("aug_gemm.cu", "src/repro/kernels/grouped.py:157"),
         "grouped_row_gemm": ("row_gemm.cu", "src/repro/kernels/grouped.py:206"),
         "block_diag_matmul": ("morph_gemm.cu",
                               "src/repro/kernels/block_diag.py:45"),
-        "aug_gemm": ("grouped_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
+        "aug_gemm": ("aug_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
         "wkv6_chunked": ("wkv6.cu", "src/repro/kernels/wkv6.py:71"),
     }
     emit({"kernels": [

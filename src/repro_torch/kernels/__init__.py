@@ -13,9 +13,9 @@ and the RWKV-6 scan.
                time-mix prefill of ``rwkv`` blocks
   gemm       — the ctypes binding of every entry point of ``csrc/``
                (``morph_gemm.cu``, the split-K morph kernel behind K1 and
-               K4, with its split rule; ``grouped_gemm.cu``, the grouped
-               GEMM behind K2 and K5; a null slot-index pointer means slot =
-               group index)
+               K4, with its split rule; ``aug_gemm.cu``, the tensor-core
+               GEMM behind K2 and K5, fp32 in split TF32; a null slot-index
+               pointer means slot = group index)
   ref        — plain PyTorch versions: the CPU path and the on-card yardstick
   build      — nvcc build of ``csrc/`` at first use, loaded with ctypes
 

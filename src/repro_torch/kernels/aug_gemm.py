@@ -4,11 +4,13 @@ Replaces the Pallas kernel ``aug_gemm`` (``repro/kernels/aug_gemm.py:41``):
 the dense product the developer runs every forward step once MoLe has
 replaced the first conv layer (paper §3.3, eq. 5), morphed rows
 ``T (B, alpha m^2)`` against the fused matrix ``C^{ac} (alpha m^2, beta
-n^2)``.  :func:`aug_gemm` launches the ``gemm_typed`` entry point of
-``csrc/grouped_gemm.cu`` (:func:`.gemm.typed`) with one group (or, for
-``t (G, B, K)`` and ``c_acs (G, K, N)``, one matrix per group: the
-reference's ``vmap`` as a grid axis).  fp32 or bf16 operands of one dtype, fp32 accumulation, each
-output rounded once; every ragged edge is masked, so any shape runs.
+n^2)``.  :func:`aug_gemm` launches the ``aug_gemm_typed`` entry point of
+``csrc/aug_gemm.cu`` (:func:`.gemm.aug`) with one group (or, for ``t (G,
+B, K)`` and ``c_acs (G, K, N)``, one matrix per group: the reference's
+``vmap`` as a grid axis).  fp32 or bf16 operands of one dtype, on the
+tensor cores: fp32 in split TF32 (each operand as a sum of two TF32 values,
+three passes), bf16 in one pass; fp32 accumulation, each output rounded
+once; every ragged edge is masked, so any shape runs.
 
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref.py``.
@@ -50,7 +52,7 @@ def aug_gemm(
         raise ValueError(f"{name}: no kernel for {t.device}")
     G = t.shape[0] if batched else 1
     K, N = c_ac.shape[-2:]
-    out = gemm.typed(name, t.view(G, -1, K), c_ac.view(G, K, N))
+    out = gemm.aug(name, t.view(G, -1, K), None, c_ac.view(G, K, N))
     aug_gemm.launches += 1
     return out.view(*t.shape[:-1], N)
 

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
-    "grouped_gemm": _CSRC / "grouped_gemm.cu",
+    "aug_gemm": _CSRC / "aug_gemm.cu",
     "morph_gemm": _CSRC / "morph_gemm.cu",
     "row_gemm": _CSRC / "row_gemm.cu",
     "wkv6": _CSRC / "wkv6.cu",

@@ -26,8 +26,8 @@
 // reads.  Both are bound by FFMA issue, provided the card is full and K1's
 // core reads stay in flight while the FMAs run.  The output is narrow (96
 // tiles of 64 x 128) and the reduction long, so tiles alone leave most SMs
-// idle: the grouped GEMM of grouped_gemm.cu, 96 blocks of 4 warps, ran at
-// 27% of the FFMA peak here.
+// idle: a plain tiled FFMA GEMM (64 x 128 tiles, 96 blocks of 4 warps) ran
+// at 27% of the FFMA peak here.
 //
 // Design:
 //   * Split-K.  The wrapper splits K into `splits` slices of `kslice` (a

@@ -1,13 +1,14 @@
 """The ctypes binding of the port's CUDA sources and the checks their
 wrappers share.
 
-``csrc/grouped_gemm.cu`` has two entry points: ``grouped_sgemm`` (K2,
-slot-indexed, fp32; :mod:`.grouped`) and ``gemm_typed`` (K5 in
-:mod:`.aug_gemm`: one matrix per group, fp32 or bf16 operands).
-``csrc/morph_gemm.cu`` serves the morph, narrow and deep: ``morph_sgemm``
-(K1, slot-indexed, fp32; :mod:`.grouped`) and ``morph_gemm_typed`` (K4 in
-:mod:`.block_diag`, fp32 or bf16), its sum over K split into slices by
-:func:`morph_splits`.  ``csrc/row_gemm.cu`` has ``row_gemm`` (K3;
+``csrc/aug_gemm.cu`` serves the wide Aug-Conv products on the tensor cores
+(fp32 in split TF32, bf16 in one bf16 pass): ``aug_sgemm_grouped`` (K2,
+slot-indexed, fp32; :mod:`.grouped`) and ``aug_gemm_typed`` (K5 in
+:mod:`.aug_gemm`: one matrix per group, fp32 or bf16), both bound through
+:func:`aug`.  ``csrc/morph_gemm.cu`` serves the morph, narrow and deep:
+``morph_sgemm`` (K1, slot-indexed, fp32; :mod:`.grouped`) and
+``morph_gemm_typed`` (K4 in :mod:`.block_diag`, fp32 or bf16), its sum over
+K split into slices by :func:`morph_splits`.  ``csrc/row_gemm.cu`` has ``row_gemm`` (K3;
 :mod:`.grouped`).  ``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6
 scan; :mod:`.wkv6`).  Each wrapper counts its own launches; this module
 counts none.  The libraries are built at first use (:mod:`.build`); nothing
@@ -22,11 +23,13 @@ import torch
 
 from . import build
 
-__all__ = ["MAX_GRID_YZ", "MORPH_BK", "check_operands", "grouped", "typed",
-           "morph", "morph_splits", "sm_count", "rows", "scan"]
+__all__ = ["MAX_GRID_YZ", "MORPH_BK", "check_operands", "aug",
+           "aug_workspace_floats", "morph", "morph_splits", "sm_count", "rows",
+           "scan"]
 
 MAX_GRID_YZ = 65535
-_BM = 64            # rows per block in grouped_gemm.cu and morph_gemm.cu
+_BM = 64            # rows per block in morph_gemm.cu, at least in aug_gemm.cu
+_AUG_BN = 128       # columns per block of aug_gemm.cu's fp32 kernel (grid y)
 _MORPH_BN = 128     # columns per block in morph_gemm.cu
 MORPH_BK = 16       # k per pipeline stage in morph_gemm.cu; slices align to it
 _MORPH_RESIDENT = 3     # morph_gemm.cu blocks that fit one SM (launch bounds)
@@ -35,11 +38,13 @@ _MORPH_FILL = 2         # k-steps a block spends filling its pipeline (STAGES - 
 _MORPH_MAX_SPLITS = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRIES = {   # symbol -> (library, argtypes)
-    # a, gidx, b, out, G, M, N, K, S, device, stream
-    "grouped_sgemm": ("grouped_gemm", [_P] * 4 + [_I] * 6 + [_P]),
-    # a, b, out, G, M, N, K, bf16, device, stream
-    "gemm_typed": ("grouped_gemm", [_P] * 3 + [_I] * 6 + [_P]),
+_ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
+    # G, M, K -> floats
+    "aug_workspace_floats": ("aug_gemm", [_I] * 3, ctypes.c_size_t),
+    # a, gidx, b, out, ws, G, M, N, K, S, device, stream
+    "aug_sgemm_grouped": ("aug_gemm", [_P] * 5 + [_I] * 6 + [_P]),
+    # a, b, out, ws, G, M, N, K, bf16, device, stream
+    "aug_gemm_typed": ("aug_gemm", [_P] * 4 + [_I] * 6 + [_P]),
     # a, gidx, b, out, ws, G, M, N, K, S, splits, kslice, device, stream
     "morph_sgemm": ("morph_gemm", [_P] * 5 + [_I] * 8 + [_P]),
     # a, b, out, ws, G, M, N, K, bf16, splits, kslice, device, stream
@@ -53,11 +58,11 @@ _ENTRIES = {   # symbol -> (library, argtypes)
 
 @functools.cache
 def _entry(symbol: str):
-    lib_name, argtypes = _ENTRIES[symbol]
+    lib_name, argtypes, *restype = _ENTRIES[symbol]
     lib = build.load(lib_name)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype[0] if restype else ctypes.c_int
     err_str = getattr(lib, f"{lib_name}_error_string")
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
@@ -103,27 +108,38 @@ def _check_rows(name: str, M: int) -> None:
         raise ValueError(f"{name}: {M} rows per group exceed the grid limit")
 
 
-def grouped(name: str, a: torch.Tensor, gidx: torch.Tensor,
-            b: torch.Tensor) -> torch.Tensor:
-    """``out[g] = a[g] (M, K) @ b[clamp(gidx[g])] (K, N)``, fp32 (K2)."""
+def aug_workspace_floats(G: int, M: int, K: int) -> int:
+    """fp32 floats of the split-T workspace that ``csrc/aug_gemm.cu``'s
+    fp32 GEMM takes for ``G`` groups of ``(M, K)`` operands: the library's
+    own count, since the layout follows its tiles."""
+    fn, _ = _entry("aug_workspace_floats")
+    return fn(G, M, K)
+
+
+def aug(name: str, a: torch.Tensor, gidx: torch.Tensor | None,
+        b: torch.Tensor) -> torch.Tensor:
+    """``out[g] = a[g] (M, K) @ b[slot(g)] (K, N)`` on ``csrc/aug_gemm.cu``.
+    With ``gidx`` (K2): fp32, ``slot = clamp(gidx[g], 0, S - 1)``.  Without
+    (K5): slot = g, fp32 or bf16.  fp32 runs in split TF32 (three TF32
+    passes): two device launches, ``a`` split into an fp32 workspace
+    allocated here (:func:`aug_workspace_floats`), then the GEMM.  bf16 runs
+    one bf16 pass in one launch.  fp32 accumulation, one rounding per
+    output."""
     G, M, K = a.shape
     N = b.shape[-1]
     _check_rows(name, M)
+    if -(-N // _AUG_BN) > MAX_GRID_YZ:
+        raise ValueError(f"{name}: {N} columns exceed the grid limit")
     out = torch.empty((G, M, N), dtype=a.dtype, device=a.device)
-    _call(name, "grouped_sgemm", a, a.data_ptr(), gidx.data_ptr(),
-          b.data_ptr(), out.data_ptr(), G, M, N, K, b.shape[0])
-    return out
-
-
-def typed(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``out[g] = a[g] (M, K) @ b[g] (K, N)`` in ``a.dtype`` (fp32 or bf16,
-    fp32 accumulation, one rounding per output) (K5)."""
-    G, M, K = a.shape
-    N = b.shape[-1]
-    _check_rows(name, M)
-    out = torch.empty((G, M, N), dtype=a.dtype, device=a.device)
-    _call(name, "gemm_typed", a, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-          G, M, N, K, int(a.dtype == torch.bfloat16))
+    ws = (torch.empty(aug_workspace_floats(G, M, K), dtype=torch.float32,
+                      device=a.device) if a.dtype == torch.float32 else None)
+    ws_ptr = None if ws is None else ws.data_ptr()
+    if gidx is None:
+        _call(name, "aug_gemm_typed", a, a.data_ptr(), b.data_ptr(),
+              out.data_ptr(), ws_ptr, G, M, N, K, int(a.dtype == torch.bfloat16))
+    else:
+        _call(name, "aug_sgemm_grouped", a, a.data_ptr(), gidx.data_ptr(),
+              b.data_ptr(), out.data_ptr(), ws_ptr, G, M, N, K, b.shape[0])
     return out
 
 

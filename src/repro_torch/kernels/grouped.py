@@ -12,15 +12,15 @@ stack (no ``(G, ...)`` gather copy), for any index vector and any shape:
     kernel in ``csrc/morph_gemm.cu`` (``morph_sgemm``; the split is
     :func:`.gemm.morph_splits` of the shape and the card's SMs);
   * :func:`grouped_aug_gemm` (K2) replaces ``grouped_aug_gemm``: ``t[g]``
-    times the slot's Aug-Conv matrix, through ``csrc/grouped_gemm.cu``
-    (``grouped_sgemm``);
+    times the slot's Aug-Conv matrix, in split TF32 on the tensor cores,
+    through ``csrc/aug_gemm.cu`` (``aug_sgemm_grouped``);
   * :func:`grouped_row_gemm` (K3) replaces ``grouped_row_gemm``, the logits
     step of batched decode: ``h[r]`` times its slot's fused LM head, through
     the decode-shaped kernel in ``csrc/row_gemm.cu``.
 
 Each of these CUDA sources also has an entry point with a null slot-index
 pointer (slot = group index): ``morph_gemm_typed`` serves K4
-(:mod:`.block_diag`), ``gemm_typed`` K5 (:mod:`.aug_gemm`).
+(:mod:`.block_diag`), ``aug_gemm_typed`` K5 (:mod:`.aug_gemm`).
 
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref.py``.
@@ -103,7 +103,7 @@ def grouped_aug_gemm(
         return ref.aug_gemm_grouped_ref(t, gidx, c_acs)
     if t.device.type != "cuda":
         raise ValueError(f"grouped_aug_gemm: no kernel for {t.device}")
-    out = gemm.grouped("grouped_aug_gemm", t, gidx, c_acs)
+    out = gemm.aug("grouped_aug_gemm", t, gidx, c_acs)
     grouped_aug_gemm.launches += 1
     return out
 

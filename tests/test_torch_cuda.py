@@ -156,6 +156,66 @@ def test_aug_gemm_kernel_matches_plain(rng, cuda, dtype, G, B, K, N):
     _hold(got, want, dtype)
 
 
+def _aug_operands(rng, form, cuda):
+    """K2/K5 at a medium shape, (64 or 256, 3072) @ (3072, 4096), and the
+    kernel call on them: (t, c, gidx or None, call)."""
+    K, N = 3072, 4096
+    if form == "K2":
+        t = _rand(rng, 4, 64, K).to(cuda)
+        c = _rand(rng, 6, K, N, scale=K ** -0.5).to(cuda)
+        gidx = torch.tensor([4, 0, 5, 2], dtype=torch.int32, device=cuda)
+        return t, c, gidx, lambda: grouped_aug_gemm(t, gidx, c)
+    B = int(form.split("/")[1])
+    t = _rand(rng, B, K).to(cuda)
+    c = _rand(rng, K, N, scale=K ** -0.5).to(cuda)
+    return t, c, None, lambda: aug_gemm(t, c)
+
+
+@pytest.mark.parametrize("form", ["K2", "K5/64", "K5/256"])
+def test_aug_kernels_hold_fp64_bound(rng, cuda, form):
+    """K2 and K5 in fp32 (split TF32 on the tensor cores, both tile shapes)
+    against a float64 product on the card: within 1e-5 * max|fp64|, the
+    delivery reference's own bound."""
+    t, c, gidx, call = _aug_operands(rng, form, cuda)
+    got = call()
+    if gidx is None:
+        want = t.double() @ c.double()
+    else:
+        want = torch.bmm(t.double(), c[gidx.long()].double())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got.double() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("form", ["K2", "K5/64", "K5/256", "K5/256/bfloat16"])
+def test_aug_kernels_are_deterministic(rng, cuda, form):
+    """K2 and K5 (no atomics, a fixed order) give the same bits on two
+    calls with the same inputs, fp32 and bf16."""
+    t, c, _, call = _aug_operands(rng, form.replace("/bfloat16", ""), cuda)
+    if form.endswith("bfloat16"):
+        tb, cb = t.bfloat16(), c.bfloat16()
+        call = lambda: aug_gemm(tb, cb)  # noqa: E731
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    bits = torch.int32 if first.dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), second.view(bits))
+
+
+@pytest.mark.parametrize("G,M,K,floats", [
+    (1, 256, 3072, 96 * 2 * 256 * 32),     # K5: 96 stages of 32 k, 128-row tiles
+    (4, 64, 3072, 4 * 96 * 2 * 64 * 32),   # K2: one 64-row tile per group
+    (1, 130, 257, 9 * 2 * 256 * 32),       # ragged: rows and k rounded up
+    (3, 5, 300, 3 * 10 * 2 * 64 * 32),
+])
+def test_workspace_is_the_split_layout(cuda, G, M, K, floats):
+    """The library's workspace count holds, per group, stage of 32 k and
+    hi / lo, the rows rounded up to the kernel's row tile (64 where M <= 64,
+    else 128) times 32 floats: the layout ``split_t_kernel`` writes and the
+    GEMM's bulk copies read."""
+    assert gemm.aug_workspace_floats(G, M, K) == floats
+
+
 # The morph kernel's edges, through its binding with the split given:
 # (G, M, q, splits).  BK = 16; "unaligned" rows are not a whole number of
 # 16-byte copies (fp32: q % 4, bf16: q % 8), so they load by masked scalars.

@@ -196,5 +196,5 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_all()
-    lib = build._library_path("grouped_gemm")
+    lib = build._library_path("aug_gemm")
     assert lib.parent == tmp_path / "kernels" and lib.suffix == ".so"
