@@ -124,9 +124,18 @@ printing one JSON line; any failure raises and exits non-zero:
                 heads of 64, chunk 128: T = 1024, T = 384 (300 padded),
                 160 heads at T = 128, and T = 32 < chunk; inputs as the
                 reference's wkv6 sweep draws them, s0 nonzero.  Bound: out
-                and final state within 1e-4 * max|plain|.  Times kernel and
-                plain chunked version at (40, 384); no PyTorch call
-                computes the scan (library_ms null).
+                and final state within 1e-4 * max|plain|.  Gated: two calls
+                at (40, 384) give the same bits.  Times kernel and plain
+                chunked version at (40, 384); no PyTorch call computes the
+                scan (library_ms null).  Prints, not gated: the kernel's
+                form floor (3 BH T D^2 FFMA-pipe instructions), its
+                geometry (G threads per state column, CPT columns per
+                thread, C columns a block) and shared memory, ptxas's
+                registers and spills, its time at T = 32, 128, 384, 1024
+                (BH = 40) and at every block width C.
+                K6's times are device times from CUDA graphs of 10 calls
+                (``graph_ms``; the kernel runs shorter than its wrapper's
+                host time), the back-to-back time beside them.
  10. rwkv_path  ``serve --mode lm`` at rwkv6_3b FULL width (32 layers,
                 d_model 2560, 40 heads of 64, vocab 65536, bf16), random
                 weights from a seeded generator on the card: 4 tenants at
@@ -141,7 +150,9 @@ printing one JSON line; any failure raises and exits non-zero:
                 forward whose time-mix runs the token recurrence in K6's
                 place, with the tie margin.  Printed, not gated: as
                 lm_path, K6's time per prefill and its share of the
-                admission prefill.  Peak memory is read per LM phase
+                admission prefill, as device time (``graph_ms``) and back
+                to back (``cuda_p50``, the wrapper's host time included, as
+                the eager prefill pays it).  Peak memory is read per LM phase
                 (reset at its start).  Every path phase sets all six
                 launch counters to 0 before its run and fails if a kernel
                 not on its path was launched.
@@ -188,7 +199,7 @@ TF32_FLOP_PER_S = 495e12
 FP64_REL_TOL = 1e-5             # split TF32 against a float64 product
 FP64_COLS = 8192                # columns of that product computed
 # exp2 (the SFU's ex2): 16 results per SM per clock against the 128 fp32
-# lanes' 256 flops, so the fp32 peak / 16.
+# lanes' 256 flops, so the fp32 peak / 16 (k6_bound's decays).
 EX2_PER_S = FP32_FLOP_PER_S / 16
 # K3 and the LM path: deepseek_7b FULL, 4 decode rows.
 K3_R, K3_K, K3_N = 4, 4096, 102400
@@ -200,6 +211,7 @@ RWKV_ARCH, RWKV_PROMPT = "rwkv6_3b", 300
 K6_D, K6_CHUNK = 64, 128
 K6_CASES = [(40, 1024), (40, 384), (160, 128), (40, 32)]    # (BH, T)
 K6_MAIN = (40, 384)             # the prefill's shape: B = 1, T = 300 padded
+K6_T_SWEEP = (32, 128, 384, 1024)   # K6's time against T at BH = 40
 TIE_MARGIN_ULPS = 4             # bf16 units in the last place of max|logit|
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # K4/K5 (kernels_k45) and the developer path (vgg_path).
@@ -277,6 +289,23 @@ def cuda_p50(fn, reps: int, inner: int) -> float:
     back-to-back calls (so the host's launch time overlaps the device's
     work), the p50 over ``reps`` such groups, after one warm-up."""
     return float(np.median([cuda_ms(fn, inner) for _ in range(reps)]))
+
+
+def graph_ms(fn, reps: int, inner: int) -> float:
+    """Device time per call of ``fn`` with the host's share taken out:
+    ``inner`` calls captured in one CUDA graph, each replay timed by CUDA
+    events, the p50 over ``reps`` replays, after one eager warm-up call.
+    For a kernel that runs shorter than its wrapper's host time, where
+    back-to-back calls (``cuda_p50``) time the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    ms = float(np.median([cuda_ms(graph.replay, 1) / inner for _ in range(reps)]))
+    del graph
+    return ms
 
 
 def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -566,10 +595,8 @@ def k6_bound(BH: int, T: int, D: int) -> tuple[float, str]:
     rank-one k v^T to it, D^2 multiply-adds each (4 D^2 flops on the fp32
     lanes), and needs at least one decay per channel (D exp2 on the SFU).
     The token recurrence does these and D^2 decay multiplies more; the
-    chunked forms add their intra-chunk scores (the kernel's own form
-    L (L - 1) / 2 * D exp2 a chunk, the reference's boundary-referenced
-    subchunk form far fewer).  Neither surplus is counted, so the bound
-    holds whatever form and chunk a kernel takes."""
+    chunked forms add their intra-chunk scores.  Neither surplus is
+    counted, so the bound holds whatever form and chunk a kernel takes."""
     n_tok = BH * T
     flops = n_tok * 4 * D * D
     ex2 = n_tok * D
@@ -581,27 +608,42 @@ def k6_bound(BH: int, T: int, D: int) -> tuple[float, str]:
     return times[by] * 1e3, by
 
 
-def k6_checks(dev, kernels, ref) -> dict:
+def k6_form_floor_ms(BH: int, T: int, D: int) -> float:
+    """The floor of the kernel's own form, beside the bound: per (token,
+    column, row) the state-column recurrence issues three fp32 instructions
+    on the FMA pipe (the read-out FMA, the product k v[j], the decay-and-add
+    FMA), 3 BH T D^2 in all, each one lane-slot of the 128 an SM issues per
+    clock: the fp32 peak over its 2 flops per FMA."""
+    return 3 * BH * T * D * D / (FP32_FLOP_PER_S / 2) * 1e3
+
+
+def k6_checks(dev, kernels, ref, build_report) -> dict:
     """K6 against both plain versions (the chunked form and the token
     recurrence) on the card in fp32, at the prefill's width (D 64, chunk
     128) and the shapes of ``K6_CASES``, with the input distribution of the
-    reference's wkv6 sweep and a nonzero s0; returns its error and timing
-    row (timed at ``K6_MAIN``, the rwkv_path prefill's shape)."""
+    reference's wkv6 sweep and a nonzero s0; gates two calls giving the same
+    bits; returns its error and timing row (timed at ``K6_MAIN``, the
+    rwkv_path prefill's shape)."""
+    from repro_torch.kernels import gemm
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     checks, row = [], {"max_abs_err": 0.0}
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    timed, per_case = None, {}
-    for BH, T in K6_CASES:
+    def scan_ops(BH, T):
         r, k, v = randn(BH, T, K6_D), randn(BH, T, K6_D), randn(BH, T, K6_D)
         logw = -torch.exp(randn(BH, T, K6_D))
-        u, s0 = randn(BH, K6_D), randn(BH, K6_D, K6_D) * 0.1
-        ops = (r, k, v, logw, u, s0)
+        return r, k, v, logw, randn(BH, K6_D), randn(BH, K6_D, K6_D) * 0.1
+
+    timed, per_case = None, {}
+    for BH, T in K6_CASES:
+        ops = scan_ops(BH, T)
         got_o, got_s = kernels.wkv6_chunked(*ops, chunk=K6_CHUNK)
         torch.cuda.synchronize()
         chunked = ref.wkv6_chunked_ref(*ops, chunk=K6_CHUNK)
+        r, k, v, logw, u, s0 = ops
         o, s = ref.wkv6_ref(r[None], k[None], v[None], logw[None], u, s0[None])
         for plain, (want_o, want_s) in (("chunked", chunked),
                                         ("recurrence", (o[0], s[0]))):
@@ -617,30 +659,50 @@ def k6_checks(dev, kernels, ref) -> dict:
                 row["max_abs_err"] = max(row["max_abs_err"], err)
         if (BH, T) == K6_MAIN:
             timed = ops
+            again_o, again_s = kernels.wkv6_chunked(*ops, chunk=K6_CHUNK)
+            check(same_bits(got_o, again_o) and same_bits(got_s, again_s),
+                  f"K6 {K6_MAIN}: two calls gave different bits")
         per_case[f"BH{BH}_T{T}"] = {
-            "ms": cuda_p50(lambda: kernels.wkv6_chunked(*ops, chunk=K6_CHUNK),
+            "ms": graph_ms(lambda: kernels.wkv6_chunked(*ops, chunk=K6_CHUNK),
                            5, 10),
             "bound_ms": k6_bound(BH, T, K6_D)[0]}
         del chunked, o, s
     # Timed at the prefill's shape, kernel and plain chunked version in
-    # turns.  No single PyTorch call computes this scan: library_ms is null.
+    # turns: the kernel in CUDA graphs (device time; it runs shorter than
+    # its wrapper's host time), and back to back as a caller sees it.  No
+    # single PyTorch call computes this scan: library_ms is null.
     BH, T = K6_MAIN
     run_k = lambda: kernels.wkv6_chunked(*timed, chunk=K6_CHUNK)  # noqa: E731
     run_p = lambda: ref.wkv6_chunked_ref(*timed, chunk=K6_CHUNK)  # noqa: E731
-    runs = [cuda_p50(fn, 5, n)
-            for fn, n in ((run_k, 10), (run_p, 2), (run_k, 10), (run_p, 2))]
+    runs = [graph_ms(run_k, 5, 10), cuda_p50(run_p, 5, 2),
+            graph_ms(run_k, 5, 10), cuda_p50(run_p, 5, 2)]
+    eager = cuda_p50(run_k, 5, 10)
     b, by = k6_bound(BH, T, K6_D)
-    # Beside the bound, not in it: the floor of the chunked form this
-    # kernel takes, its intra-chunk decays alone (L (L - 1) / 2 * D exp2 a
-    # chunk) at the SFU's rate.
-    n_chunks = BH * (T // min(K6_CHUNK, T))
-    L = min(K6_CHUNK, T)
-    form_floor = n_chunks * L * (L - 1) // 2 * K6_D / EX2_PER_S * 1e3
+    # Printed, not gated: the time's growth in T at BH = 40 (the kernel is
+    # sequential in T), and the time at every block width the kernel takes
+    # at the prefill's shape through the binding (which counts no launch).
+    t_sweep = {}
+    for t_len in K6_T_SWEEP:
+        ops = scan_ops(BH, t_len)
+        t_sweep[t_len] = graph_ms(
+            lambda: kernels.wkv6_chunked(*ops, chunk=K6_CHUNK), 5, 10)
+    width_sweep = {c: graph_ms(lambda: gemm.scan("wkv6_chunked", *timed, width=c),
+                               3, 10)
+                   for c in gemm.scan_widths(K6_D)}
+    G, CPT = gemm.SCAN_SPLIT[K6_D]
+    C = gemm.scan_width(BH, K6_D, gemm.sm_count(dev))
+    ptxas = [ln.strip() for ln in build_report["wkv6"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     row.update(ms=(runs[0] + runs[2]) / 2, plain_ms=(runs[1] + runs[3]) / 2,
                library_ms=None, bound_ms=b, bound_by=by,
-               chunked_form_exp2_floor_ms=form_floor,
+               form_floor_ms=k6_form_floor_ms(BH, T, K6_D), eager_ms=eager,
                timed_shape=f"r/k/v/logw ({BH}, {T}, {K6_D}) fp32, chunk {K6_CHUNK}",
-               runs_ms=runs, per_case=per_case)
+               geometry={"G": G, "CPT": CPT, "C": C,
+                         "blocks": BH * -(-K6_D // C),
+                         "consumer_threads": C // CPT * G,
+                         "smem_bytes": gemm.scan_smem_bytes(K6_D)},
+               ptxas=ptxas, runs_ms=runs, per_case=per_case,
+               t_sweep_ms=t_sweep, width_sweep_ms=width_sweep)
     emit({"phase": "kernels_k6", "checks": len(checks),
           "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
           "row": row})
@@ -1023,11 +1085,12 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
         prefill_ms = cuda_ms(lambda: prefill(
             params, plan.arrays["aug_embeds"][0], plan.arrays["aug_heads"][0],
             ptoks, one), 3)
-        k6_ms = None
+        k6_ms = k6_eager_ms = None
         if rwkv:
             ops, chunk = scan.captured["ops"], scan.captured["chunk"]
-            k6_ms = cuda_p50(lambda: kernels.wkv6_chunked(*ops, chunk=chunk),
-                             5, 10)
+            run_k6 = lambda: kernels.wkv6_chunked(*ops, chunk=chunk)  # noqa: E731
+            k6_ms = graph_ms(run_k6, 5, 10)
+            k6_eager_ms = cuda_p50(run_k6, 5, 10)
         logits_fn = make_batched_decode_logits(model)
         prof = decode_step_profile(lambda: torch.argmax(logits_fn(
             params, plan.arrays["aug_embeds"], plan.arrays["aug_heads"], sidx,
@@ -1090,6 +1153,10 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
             k6_vs_recurrence=k6_gate, k6_ms_per_launch=k6_ms,
             k6_ms_per_prefill=k6_ms * cfg.n_layers,
             k6_share_of_admission_prefill=k6_ms * cfg.n_layers / prefill_ms,
+            k6_eager_ms_per_launch=k6_eager_ms,
+            k6_eager_ms_per_prefill=k6_eager_ms * cfg.n_layers,
+            k6_eager_share_of_admission_prefill=(k6_eager_ms * cfg.n_layers
+                                                 / prefill_ms),
         )
     emit(out)
     return out
@@ -1598,7 +1665,7 @@ def main() -> None:
     release()
     vgg = vgg_path(dev, core, kernels)
     release()
-    rows["wkv6_chunked"] = k6_checks(dev, kernels, ref)
+    rows["wkv6_chunked"] = k6_checks(dev, kernels, ref, report)
     release()
     rwkv = lm_path(dev, kernels, phase="rwkv_path", arch=RWKV_ARCH,
                    prompt_len=RWKV_PROMPT)

@@ -10,7 +10,8 @@ slot-indexed, fp32; :mod:`.grouped`) and ``aug_gemm_typed`` (K5 in
 ``morph_gemm_typed`` (K4 in :mod:`.block_diag`, fp32 or bf16), its sum over
 K split into slices by :func:`morph_splits`.  ``csrc/row_gemm.cu`` has ``row_gemm`` (K3;
 :mod:`.grouped`).  ``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6
-scan; :mod:`.wkv6`).  Each wrapper counts its own launches; this module
+scan as a state-column recurrence; :mod:`.wkv6`), its block width chosen by
+:func:`scan_width`.  Each wrapper counts its own launches; this module
 counts none.  The libraries are built at first use (:mod:`.build`); nothing
 here runs at import.
 """
@@ -25,7 +26,8 @@ from . import build
 
 __all__ = ["MAX_GRID_YZ", "MORPH_BK", "check_operands", "aug",
            "aug_workspace_floats", "morph", "morph_splits", "sm_count", "rows",
-           "scan"]
+           "scan", "scan_smem_bytes", "scan_width", "scan_widths",
+           "SCAN_SPLIT"]
 
 MAX_GRID_YZ = 65535
 _BM = 64            # rows per block in morph_gemm.cu, at least in aug_gemm.cu
@@ -36,6 +38,11 @@ _MORPH_RESIDENT = 3     # morph_gemm.cu blocks that fit one SM (launch bounds)
 _MORPH_MIN_SLICE = 8    # k-steps per slice at least
 _MORPH_FILL = 2         # k-steps a block spends filling its pipeline (STAGES - 1)
 _MORPH_MAX_SPLITS = 16
+# wkv6.cu's Split: per head size, the threads per state column (G) and the
+# columns per thread (CPT) it is compiled for; its consumer threads per
+# block at most.
+SCAN_SPLIT = {16: (4, 1), 64: (16, 4)}
+_SCAN_MAX_THREADS = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
@@ -51,8 +58,10 @@ _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
     "morph_gemm_typed": ("morph_gemm", [_P] * 4 + [_I] * 8 + [_P]),
     # h, gidx, tables, out, R, N, K, S, bf16, device, stream
     "row_gemm": ("row_gemm", [_P] * 4 + [_I] * 6 + [_P]),
-    # r, k, v, logw, u, s0, out, s_out, BH, T, D, L, P, device, stream
-    "wkv6_chunked": ("wkv6", [_P] * 8 + [_I] * 6 + [_P]),
+    # r, k, v, logw, u, s0, out, s_out, BH, T, D, C, device, stream
+    "wkv6_chunked": ("wkv6", [_P] * 8 + [_I] * 5 + [_P]),
+    # D -> bytes
+    "wkv6_smem_bytes": ("wkv6", [_I]),
 }
 
 
@@ -240,16 +249,61 @@ def rows(name: str, h: torch.Tensor, gidx: torch.Tensor,
     return out
 
 
+def scan_widths(D: int) -> list[int]:
+    """The block widths C (columns) K6 takes at head size ``D``, split as
+    ``SCAN_SPLIT[D] = (G, CPT)``: C <= D (the last block of a sequence
+    takes the rest), CPT divides C, and the block's ``C / CPT * G``
+    consumer threads are whole warps, at most 256."""
+    G, CPT = SCAN_SPLIT[D]
+    return [c for c in range(CPT, D + 1, CPT)
+            if c // CPT * G % 32 == 0 and c // CPT * G <= _SCAN_MAX_THREADS]
+
+
+# Memoised like morph_splits: a pure function of three ints.
+@functools.lru_cache(maxsize=256)
+def scan_width(BH: int, D: int, sms: int) -> int:
+    """The block width C for K6 on ``BH`` sequences of head size ``D`` on
+    a card of ``sms`` SMs: a block owns C columns of one sequence (the last
+    block of a sequence the rest), each column's rows split over G threads
+    that hold CPT columns each (``SCAN_SPLIT[D]``).
+
+    C is the width that minimises, in order: the columns on the busiest
+    warp scheduler (its SM's blocks' consumer warps spread over 4
+    schedulers, as many blocks on the busiest SM as ``ceil(blocks /
+    sms)``), the columns on the busiest SM (shared-memory traffic), and the
+    blocks (each loads and prepares its sequence's whole r, k, logw and v).
+    At BH = 40, D = 64 on 132 SMs: C = 24, 120 blocks of 3 consumer warps,
+    8 columns a scheduler (no width gets below 8: a warp holds 8 columns)."""
+    G, CPT = SCAN_SPLIT[D]
+
+    def cost(c: int) -> tuple[int, int, int]:
+        blocks = BH * -(-D // c)
+        warps = c // CPT * G // 32
+        per_sm = -(-blocks // sms)
+        return -(-per_sm * warps // 4) * (c // warps), per_sm * c, blocks
+
+    return min(scan_widths(D), key=cost)
+
+
+def scan_smem_bytes(D: int) -> int:
+    """Bytes of shared memory a K6 block takes at head size ``D``: the
+    library's own count, since the layout is its own."""
+    fn, _ = _entry("wkv6_smem_bytes")
+    return fn(D)
+
+
 def scan(name: str, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, L: int,
-         splits: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The RWKV-6 chunked scan on fp32 ``(BH, T, D)`` operands, ``splits``
-    blocks per ``(b, h)`` (K6).  Returns (out (BH, T, D), s_final
-    (BH, D, D)), both fp32."""
+         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+         width: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 scan on fp32 ``(BH, T, D)`` operands as a state-column
+    recurrence (K6), blocks of ``width`` columns, by default
+    :func:`scan_width` of the shape and the card's SMs.  One device
+    launch.  Returns (out (BH, T, D), s_final (BH, D, D)), both fp32."""
     BH, T, D = r.shape
+    C = width or scan_width(BH, D, sm_count(r.device))
     out = torch.empty_like(r)
     s_out = torch.empty_like(s0)
     _call(name, "wkv6_chunked", r, r.data_ptr(), k.data_ptr(), v.data_ptr(),
           logw.data_ptr(), u.data_ptr(), s0.data_ptr(), out.data_ptr(),
-          s_out.data_ptr(), BH, T, D, L, splits)
+          s_out.data_ptr(), BH, T, D, C)
     return out, s_out

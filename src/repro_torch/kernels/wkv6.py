@@ -1,14 +1,17 @@
-"""K6: the RWKV-6 chunked linear-attention scan, on Hopper.
+"""K6: the RWKV-6 linear-attention scan, on Hopper.
 
-Replaces the Pallas kernel ``wkv6_chunked`` (``repro/kernels/wkv6.py:71``):
-for each of ``BH`` (batch x head) sequences, the exact chunked form of the
-RWKV-6 recurrence ``out_t = r_t (S_{t-1} + diag(u) k_t v_t^T)``,
-``S_t = diag(e^{logw_t}) S_{t-1} + k_t v_t^T``, chunk by chunk with every
-decay exponent <= 0.  :func:`wkv6_chunked` launches the hand-written kernel
-in ``csrc/wkv6.cu`` (bound in :mod:`.gemm`): one block loop carries each
-sequence's ``(D, D)`` state through its chunks, and the query rows of a
-chunk are split over several blocks so that a batch-1 prefill fills the
-card (the source says why and what bounds it).
+Replaces the Pallas kernel ``wkv6_chunked`` (``repro/kernels/wkv6.py:71``),
+the RWKV-6 recurrence ``out_t = r_t (S_{t-1} + diag(u) k_t v_t^T)``,
+``S_t = diag(e^{logw_t}) S_{t-1} + k_t v_t^T`` for each of ``BH`` (batch x
+head) sequences.  :func:`wkv6_chunked` launches the hand-written kernel in
+``csrc/wkv6.cu`` (bound in :mod:`.gemm`), which runs that recurrence column
+by column of the ``(D, D)`` state: the columns are independent, each one's
+rows are split over a few threads that keep them in registers, and the
+blocks of one sequence share nothing (the source says why and what bounds
+it; :func:`.gemm.scan_width` picks the blocks' width).  ``chunk`` is
+validated as the Pallas kernel asserts it, but the kernel's result does not
+depend on it beyond rounding; the CPU path computes the chunked form at
+``chunk``.
 
 The kernel computes in fp32.  bf16 operands are converted to fp32 before
 the launch and ``out`` is rounded back to ``r.dtype`` (what the Pallas
@@ -32,14 +35,6 @@ __all__ = ["wkv6_chunked"]
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_CHUNK = 128
 _HEAD_SIZES = (16, 64)        # rwkv6_3b's smoke and full head sizes
-_MAX_SPLITS = 8
-
-
-def _splits(BH: int, L: int, device: torch.device) -> int:
-    """Blocks per sequence: enough to put one block on every SM at small
-    ``BH`` (40 heads at batch 1 get 3 each on 132 SMs), at most 8 and at
-    most one query row each."""
-    return max(1, min(_MAX_SPLITS, L, gemm.sm_count(device) // BH))
 
 
 def wkv6_chunked(
@@ -54,7 +49,8 @@ def wkv6_chunked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (BH, T, D) in ``r.dtype``, s_final (BH, D, D) fp32).
     ``T`` must divide by ``min(chunk, T)`` (the Pallas kernel asserts it;
-    here it raises ``ValueError``): callers pad the end."""
+    here it raises ``ValueError``): callers pad the end.  On the card the
+    result is the token recurrence's, whatever the chunk."""
     name = "wkv6_chunked"
     seq = (r, k, v, logw)
     ops = (*seq, u, s0)
@@ -93,11 +89,12 @@ def wkv6_chunked(
             f"{name}: no kernel for head size {D} and chunk {L} (head sizes "
             f"{_HEAD_SIZES}, chunks up to {_MAX_CHUNK})"
         )
+    if BH > gemm.MAX_GRID_YZ:
+        raise ValueError(f"{name}: {BH} sequences exceed the grid limit")
     r32, k32, v32, lw32, u32 = (a.float() for a in (*seq, u))
     if any(a.data_ptr() % 16 for a in (r32, k32, v32, lw32, u32, s0)):
         raise ValueError(f"{name}: operands must be 16-byte aligned")
-    out, s_fin = gemm.scan(name, r32, k32, v32, lw32, u32, s0, L,
-                           _splits(BH, L, r.device))
+    out, s_fin = gemm.scan(name, r32, k32, v32, lw32, u32, s0)
     wkv6_chunked.launches += 1
     return out.to(r.dtype), s_fin
 

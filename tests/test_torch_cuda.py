@@ -422,6 +422,71 @@ def test_wkv6_kernel_bf16_and_refusals(rng, cuda):
                      chunk=256)
 
 
+def _scan_vs_recurrence(ops, got_o, got_s):
+    """K6's out and final state against the token recurrence on the same
+    (card) operands, within 1e-4 * max|recurrence|."""
+    want_o, want_s = ref.wkv6_ref(*(a[None] for a in ops[:4]), ops[4],
+                                  ops[5][None])
+    for got, want in ((got_o, want_o[0]), (got_s, want_s[0])):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_wkv6_kernel_gives_same_bits_twice(rng, cuda):
+    """Two calls at the prefill's shape (40 heads of 64, T = 384) give the
+    same bits: no atomics, one order of summation."""
+    ops = [a.to(cuda) for a in _scan_ops(rng, 40, 384, 64)]
+    o1, s1 = wkv6_chunked(*ops, chunk=128)
+    o2, s2 = wkv6_chunked(*ops, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(o1.view(torch.int32), o2.view(torch.int32))
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
+
+
+@pytest.mark.parametrize("decay", ["strong", "none"])
+@pytest.mark.parametrize("BH,T,D,chunk", [(40, 384, 64, 128), (8, 100, 64, 20),
+                                          (4, 256, 16, 64)])
+def test_wkv6_kernel_strong_and_no_decay(rng, cuda, decay, BH, T, D, chunk):
+    """logw = -exp(2 N) (most decays underflow to 0) and logw = 0 (the
+    state only grows) against the token recurrence."""
+    r, k, v, logw, u, s0 = (a.to(cuda) for a in _scan_ops(rng, BH, T, D))
+    z = _rand(rng, BH, T, D).to(cuda)
+    logw = -torch.exp(2 * z) if decay == "strong" else torch.zeros_like(z)
+    ops = (r, k, v, logw, u, s0)
+    got_o, got_s = wkv6_chunked(*ops, chunk=chunk)
+    _scan_vs_recurrence(ops, got_o, got_s)
+
+
+@pytest.mark.parametrize("BH,D", [(1, 64), (40, 64), (3, 16)])
+def test_wkv6_kernel_one_token(rng, cuda, BH, D):
+    """T = 1: one tile with 31 padded rows."""
+    ops = [a.to(cuda) for a in _scan_ops(rng, BH, 1, D)]
+    got_o, got_s = wkv6_chunked(*ops, chunk=128)
+    _scan_vs_recurrence(ops, got_o, got_s)
+
+
+def test_wkv6_kernel_long_sequence(rng, cuda):
+    """(40, 4096, 64): 128 tiles through the ring, against the token
+    recurrence."""
+    ops = [a.to(cuda) for a in _scan_ops(rng, 40, 4096, 64)]
+    got_o, got_s = wkv6_chunked(*ops, chunk=128)
+    _scan_vs_recurrence(ops, got_o, got_s)
+
+
+@pytest.mark.parametrize("BH,T,D", [(40, 100, 64), (6, 70, 16)])
+def test_wkv6_kernel_every_geometry(rng, cuda, BH, T, D):
+    """Every block width C the kernel takes at D, through the binding,
+    against the token recurrence; a width it does not take (5 columns: no
+    whole warp at either head size) is refused at launch."""
+    ops = [a.to(cuda) for a in _scan_ops(rng, BH, T, D)]
+    for C in gemm.scan_widths(D):
+        got_o, got_s = gemm.scan("wkv6_chunked", *ops, width=C)
+        _scan_vs_recurrence(ops, got_o, got_s)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gemm.scan("wkv6_chunked", *ops, width=5)
+
+
 def test_rwkv_smoke_model_on_card_equals_cpu(rng, cuda):
     """The rwkv6_3b smoke model (fp32) on the card, its time-mix prefill
     through K6 (one launch per layer), against the same weights on the CPU:

@@ -1,0 +1,301 @@
+"""Probes of K6 (``src/repro_torch/kernels/csrc/wkv6.cu``) on one card,
+beside ``chip_smoke.py``'s gates.  Each prints JSON lines; none is gated.
+K6's inputs are ``chip_smoke.py``'s (D 64, chunk 128, its seed), and its
+timers are ``chip_smoke.py``'s: ``graph_ms`` (device time, CUDA graphs of 10
+calls) and ``cuda_p50`` (10 calls back to back, the host's time included).
+
+    PYTHONPATH=<checkout>/src python3 tools/k6_probe.py time
+        K6 through the wrapper of the ``repro_torch`` on the path, at
+        (BH, T) = (40, 384) and (40, 1024), both ways.  Run it on two
+        checkouts in one call (parent, change, change, parent) to compare
+        them.
+    PYTHONPATH=src python3 tools/k6_probe.py variants
+        Copies of this checkout's wkv6.cu, each built with nvcc and called
+        through its C entry on the same inputs, held to the repo's kernel
+        within 1e-4 * max|out|, device times in turns with it: the other
+        splits (G, CPT) = (8, 2) and (16, 2) at D = 64 at every block width
+        they take; and the consumer loop with software-pipelined operand
+        loads (token t + 1's shared-memory loads issued before token t's
+        arithmetic).
+    PYTHONPATH=src python3 tools/k6_probe.py profile
+        A copy of wkv6.cu whose block stamps ``%globaltimer`` per tile (thread
+        0 for the consumers, producer thread 0 for the producers), at
+        (40, 384) at the rule's width and at 16 and 32 columns: per tile,
+        the consumers' wait for a prepared slot, the producers' preparation
+        and the consumers' recurrence, in ns.
+
+Builds go to ``build/probe/`` (listed in ``.gitignore``).
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+
+OUT = ROOT / "build" / "probe"
+D = 64
+SPLIT_64 = "template <> struct Split<64> { static constexpr int G = 16, CPT = 4; };"
+
+# The consumer loop's per-token body, and the same with token t + 1's
+# operands fetched into registers before token t's arithmetic.
+_BODY_START = "            unroll<G>([&](auto tt_) {"
+_BODY_END = "            // Butterfly over the column group's G lanes"
+_PIPELINED = '''            float4 cr[Q], ck[Q], cw[Q];
+            float cv[CPT];
+            auto fetch = [&](int t, float4 (&fr)[Q], float4 (&fk)[Q],
+                             float4 (&fw)[Q], float (&fv)[CPT]) {
+                const float* const row = rs + t * D;
+                load_n<CPT>(row + 3 * TF + j, fv);
+#pragma unroll
+                for (int q = 0; q < Q; ++q) {
+                    const int o = 4 * (q * G + g);
+                    fr[q] = ld4(row + o); fk[q] = ld4(row + TF + o);
+                    fw[q] = ld4(row + 2 * TF + o);
+                }
+            };
+            fetch(t0, cr, ck, cw, cv);
+            unroll<G>([&](auto tt_) {
+                constexpr int tt = decltype(tt_)::value;
+                float4 nr[Q], nk[Q], nw[Q];
+                float nv[CPT];
+                if constexpr (tt + 1 < G) fetch(t0 + tt + 1, nr, nk, nw, nv);
+#pragma unroll
+                for (int x = 0; x < CPT; ++x) p[tt][x] = 0.0f;
+#pragma unroll
+                for (int q = 0; q < Q; ++q) {
+                    const float re[4] = {cr[q].x, cr[q].y, cr[q].z, cr[q].w};
+                    const float ke[4] = {ck[q].x, ck[q].y, ck[q].z, ck[q].w};
+                    const float we[4] = {cw[q].x, cw[q].y, cw[q].z, cw[q].w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+#pragma unroll
+                        for (int x = 0; x < CPT; ++x) {
+                            float& st = S[4 * q + e][x];
+                            p[tt][x] = fmaf(re[e], st, p[tt][x]);
+                            st = fmaf(we[e], st, ke[e] * cv[x]);
+                        }
+                }
+                if constexpr (tt + 1 < G) {
+#pragma unroll
+                    for (int q = 0; q < Q; ++q) { cr[q] = nr[q]; ck[q] = nk[q]; cw[q] = nw[q]; }
+#pragma unroll
+                    for (int x = 0; x < CPT; ++x) cv[x] = nv[x];
+                }
+            });
+'''
+
+
+def scan_ops(dev, BH, T):
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = randn(BH, T, D), randn(BH, T, D), randn(BH, T, D)
+    return r, k, v, -torch.exp(randn(BH, T, D)), randn(BH, D), randn(BH, D, D) * 0.1
+
+
+def patched(src: str, old: str, new: str) -> str:
+    if src.count(old) != 1:
+        raise RuntimeError(f"anchor not found once in wkv6.cu: {old[:60]!r}")
+    return src.replace(old, new)
+
+
+def build_copies(sources: dict[str, str]) -> dict[str, tuple]:
+    """Each source into build/probe/, one nvcc each, all started together;
+    returns {tag: (library, ptxas register/spill lines)}."""
+    from repro_torch.kernels import build
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, src in sources.items():
+        cu = OUT / f"wkv6_{tag}.cu"
+        cu.write_text(src)
+        procs[tag] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for tag, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        libs[tag] = (ctypes.CDLL(str(OUT / f"wkv6_{tag}.so")),
+                     [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln])
+    return libs
+
+
+def entry(lib):
+    from repro_torch.kernels import gemm
+
+    fn = lib.wkv6_chunked
+    fn.argtypes = gemm._ENTRIES["wkv6_chunked"][1]
+    return fn
+
+
+def caller(fn, ops, width):
+    """A call of the C entry ``fn`` on ``ops`` into fixed outputs; the
+    stream is read at each call, so that a graph captures it."""
+    BH, T, _ = ops[0].shape
+    out, s_out = torch.empty_like(ops[0]), torch.empty_like(ops[5])
+    ptrs = [a.data_ptr() for a in ops] + [out.data_ptr(), s_out.data_ptr()]
+
+    def run():
+        err = fn(*ptrs, BH, T, D, width, ops[0].device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"wkv6_chunked refused width {width}: {err}")
+        return out, s_out
+    return run
+
+
+def widths(G, CPT):
+    return [c for c in range(CPT, D + 1, CPT) if c // CPT * G % 32 == 0
+            and c // CPT * G <= 256]
+
+
+def probe_time(dev):
+    import repro_torch
+    from repro_torch.kernels import build, wkv6_chunked
+
+    build.build_all()
+    for BH, T in ((40, 384), (40, 1024)):
+        ops = scan_ops(dev, BH, T)
+        run = lambda: wkv6_chunked(*ops, chunk=cs.K6_CHUNK)  # noqa: E731
+        cs.emit({"probe": "time", "package": repro_torch.__file__, "BH": BH,
+                 "T": T, "graph_ms": cs.graph_ms(run, 5, 10),
+                 "eager_ms": cs.cuda_p50(run, 5, 10)})
+
+
+def probe_variants(dev):
+    from repro_torch.kernels import build, gemm
+
+    src = build.SOURCES["wkv6"].read_text()
+    body = src[src.index(_BODY_START):src.index(_BODY_END)]
+    splits = {(8, 2), (16, 2)}
+    libs = build_copies(
+        {**{f"G{g}_CPT{c}": patched(src, SPLIT_64, SPLIT_64.replace(
+            "G = 16, CPT = 4", f"G = {g}, CPT = {c}")) for g, c in splits},
+         "pipelined": patched(src, body, _PIPELINED)})
+    repo = entry(build.load("wkv6"))
+    rule = gemm.scan_width(40, D, gemm.sm_count(dev))
+    for tag, (_, ptxas) in libs.items():
+        cs.emit({"probe": "variants", "build": tag, "ptxas": ptxas})
+
+    def held(run, want):
+        got = run()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            if err > 1e-4 * float(w.abs().max()):
+                raise RuntimeError(f"a variant differs from the repo's kernel by {err}")
+
+    # The splits: every width each takes, at the prefill's shape, with the
+    # repo's kernel at its rule's width before and after.
+    ops = scan_ops(dev, 40, 384)
+    base = caller(repo, ops, rule)
+    want = tuple(t.clone() for t in base())
+    times = {"repo_before": cs.graph_ms(base, 5, 10)}
+    for G, CPT in [*sorted(splits), tuple(gemm.SCAN_SPLIT[D])]:
+        fn = repo if (G, CPT) == gemm.SCAN_SPLIT[D] else entry(libs[f"G{G}_CPT{CPT}"][0])
+        for c in widths(G, CPT):
+            run = caller(fn, ops, c)
+            held(run, want)
+            times[f"G{G}_CPT{CPT}_C{c}"] = cs.graph_ms(run, 3, 10)
+    times["repo_after"] = cs.graph_ms(base, 5, 10)
+    cs.emit({"probe": "variants", "shape": [40, 384, D], "rule_width": rule,
+             "graph_ms": times})
+    # The pipelined loop against the repo's, in turns.
+    piped = entry(libs["pipelined"][0])
+    for T in (384, 1024):
+        ops = scan_ops(dev, 40, T)
+        for c in sorted({rule, 32}):
+            base, run = caller(repo, ops, c), caller(piped, ops, c)
+            held(run, base())
+            cs.emit({"probe": "variants", "shape": [40, T, D], "width": c,
+                     "repo_pipelined_repo_pipelined_ms":
+                         [cs.graph_ms(f, 5, 10) for f in (base, run, base, run)]})
+
+
+def probe_profile(dev):
+    from repro_torch.kernels import build, gemm
+
+    src = build.SOURCES["wkv6"].read_text()
+    stamps = [
+        ("namespace {\n", "namespace {\n__device__ unsigned long long* g_prof;\n"
+         "__device__ __forceinline__ unsigned long long clk() { unsigned long long c;"
+         " asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(c)); return c; }\n"),
+        ("    const size_t seq = (size_t)bh * T * D;\n",
+         "    const size_t seq = (size_t)bh * T * D;\n"
+         "    unsigned long long* const pr = g_prof + (size_t)(blockIdx.y * gridDim.x"
+         " + blockIdx.x) * (2 + 4 * n_tiles);\n    if (tid == 0) pr[0] = clk();\n"),
+        ("            mbar_wait(smem_addr(full + s), (i / STAGES) & 1);\n",
+         "            mbar_wait(smem_addr(full + s), (i / STAGES) & 1);\n"
+         "            if (pt == 0) pr[2 + 4 * i + 1] = clk();\n"),
+        ("            asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");\n",
+         "            if (pt == 0) pr[2 + 4 * i + 2] = clk();\n"
+         "            asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");\n"),
+        ("        mbar_wait(smem_addr(ready + s), (i / STAGES) & 1);\n",
+         "        if (tid == 0) pr[2 + 4 * i] = clk();\n"
+         "        mbar_wait(smem_addr(ready + s), (i / STAGES) & 1);\n"
+         "        if (tid == 0) pr[2 + 4 * i + 3] = clk();\n"),
+        ("#pragma unroll\n    for (int q = 0; q < Q; ++q)\n#pragma unroll\n"
+         "        for (int e = 0; e < 4; ++e)\n            store_n",
+         "    if (tid == 0) pr[1] = clk();\n#pragma unroll\n    for (int q = 0; q < Q; ++q)\n"
+         "#pragma unroll\n        for (int e = 0; e < 4; ++e)\n            store_n"),
+    ]
+    for old, new in stamps:
+        src = patched(src, old, new)
+    src += ('\nextern "C" int wkv6_set_prof(void* p) {\n'
+            '    return (int)cudaMemcpyToSymbol(g_prof, &p, sizeof(p));\n}\n')
+    lib, _ = build_copies({"profile": src})["profile"]
+    lib.wkv6_set_prof.argtypes = [ctypes.c_void_p]
+    fn = entry(lib)
+    BH, T = 40, 384
+    ops = scan_ops(dev, BH, T)
+    n_tiles = -(-T // 32)
+    for c in sorted({gemm.scan_width(BH, D, gemm.sm_count(dev)), 16, 32}):
+        blocks = BH * -(-D // c)
+        prof = torch.zeros(blocks * (2 + 4 * n_tiles), dtype=torch.int64, device=dev)
+        if lib.wkv6_set_prof(prof.data_ptr()):
+            raise RuntimeError("cudaMemcpyToSymbol failed")
+        run = caller(fn, ops, c)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        a = prof.cpu().numpy().reshape(blocks, 2 + 4 * n_tiles).astype(np.int64)
+        tiles = a[:, 2:].reshape(blocks, n_tiles, 4)
+        top, full_seen, prepped, ready_seen = (tiles[:, :, i] for i in range(4))
+        end_of = np.concatenate([top[:, 1:], a[:, 1:2]], 1)
+        cs.emit({"probe": "profile", "shape": [BH, T, D], "width": c,
+                 "blocks": blocks,
+                 "kernel_span_ns": int(a[:, 1].max() - a[:, 0].min()),
+                 "block_ns_mean": float((a[:, 1] - a[:, 0]).mean()),
+                 "first_tile_wait_ns": float((ready_seen - top)[:, 0].mean()),
+                 "per_tile_ns": {
+                     "consumer_wait": float((ready_seen - top)[:, 1:].mean()),
+                     "producer_prep": float((prepped - full_seen).mean()),
+                     "consumer_recurrence": float((end_of - ready_seen).mean())},
+                 "tiles_ready_before_consumers": float((prepped <= top)[:, 1:].mean())})
+
+
+def main():
+    mode = sys.argv[1] if len(sys.argv) > 1 else ""
+    probes = {"time": probe_time, "variants": probe_variants, "profile": probe_profile}
+    if mode not in probes:
+        sys.exit(f"usage: k6_probe.py {{{'|'.join(probes)}}}")
+    if not torch.cuda.is_available():
+        sys.exit("k6_probe.py: no CUDA device")
+    probes[mode](torch.device("cuda", 0))
+
+
+if __name__ == "__main__":
+    main()
