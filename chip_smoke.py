@@ -35,6 +35,38 @@ printing one JSON line; any failure raises and exits non-zero:
                 and eq. 5 against ``conv_reference`` with the channel
                 permutation applied, and that both kernels' launch counters
                 rose by the number of microbatches.
+ 3a. async_path the async front door (``AsyncDeliveryEngine``,
+                max_delay_ms 5, admission block) over main_path's registry:
+                4 submitter threads submit its 256 requests, 3 rounds.
+                Gated: every result within 1e-4 * max of per-request
+                delivery; K1 and K2 launched, no other kernel; one round
+                through an injected device-phase crash (``FailureInjector``)
+                resolves every rid once with the same results; a backlog
+                of 64 pending requests persisted to a snapshot directory
+                (``CheckpointManager``, a temp dir) restores into a fresh
+                front door over a fresh registry and resolves each rid
+                once, with the same results.  Printed, not gated: images/s
+                beside main_path's sync engine, client-side p50/p95 latency
+                (submit call to resolution), the coalesce/device/publish
+                p50, submit stalls, the snapshot's save time (capture and
+                write) and its restore time (load, restage, and delivery
+                of the 64 requests).
+ 3b. served_path the TCP front door (``launch.server.DeliveryServer``, in
+                process on 127.0.0.1, an ephemeral port) over an
+                ``AsyncDeliveryEngine(admission="reject")`` on main_path's
+                registry, driven by the client fleet (``launch.client``):
+                256 one-image requests from 16 connections as one burst,
+                then 256 at 1000/s with server-side network chaos (dropped
+                accepts, requests lost after read, truncated and stalled
+                writes) at ``serve --chaos``'s default rate 0.2, the
+                clients hedging after 0.5 s, up to 24 sends in 30 s.
+                Gated: ``FleetReport.assert_exactly_once()``, every rid of
+                both runs ok (no client timeout), no rid lost at the
+                drain, every delivered array within 1e-4 * max of
+                per-request delivery of the fleet's own request, K1 and K2
+                launched, no other kernel.  Printed:
+                requests/s, p50/p95, shed/expired/reconnect/duplicate
+                counts, retries and hedges.
   4. churn      6 tenants at capacity 4 (alpha=3, beta=16, m=16), so slots
                 are evicted inside one flush round and the engine's
                 copy-on-write of the secret stacks runs; every result must
@@ -161,10 +193,13 @@ printing one JSON line; any failure raises and exits non-zero:
 """
 from __future__ import annotations
 
+import asyncio
 import gc
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -190,6 +225,11 @@ N_SLOTS = 6
 G, B, F_IN, F_OUT = 4, 64, 3072, 65536
 RAGGED_B, RAGGED_K, RAGGED_N = 3, 3000, 1000
 MAIN_GEOM = dict(alpha=3, beta=64, m=32, p=3)       # kappa = 1
+# The front doors over main_path's registry (async_path, served_path).
+ASYNC_THREADS, ASYNC_ROUNDS, ASYNC_DELAY_MS = 4, 3, 5.0
+SNAPSHOT_BACKLOG = 64           # requests persisted pending and restored
+SERVED_REQUESTS, SERVED_CLIENTS = 256, 16
+SERVED_CHAOS_RATE = 0.2         # serve --chaos's default rate
 CHURN_GEOM = dict(alpha=3, beta=16, m=16, p=3)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -247,6 +287,12 @@ def release() -> None:
     collector frees, and otherwise stay live into a later phase's peak."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def reset_launches(kernels) -> None:
+    """Set every kernel wrapper's launch counter to 0."""
+    for name in KERNEL_NAMES:
+        getattr(kernels, name).launches = 0
 
 
 def emit(obj: dict) -> None:
@@ -1014,8 +1060,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
     setup_s = time.monotonic() - t0
 
     # -- the main path: provider-side token lane, then the decode lane -----
-    for name in KERNEL_NAMES:
-        getattr(kernels, name).launches = 0
+    reset_launches(kernels)
     t1 = time.monotonic()
     rids = [engine.submit(DeliveryRequest(tenant_of[r], prompts[r : r + 1],
                                           lane="tokens"))
@@ -1162,7 +1207,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
     return out
 
 
-# -- phases 3 and 4 -----------------------------------------------------------
+# -- phases 3 and 4 (3a and 3b below main_path) --------------------------------
 
 def make_registry(core, geom, tenants: int, capacity: int, rng):
     reg = core.SessionRegistry(geom, kappa=1, capacity=capacity)
@@ -1204,8 +1249,7 @@ def main_path(dev, core, runtime, kernels) -> dict:
     engine.stats = runtime.EngineStats()
 
     rounds = 5
-    for name in KERNEL_NAMES:
-        getattr(kernels, name).launches = 0
+    reset_launches(kernels)
     t0 = time.monotonic()
     feats = []
     for _ in range(rounds):
@@ -1270,6 +1314,250 @@ def main_path(dev, core, runtime, kernels) -> dict:
         "max_err_eq5": err2, "max_abs_conv": conv_max,
         "host_secret_build_s": secrets_s,
     }
+    emit(out)
+    return out, (reg, requests, base)
+
+
+# -- phases 3a and 3b: the async and TCP front doors over main_path's tenants
+
+def vision_launches(kernels, phase: str) -> dict:
+    """K1/K2's launches since the last reset; fails unless both ran and no
+    other kernel did."""
+    counts = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    launches = {n: counts.pop(n) for n in ("grouped_block_diag_matmul",
+                                           "grouped_aug_gemm")}
+    check(all(launches.values()), f"{phase}: K1/K2 not launched: {launches}")
+    check(not any(counts.values()), f"{phase} launched other kernels: {counts}")
+    return launches
+
+
+def held_against(pairs, phase: str) -> float:
+    """max|delivered - per-request| over ``pairs``, gated at REL_TOL x the
+    per-request deliveries' max."""
+    ref_max = max(float(np.abs(want).max()) for _, want in pairs)
+    err = max(float(np.abs(np.asarray(got) - want).max()) for got, want in pairs)
+    check(all(np.asarray(got).shape == want.shape for got, want in pairs),
+          f"{phase}: delivered arrays have the wrong shape")
+    check(err <= REL_TOL * ref_max,
+          f"{phase}: delivered vs per-request {err} > {REL_TOL * ref_max}")
+    return err
+
+
+def submit_round(front, requests) -> tuple[list, list]:
+    """Submit ``requests`` from ASYNC_THREADS threads (thread w takes every
+    ASYNC_THREADS-th request from w); returns the futures in request order
+    and each request's client-side latency, submit call to resolution."""
+    futs = [None] * len(requests)
+    lat_ms = [None] * len(requests)
+
+    def worker(w):
+        for i in range(w, len(requests), ASYNC_THREADS):
+            t0 = time.monotonic()
+            fut = front.submit(requests[i])
+            fut.add_done_callback(lambda _f, i=i, t0=t0: lat_ms.__setitem__(
+                i, (time.monotonic() - t0) * 1e3))
+            futs[i] = fut
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(ASYNC_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not any(th.is_alive() for th in threads), "submitters hung")
+    return futs, lat_ms
+
+
+def resolved_once(futs, phase: str) -> list:
+    """Every future's result; fails unless each rid is distinct."""
+    results = [f.result(timeout=300) for f in futs]
+    rids = [r.request_id for r in results]
+    check(len(set(rids)) == len(rids), f"{phase}: duplicated request ids")
+    return results
+
+
+def async_path(dev, core, runtime, kernels, ctx, sync_ips: float) -> dict:
+    from repro_torch.checkpoint import CheckpointManager
+
+    reg, requests, base = ctx
+    engine = runtime.MoLeDeliveryEngine(reg, dev)
+    front = runtime.AsyncDeliveryEngine(engine, max_delay_ms=ASYNC_DELAY_MS,
+                                        admission="block")
+    try:
+        # Warm-up: stages this engine's secret stacks.
+        resolved_once(submit_round(front, requests)[0], "async_path warm-up")
+        engine.stats = runtime.EngineStats()
+        reset_launches(kernels)
+        lat_ms, pairs = [], []
+        t0 = time.monotonic()
+        for _ in range(ASYNC_ROUNDS):
+            futs, lat = submit_round(front, requests)
+            results = resolved_once(futs, "async_path")
+            lat_ms.extend(lat)
+            pairs.extend((r.payload, b) for r, b in zip(results, base))
+        dt = time.monotonic() - t0
+        err = held_against(pairs, "async_path")
+        stats = engine.stats
+        phases = {f"{p}_phase_p50_ms": stats.phase_quantile_ms(p, 0.5)
+                  for p in ("coalesce", "device", "publish")}
+        flushes, submit_stalls = stats.flushes, stats.submit_stalls
+        submit_wait_p95 = stats.submit_wait_quantile_ms(0.95)
+
+        # One round through an injected device-phase crash: the supervisor
+        # replays the round, each rid resolves once, with the same results.
+        engine.injector = runtime.FailureInjector(at_phases={"device"})
+        results = resolved_once(submit_round(front, requests)[0],
+                                "async_path injected crash")
+        check(engine.injector.fired == {"device"} and front._restarts == 1,
+              "async_path: the injected device failure did not fire once")
+        check(front.pending() == 0 and not engine._results,
+              "async_path: results stranded after recovery")
+        err_crash = held_against(
+            [(r.payload, b) for r, b in zip(results, base)], "async_path crash")
+    finally:
+        front.close()
+
+    # A pending backlog persisted to a snapshot directory and restored into
+    # a fresh front door over a fresh registry (the secrets come from disk).
+    # The fresh front door has no snapshot_dir, so it writes nothing: the
+    # save is timed alone (capture and write), and so is the restore (load,
+    # restage, and delivery of the backlog).
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp, async_save=False)
+        writer = runtime.MoLeDeliveryEngine(reg, dev)
+        backlog = requests[:SNAPSHOT_BACKLOG]
+        rids = [writer.submit(q) for q in backlog]
+        t0 = time.monotonic()
+        writer.snapshot().save(ckpt, 1)
+        save_s = time.monotonic() - t0
+        fresh_reg = core.SessionRegistry(reg.geom, kappa=reg.kappa,
+                                         capacity=reg.capacity)
+        fresh = runtime.AsyncDeliveryEngine(
+            runtime.MoLeDeliveryEngine(fresh_reg, dev),
+            max_delay_ms=ASYNC_DELAY_MS)
+        try:
+            t0 = time.monotonic()
+            futs = fresh.restore(runtime.EngineSnapshot.load(ckpt))
+            check(sorted(futs) == rids, "restore: replayed rids differ")
+            results = resolved_once([futs[r] for r in rids], "restore")
+            restore_s = time.monotonic() - t0
+            check(all(r.request_id == rid for r, rid in zip(results, rids)),
+                  "restore: a future resolved to another rid")
+            for rid in rids:
+                try:
+                    fresh.engine.take(rid)
+                except KeyError:
+                    continue
+                raise SmokeFailure(f"restore: rid {rid} redeemable twice")
+            err_restore = held_against(
+                [(r.payload, b) for r, b in zip(results, base)], "restore")
+        finally:
+            fresh.close()
+    launches = vision_launches(kernels, "async_path")
+
+    n_images = ASYNC_ROUNDS * len(requests)
+    out = {
+        "phase": "async_path", "threads": ASYNC_THREADS,
+        "requests_per_round": len(requests), "rounds": ASYNC_ROUNDS,
+        "max_delay_ms": ASYNC_DELAY_MS, "admission": "block",
+        "launches": launches, "flushes": flushes,
+        "images_per_s_async": n_images / dt,
+        "images_per_s_sync_main_path": sync_ips,
+        "client_p50_ms": float(np.percentile(lat_ms, 50)),
+        "client_p95_ms": float(np.percentile(lat_ms, 95)),
+        **phases,
+        "submit_stalls": submit_stalls,
+        "submit_wait_p95_ms": submit_wait_p95,
+        "max_err_vs_per_request": err,
+        "max_err_after_injected_crash": err_crash,
+        "restored_backlog": len(rids), "max_err_after_restore": err_restore,
+        "snapshot_save_s": save_s, "snapshot_restore_s": restore_s,
+    }
+    emit(out)
+    return out
+
+
+def served_path(dev, runtime, kernels, ctx) -> dict:
+    from repro_torch.launch.client import ClientFleet, FleetConfig
+    from repro_torch.launch.server import DeliveryServer
+
+    reg, requests, _ = ctx
+    geom = reg.geom
+    front = runtime.AsyncDeliveryEngine(
+        runtime.MoLeDeliveryEngine(reg, dev), max_delay_ms=ASYNC_DELAY_MS,
+        admission="reject")
+
+    def serve(run: str, injector, **fleet_kw) -> dict:
+        async def go():
+            server = DeliveryServer(front, host="127.0.0.1", port=0,
+                                    injector=injector)
+            await server.start()
+            try:
+                fleet = ClientFleet(FleetConfig(
+                    port=server.port, requests=SERVED_REQUESTS,
+                    clients=SERVED_CLIENTS,
+                    tenants=4, batch=1, channels=geom.alpha,
+                    image_size=geom.m, seed=SEED + 3, fleet_id=run,
+                    keep_payloads=True, **fleet_kw))
+                t0 = time.monotonic()
+                report = await fleet.run()
+                return report, time.monotonic() - t0
+            finally:
+                lost.append(await server.drain_and_stop(timeout=60.0))
+
+        lost = []
+        stats = front.engine.stats
+        before = (stats.shed_requests, stats.expired_requests,
+                  stats.reconnects, stats.duplicate_hits)
+        report, dt = asyncio.run(go())
+        report.assert_exactly_once()
+        check(lost == [0], f"served_path {run}: {lost} rids lost at drain")
+        check(report.mismatched_dups == 0,
+              f"served_path {run}: duplicates disagreed")
+        counts = report.counts()
+        check(counts == {"ok": SERVED_REQUESTS},
+              f"served_path {run}: outcomes {counts}")
+        err = held_against(
+            [(report.payloads[rid], per_request(reg, req, dev))
+             for rid, req in report.requests.items()], f"served_path {run}")
+        after = (stats.shed_requests, stats.expired_requests,
+                 stats.reconnects, stats.duplicate_hits)
+        return {
+            "requests": report.submitted, "counts": counts,
+            "requests_per_s": report.submitted / dt,
+            "p50_ms": report.quantile_ms(0.5), "p95_ms": report.quantile_ms(0.95),
+            **dict(zip(("shed", "expired", "reconnects", "duplicate_hits"),
+                       (a - b for a, b in zip(after, before)))),
+            "retries": report.retries, "hedges": report.hedges,
+            "conn_drops": report.conn_drops, "max_err_vs_per_request": err,
+        }
+
+    try:
+        # Warm-up: stages this engine's secret stacks.
+        for q in requests[:4]:
+            front.deliver(q, timeout=300)
+        reset_launches(kernels)
+        clean = serve("clean", None, trace=f"burst:{SERVED_REQUESTS}@1")
+        chaos_injector = runtime.FailureInjector(
+            network_phases={"accept", "read", "write", "stall"},
+            network_rate=SERVED_CHAOS_RATE, stall_ms=200.0, seed=SEED)
+        # Hedge after 0.5 s, up to 24 sends in a 30 s budget: at this rate
+        # about one send in two fails, so a rid that runs out of sends (a
+        # client timeout, which fails the gate) is a 0.58**24 event, under
+        # 1e-3 over the run's 256 rids.
+        chaos = serve("chaos", chaos_injector, trace="uniform:1000",
+                      attempt_timeout_ms=500.0, timeout_ms=30000.0,
+                      max_attempts=24)
+        chaos["network_hits"] = dict(chaos_injector.network_hits)
+        check(chaos_injector.network_hits, "served_path: chaos never fired")
+    finally:
+        front.close()
+    out = {"phase": "served_path", "host": "127.0.0.1",
+           "clients": SERVED_CLIENTS,
+           "max_delay_ms": ASYNC_DELAY_MS, "admission": "reject",
+           "chaos_rate": SERVED_CHAOS_RATE,
+           "launches": vision_launches(kernels, "served_path"),
+           "clean": clean, "chaos": chaos}
     emit(out)
     return out
 
@@ -1652,7 +1940,12 @@ def main() -> None:
 
     rows = kernel_checks(dev, kernels, ref)
     release()
-    main = main_path(dev, core, runtime, kernels)
+    main, ctx = main_path(dev, core, runtime, kernels)
+    release()
+    async_path(dev, core, runtime, kernels, ctx, main["images_per_s_engine"])
+    release()
+    served_path(dev, runtime, kernels, ctx)
+    del ctx
     release()
     churn(dev, core, runtime)
     release()

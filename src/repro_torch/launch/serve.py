@@ -1,5 +1,5 @@
-"""Serve launcher on PyTorch: ``--mode delivery`` and ``--mode lm``,
-synchronous.
+"""Serve launcher on PyTorch: ``--mode delivery``, ``--mode lm`` (each
+sync or ``--async``) and ``--mode serve``.
 
 ``--mode delivery`` (default) — the batched multi-tenant delivery engine
 (the paper's data-delivery stage): many tenants register sessions (own
@@ -25,9 +25,31 @@ unmorphs the generations for the provider.
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch rwkv6_3b --smoke --requests 4 --prompt-len 13 --gen 6
 
-Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-asks for the plain versions on the CPU.  ``--async``, ``--mode serve`` and
-``--mole off`` belong to later slices of the port and raise
+``--mode serve`` — the **network front door**
+(``repro_torch.launch.server``): the async delivery engine behind a TCP
+wire protocol (``repro_torch.runtime.wire``), with load shedding, deadline
+propagation, exactly-once retry semantics, graceful drain on SIGTERM, and
+optional network chaos.  Drive it with the client fleet
+(``repro_torch.launch.client``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode serve --port 0 \
+        --tenants 4 --kappa 2 --snapshot-dir /tmp/snap --stats
+    PYTHONPATH=src python -m repro_torch.launch.client --spawn-server \
+        --chaos --requests 64 --report fleet-report.json
+
+``--async`` works in the two **local** modes: traffic goes through the
+async front door (``repro_torch.runtime.async_engine``) — a background
+flusher with a ``--max-delay-ms`` latency SLO and per-tenant admission
+control (``--max-inflight-rows``, ``--admission block|reject``); it
+additionally reports p50/p95 completion latency.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode delivery \
+        --async --tenants 4 --requests 64 --max-delay-ms 5
+
+Flags that only make sense for another mode are an error, not silently
+ignored, as in the reference launcher.  Runs on the card (``--device
+cuda``, the default) unless ``--device cpu`` asks for the plain versions on
+the CPU.  ``--mole off`` belongs to a later slice of the port and raises
 ``NotImplementedError``, as do architectures the port does not run yet;
 the reference's ``--backend`` has no counterpart (the device picks the
 implementation).
@@ -56,8 +78,31 @@ def _priorities_of(args, requests: int) -> list[int]:
     return [ps[r % len(ps)] for r in range(requests)]
 
 
+def _injector_of(args):
+    """--inject-failure <phase> -> a one-shot FailureInjector (or None)."""
+    if not args.inject_failure:
+        return None
+    from repro_torch.runtime import FailureInjector
+
+    return FailureInjector(at_phases={args.inject_failure})
+
+
+def _front_of(args, engine):
+    """The async front door over ``engine`` from the --async flags."""
+    from repro_torch.runtime import AsyncDeliveryEngine
+
+    return AsyncDeliveryEngine(
+        engine, max_delay_ms=args.max_delay_ms,
+        max_inflight_rows=args.max_inflight_rows, admission=args.admission,
+        snapshot_dir=args.snapshot_dir,
+        prefetch_horizon_ms=args.prefetch_horizon_ms,
+        injector=_injector_of(args),
+    )
+
+
 def run_delivery(args) -> dict:
-    """Serve image-delivery traffic for many tenants through the engine."""
+    """Serve image-delivery traffic for many tenants through the engine,
+    synchronously or through the async front door (``--async``)."""
     from repro_torch.core import ConvGeometry, SessionRegistry
     from repro_torch.runtime import (
         DeliveryRequest, EngineStats, MoLeDeliveryEngine,
@@ -87,7 +132,7 @@ def run_delivery(args) -> dict:
             f"tenant-{i % args.tenants}",
             rng.standard_normal((args.batch, geom.alpha, geom.m, geom.m))
             .astype(np.float32),
-            priority=priorities[i],
+            priority=priorities[i], deadline_ms=args.deadline_ms,
         )
         for i in range(args.requests)
     ]
@@ -107,11 +152,20 @@ def run_delivery(args) -> dict:
     engine.stats = EngineStats()
     engine.stats.service_share_fn = engine.scheduler.service_share
 
-    t0 = time.time()
-    rids = [engine.submit(q) for q in requests]
-    engine.flush()
-    feats = {r: engine.take(r) for r in rids}
-    dt_engine = time.time() - t0
+    if args.use_async:
+        front = _front_of(args, engine)
+        t0 = time.time()
+        futures = [(r, front.submit(q)) for r, q in enumerate(requests)]
+        feats = {r: f.result(timeout=120).payload for r, f in futures}
+        dt_engine = time.time() - t0
+        rids = [r for r, _ in futures]
+        front.close()
+    else:
+        t0 = time.time()
+        rids = [engine.submit(q) for q in requests]
+        engine.flush()
+        feats = {r: engine.take(r) for r in rids}
+        dt_engine = time.time() - t0
 
     t0 = time.time()
     base = [per_request(q) for q in requests]
@@ -122,13 +176,25 @@ def run_delivery(args) -> dict:
         float(np.max(np.abs(feats[r] - base[i]))) for i, r in enumerate(rids)
     )
     stats = engine.stats
+    latency = (
+        f"  latency:     p50={stats.p50_ms:7.2f}ms p95={stats.p95_ms:7.2f}ms "
+        f"(SLO max_delay={args.max_delay_ms}ms, {stats.flushes} flushes)\n"
+        if args.use_async else ""
+    )
+    if args.use_async and (args.snapshot_dir or args.inject_failure):
+        latency += (
+            f"  resilience:  snapshots={stats.snapshots} "
+            f"degraded_flushes={stats.degraded_flushes} "
+            f"injected={args.inject_failure or 'none'}\n"
+        )
     print(
         f"delivery tenants={args.tenants} requests={args.requests} "
         f"batch={args.batch} kappa={args.kappa} device={device} "
-        f"async=False\n"
+        f"async={args.use_async}\n"
         f"  engine:      {n_images / dt_engine:9.1f} images/s "
         f"({stats.microbatches} microbatches, "
         f"padding {stats.padding_fraction:.0%})\n"
+        f"{latency}"
         f"  per-request: {n_images / dt_per_request:9.1f} images/s\n"
         f"  speedup:     {dt_per_request / dt_engine:9.2f}x   "
         f"max |engine - per-request| = {err:.2e}"
@@ -137,12 +203,16 @@ def run_delivery(args) -> dict:
         print("engine stats:")
         for line in stats.summary().splitlines():
             print(f"  {line}")
-    return {
+    out = {
         "images_per_s_engine": n_images / dt_engine,
         "images_per_s_per_request": n_images / dt_per_request,
         "speedup": dt_per_request / dt_engine,
         "max_err": err,
     }
+    if args.use_async:
+        out["p50_ms"] = stats.p50_ms
+        out["p95_ms"] = stats.p95_ms
+    return out
 
 
 def run_lm(args, params=None) -> np.ndarray:
@@ -151,7 +221,8 @@ def run_lm(args, params=None) -> np.ndarray:
     Provider side: each LM tenant holds its own secret vocab permutation in
     the shared ``LMSessionRegistry``; prompt requests coalesce into
     length-bucketed token microbatches and morph as slot-indexed gathers
-    (sync flush).  Developer side: the
+    (sync flush, or the async deadline flusher with ``--async``).
+    Developer side: the
     :class:`~repro_torch.runtime.ContinuousDecodeLane` decodes every
     tenant's rows in one shared batched step against the registry's stacked
     AugE tables / Aug-heads.  ``params`` (a :class:`ParamTree` on the
@@ -208,13 +279,23 @@ def run_lm(args, params=None) -> np.ndarray:
     priorities = _priorities_of(args, args.requests)
     prompt_reqs = [
         DeliveryRequest(tenant_of[r], raw_prompts[r : r + 1], lane="tokens",
-                        priority=priorities[r])
+                        priority=priorities[r], deadline_ms=args.deadline_ms)
         for r in range(args.requests)
     ]
     t0 = time.time()
-    rids = [engine.submit(q) for q in prompt_reqs]
-    engine.flush()
-    served_prompts = np.concatenate([engine.take(r) for r in rids], axis=0)
+    if args.use_async:
+        front = _front_of(args, engine)
+        futures = [front.submit(q) for q in prompt_reqs]
+        served_prompts = np.concatenate(
+            [f.result(timeout=120).payload for f in futures], axis=0
+        )
+        front.close()
+    else:
+        rids = [engine.submit(q) for q in prompt_reqs]
+        engine.flush()
+        served_prompts = np.concatenate(
+            [engine.take(r) for r in rids], axis=0
+        )
     dt_morph = time.time() - t0
     stats = engine.stats
 
@@ -238,14 +319,19 @@ def run_lm(args, params=None) -> np.ndarray:
     dt = time.time() - t0
 
     tps = args.requests * args.gen / dt
+    engine_line = (
+        f"  engine morph: {args.requests / max(dt_morph, 1e-9):9.1f} "
+        f"prompts/s ({stats.microbatches} microbatches, "
+        f"padding {stats.padding_fraction:.0%}, async={args.use_async}"
+    )
+    if args.use_async:
+        engine_line += f", p50={stats.p50_ms:.2f}ms p95={stats.p95_ms:.2f}ms"
     # analysis: declassified(demo CLI prints the provider-view generation - unmorphed output data, not key material)
     print(
         f"arch={cfg.name} requests={args.requests} tenants={tenants} "
         f"gen={args.gen} mole=token device={device}  "
         f"{dt:.2f}s  {tps:.1f} tok/s\n"
-        f"  engine morph: {args.requests / max(dt_morph, 1e-9):9.1f} "
-        f"prompts/s ({stats.microbatches} microbatches, "
-        f"padding {stats.padding_fraction:.0%}, async=False)\n"
+        f"{engine_line})\n"
         f"first request generation (provider view): "
         f"{final[0][:12].tolist()}"
     )
@@ -256,53 +342,121 @@ def run_lm(args, params=None) -> np.ndarray:
     return final
 
 
-# Mode gating: flag -> (argparse dest, default, modes that accept it).
-# Giving a flag outside its mode is an error, not a silent drop.
+# Mode gating: CLI spelling -> (argparse dest, default, modes that accept
+# it).  Giving a flag outside its modes is an error, not a silent drop.
+_MODES = ("delivery", "lm", "serve")
 _FLAGS = {
+    # vision geometry: the batched delivery lane (local run or served)
     "--batch": ("batch", 1, ("delivery",)),
-    "--kappa": ("kappa", 1, ("delivery",)),
-    "--channels": ("channels", 3, ("delivery",)),
-    "--out-channels": ("out_channels", 16, ("delivery",)),
-    "--image-size": ("image_size", 16, ("delivery",)),
+    "--kappa": ("kappa", 1, ("delivery", "serve")),
+    "--channels": ("channels", 3, ("delivery", "serve")),
+    "--out-channels": ("out_channels", 16, ("delivery", "serve")),
+    "--image-size": ("image_size", 16, ("delivery", "serve")),
+    # lm-only
     "--arch": ("arch", "deepseek_7b", ("lm",)),
     "--smoke": ("smoke", False, ("lm",)),
     "--prompt-len": ("prompt_len", 32, ("lm",)),
     "--gen": ("gen", 16, ("lm",)),
     "--mole": ("mole", "token", ("lm",)),
+    # delivery engine / async front door (under --mode lm --mole off no
+    # engine runs at all, so these error there too — checked separately)
+    "--tenants": ("tenants", 4, _MODES),
+    "--async": ("use_async", False, ("delivery", "lm")),
+    "--max-delay-ms": ("max_delay_ms", 5.0, _MODES),
+    "--max-inflight-rows": ("max_inflight_rows", 4096, _MODES),
+    "--admission": ("admission", "block", ("delivery", "lm")),
+    "--capacity": ("capacity", None, _MODES),
+    "--stats": ("stats", False, _MODES),
+    "--weights": ("weights", "1", _MODES),
+    "--priority": ("priority", "0", ("delivery", "lm")),
+    "--deadline-ms": ("deadline_ms", None, ("delivery", "lm")),
+    "--snapshot-dir": ("snapshot_dir", None, _MODES),
+    "--inject-failure": ("inject_failure", None, _MODES),
+    "--prefetch-horizon-ms": ("prefetch_horizon_ms", None, _MODES),
+    # serve-only: the network front door (launch/server.py).  serve is
+    # always async (--async errors), always admission=reject (--admission
+    # errors: shedding must be a typed frame, not submitter backpressure),
+    # and per-request priority/deadline arrive on the wire (--priority /
+    # --deadline-ms error).
+    "--host": ("host", "127.0.0.1", ("serve",)),
+    "--port": ("port", 0, ("serve",)),
+    "--max-pending-rows": ("max_pending_rows", 4096, ("serve",)),
+    "--read-timeout-ms": ("read_timeout_ms", 30000.0, ("serve",)),
+    "--write-timeout-ms": ("write_timeout_ms", 10000.0, ("serve",)),
+    "--drain-timeout-ms": ("drain_timeout_ms", 30000.0, ("serve",)),
+    "--warm-batch": ("warm_batch", 8, ("serve",)),
+    "--chaos": ("chaos", False, ("serve",)),
+    "--chaos-rate": ("chaos_rate", 0.2, ("serve",)),
+    "--chaos-seed": ("chaos_seed", 0, ("serve",)),
 }
+# The engine/front-door subset, for the --mode lm --mole off check.
+_ENGINE_FLAGS = (
+    "--tenants", "--async", "--max-delay-ms", "--max-inflight-rows",
+    "--admission", "--capacity", "--stats", "--weights", "--priority",
+    "--deadline-ms", "--snapshot-dir", "--inject-failure",
+    "--prefetch-horizon-ms",
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     """The command line, with mode-gated flags checked and defaulted."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="delivery",
-                    choices=["delivery", "lm", "serve"],
-                    help="delivery and lm are ported; serve raises")
-    ap.add_argument("--async", dest="use_async", action="store_true",
-                    help="the async front door (not ported yet; raises)")
+    ap.add_argument("--mode", default="delivery", choices=list(_MODES),
+                    help="serve = network front door (launch/server.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the engine runs on (default cuda)")
-    ap.add_argument("--tenants", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    # delivery-engine options (every mode, but they require the engine:
+    # error under --mode lm --mole off)
+    ap.add_argument("--tenants", type=int, default=None)
+    ap.add_argument("--async", dest="use_async", action="store_true",
+                    default=None,
+                    help="serve through the async front door (deadline "
+                         "flusher + admission control)")
+    ap.add_argument("--max-delay-ms", type=float, default=None,
+                    help="async latency SLO: max wait before a flush fires")
+    ap.add_argument("--max-inflight-rows", type=int, default=None,
+                    help="async per-tenant admission quota (rows in flight)")
+    ap.add_argument("--admission", default=None, choices=["block", "reject"],
+                    help="over-quota behavior: backpressure or AdmissionError")
     ap.add_argument("--capacity", type=int, default=None,
                     help="registry slot capacity (default: one slot per "
                          "--tenants); tenants beyond capacity LRU-evict to "
                          "host")
-    ap.add_argument("--stats", action="store_true",
+    ap.add_argument("--stats", action="store_true", default=None,
                     help="print the engine stats summary after the run")
-    ap.add_argument("--weights", default="1", metavar="W0,W1,...",
+    ap.add_argument("--weights", default=None, metavar="W0,W1,...",
                     help="per-tenant WFQ weights, cycled over the tenant "
                          "count")
-    ap.add_argument("--priority", default="0", metavar="P0,P1,...",
+    ap.add_argument("--priority", default=None, metavar="P0,P1,...",
                     help="per-request priorities, cycled over the request "
                          "count (higher dequeues first within a tenant)")
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline put on every DeliveryRequest "
+                         "(overrides --max-delay-ms per request; requires "
+                         "--async)")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="persist an engine snapshot between flush rounds "
+                         "for crash recovery (atomic CheckpointManager "
+                         "layout; requires --async)")
+    ap.add_argument("--inject-failure", default=None,
+                    choices=["coalesce", "device", "publish"],
+                    help="crash the flusher once at this flush phase to "
+                         "exercise supervised recovery (requires --async)")
+    ap.add_argument("--prefetch-horizon-ms", type=float, default=None,
+                    help="predictive prefetch: after each flush round the "
+                         "async flusher stages evicted tenants the arrival "
+                         "predictor expects within this horizon (requires "
+                         "--async)")
+    # vision-delivery options
     ap.add_argument("--batch", type=int, default=None,
-                    help="images per delivery request")
+                    help="[delivery] images per delivery request")
     ap.add_argument("--kappa", type=int, default=None)
     ap.add_argument("--channels", type=int, default=None)
     ap.add_argument("--out-channels", type=int, default=None)
     ap.add_argument("--image-size", type=int, default=None)
+    # lm-only options
     ap.add_argument("--arch", default=None, help="--mode lm architecture")
     ap.add_argument("--smoke", action="store_true", default=None,
                     help="--mode lm: the architecture's smoke config")
@@ -310,25 +464,84 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=None,
                     help="--mode lm: tokens generated per request")
     ap.add_argument("--mole", default=None, choices=["off", "token"])
+    # serve-only options (the network front door)
+    ap.add_argument("--host", default=None,
+                    help="[serve] bind address (default 127.0.0.1)")
+    ap.add_argument("--port", type=int, default=None,
+                    help="[serve] TCP port; 0 picks an ephemeral one, "
+                         "printed as 'serving on host:port'")
+    ap.add_argument("--max-pending-rows", type=int, default=None,
+                    help="[serve] global load-shed threshold: admitted-but-"
+                         "uncompleted rows beyond this get a typed "
+                         "OVERLOADED rejection (0 disables)")
+    ap.add_argument("--read-timeout-ms", type=float, default=None,
+                    help="[serve] per-connection read timeout")
+    ap.add_argument("--write-timeout-ms", type=float, default=None,
+                    help="[serve] per-connection write/drain timeout")
+    ap.add_argument("--drain-timeout-ms", type=float, default=None,
+                    help="[serve] graceful-drain budget on SIGTERM")
+    ap.add_argument("--warm-batch", type=int, default=None,
+                    help="[serve] rows per tenant in the warmup flush")
+    ap.add_argument("--chaos", action="store_true", default=None,
+                    help="[serve] arm server-side network chaos: dropped "
+                         "accepts, requests lost after read, truncated/"
+                         "stalled writes")
+    ap.add_argument("--chaos-rate", type=float, default=None,
+                    help="[serve] per-event probability for --chaos")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="[serve] RNG seed for --chaos")
+    # Every None-default flag must belong to the gating table — otherwise a
+    # new flag would silently stay None in every mode.
+    gated = {dest for dest, _, _ in _FLAGS.values()}
+    ungated = {
+        a.dest for a in ap._actions if a.default is None and a.dest != "help"
+    } - gated
+    if ungated:
+        raise RuntimeError(f"flags missing from the mode-gating table: {ungated}")
     args = ap.parse_args(argv)
-    for flag, (dest, default, modes) in _FLAGS.items():
+
+    for flag, (dest, _, modes) in _FLAGS.items():
+        if args.mode not in modes and getattr(args, dest) is not None:
+            ap.error(
+                f"{flag} only applies to --mode {'/'.join(modes)} "
+                f"(got --mode {args.mode})"
+            )
+    if args.mode == "lm" and args.mole == "off":
+        for flag in _ENGINE_FLAGS:
+            if getattr(args, _FLAGS[flag][0]) is not None:
+                ap.error(
+                    f"{flag} requires the delivery engine, which --mole off "
+                    f"disables"
+                )
+    # --deadline-ms arms the async flusher's per-request deadlines; without
+    # --async nothing ever reads it.  Snapshotting, failure injection and
+    # predictive prefetch live in the supervised background flusher, which
+    # the sync path does not have.  (serve is always async.)
+    if args.mode != "serve" and not args.use_async:
+        for flag, what in (
+            ("--deadline-ms", "the deadline flusher"),
+            ("--snapshot-dir", "the supervised flusher"),
+            ("--inject-failure", "the supervised flusher"),
+            ("--prefetch-horizon-ms", "the background flusher's slack"),
+        ):
+            if getattr(args, _FLAGS[flag][0]) is not None:
+                ap.error(f"{flag} requires --async ({what})")
+    if args.chaos is None and (
+        args.chaos_rate is not None or args.chaos_seed is not None
+    ):
+        ap.error("--chaos-rate/--chaos-seed require --chaos")
+    for dest, default, _ in _FLAGS.values():
         if getattr(args, dest) is None:
             setattr(args, dest, default)
-        elif args.mode not in modes:
-            ap.error(f"{flag} does not apply to --mode {args.mode}")
     return args
 
 
 def main(argv=None):
     args = parse_args(argv)
     if args.mode == "serve":
-        raise NotImplementedError(
-            "--mode serve is not ported yet (a later slice of the port)"
-        )
-    if args.use_async:
-        raise NotImplementedError(
-            "--async is not ported yet (the async engine is a later slice)"
-        )
+        from repro_torch.launch.server import run_serve
+
+        return run_serve(args)
     if args.mode == "lm":
         return run_lm(args)
     return run_delivery(args)

@@ -1,20 +1,23 @@
-"""Serving runtime on PyTorch: the synchronous delivery engine (vision and
-LM token lanes) and the continuous-batched decode lane.
+"""Serving runtime on PyTorch: the delivery engine (vision and LM token
+lanes), its async front door and wire codec, and the continuous-batched
+decode lane.
 
-  api         typed front door: DeliveryRequest / DeliveryResult descriptors
-  engine      batched multi-tenant MoLe delivery engine (morph + Aug-Conv;
-              token morph + Aug-Embedding)
-  decode      continuous-batched cross-tenant LM decode (K3 logits)
-  queue       weighted-fair request queue + padded-microbatch coalescing
-              (FairScheduler: the engine-wide WFQ virtual clock; TokenQueue;
-              FairAdmissionQueue for decode admission)
-  prefetch    per-tenant arrival prediction for slot prefetch
-  resilience  failure injection, straggler watch, in-memory engine snapshots
-
-The async engine and the wire protocol of ``repro.runtime`` arrive with
-later slices of the port.
+  api           typed front door: DeliveryRequest / DeliveryResult descriptors
+  engine        batched multi-tenant MoLe delivery engine (morph + Aug-Conv;
+                token morph + Aug-Embedding)
+  async_engine  async front door: deadline flusher, latency SLOs, admission
+  decode        continuous-batched cross-tenant LM decode (K3 logits)
+  queue         weighted-fair request queue + padded-microbatch coalescing
+                (FairScheduler: the engine-wide WFQ virtual clock; TokenQueue;
+                FairAdmissionQueue for decode admission)
+  prefetch      per-tenant arrival prediction for slot prefetch
+  resilience    failure injection (incl. network chaos), straggler watch,
+                engine snapshots
+  wire          length-prefixed frame codec for the network front door
+                (launch/server.py serves it, launch/client.py speaks it)
 """
 from .api import DeliveryRequest, DeliveryResult
+from .async_engine import AdmissionError, AsyncDeliveryEngine, EngineDeadError
 from .decode import ContinuousDecodeLane, DecodeRow
 from .engine import EngineStats, MoLeDeliveryEngine, resolve_device
 from .prefetch import ArrivalPredictor
@@ -25,14 +28,18 @@ from .queue import (
 from .resilience import (
     EngineSnapshot, FailureInjector, SimulatedFailure, StragglerMonitor,
 )
+from .wire import ProtocolError
 
 __all__ = [
+    "AdmissionError",
     "AdmittedSequence",
     "ArrivalPredictor",
+    "AsyncDeliveryEngine",
     "ContinuousDecodeLane",
     "DecodeRow",
     "DeliveryRequest",
     "DeliveryResult",
+    "EngineDeadError",
     "EngineSnapshot",
     "EngineStats",
     "FailureInjector",
@@ -40,6 +47,7 @@ __all__ = [
     "FairScheduler",
     "Microbatch",
     "MoLeDeliveryEngine",
+    "ProtocolError",
     "QueuedRequest",
     "RequestQueue",
     "SimulatedFailure",

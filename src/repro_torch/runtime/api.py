@@ -31,7 +31,7 @@ import numpy as np
 from repro_torch.core.d2r import unroll_batch
 
 __all__ = ["DeliveryRequest", "DeliveryResult", "LANES", "DELIVER_MODES",
-           "normalize"]
+           "admission_rows", "normalize"]
 
 
 LANES = ("rows", "tokens", "features")
@@ -221,3 +221,13 @@ def normalize(request: DeliveryRequest, engine) -> DeliveryRequest:
         )
     payload = _NORMALIZERS[request.lane](engine, request)
     return dataclasses.replace(request, payload=payload)
+
+
+def admission_rows(request: DeliveryRequest) -> int:
+    """Rows a *normalized* request occupies for admission/quota accounting
+    (images for rows, sequences for tokens, positions for features)."""
+    if request.lane == "features":
+        return int(
+            request.payload.reshape(-1, request.payload.shape[-1]).shape[0]
+        )
+    return int(request.payload.shape[0])

@@ -37,6 +37,18 @@ place only while no pending work item holds the stacks, and otherwise
 clones them first.  The rule covers every stack of a plan: the vision
 cores and Aug-Conv matrices and the LM permutations and AugE tables.
 
+**Threads.**  The async front door (``runtime.async_engine``) runs
+``execute_flush`` on its flusher thread outside its lock, while a submitter
+may patch the plan under that lock (``prefetch``).  So ``execute_flush``
+never touches ``holders``: pins are taken by ``begin_flush`` and returned by
+``publish_flush``, both under the front door's lock, where every patch
+decides between writing in place and cloning.  The results are on the host
+by then, so no kernel still reads the stacks.  A round that fails before
+its publish never returns its pins; that costs one clone at the next patch.
+Every launch and every patch goes to the thread's current stream, the
+device's default stream unless a caller set another, so a patch is ordered
+after the kernels queued before it.
+
 Not ported, deliberately: ``_delivery_step_small`` (the reference routes
 tiny microbatches there on its jnp backend only; on the card both steps are
 always the grouped kernels), the ``backend`` switch
@@ -44,7 +56,8 @@ always the grouped kernels), the ``backend`` switch
 and ``sharding.hints.hint`` (a no-op on one device).  The continuous LM
 ``features`` lane belongs to a later slice (its registry raises).
 
-This class is **not** thread-safe.
+This class is **not** thread-safe: the async front door serializes every
+call but ``execute_flush`` under its lock.
 """
 from __future__ import annotations
 
@@ -411,7 +424,7 @@ class _WorkItem:
     """One coalesced microbatch on its way through a phase-split flush.
 
     Each item pins the plan its ``gidx`` was built against (``plan.holders``)
-    until :meth:`MoLeDeliveryEngine.execute_flush` has consumed it.
+    until :meth:`MoLeDeliveryEngine.publish_flush` returns the pin.
     """
 
     lane: str                   # "vision" | "tokens"
@@ -859,33 +872,26 @@ class MoLeDeliveryEngine:
         card runs them back to back; the device phase time includes the
         copies back, which wait for the card.
         """
-        try:
-            if self.injector is not None:
-                self.injector.maybe_fail_phase("device")
-            t0 = time.monotonic()
-            outs = [
-                self._execute(item.mb.x, item.mb.group_tenant, item.plan)
-                if item.lane == "vision" else
-                self._execute_tokens(item.mb.x, item.mb.group_tenant,
-                                     item.want_embed, item.plan)
-                for item in work.items
-            ]
-            for item, out in zip(work.items, outs):
-                if item.lane == "tokens":
-                    morphed, feats = out
-                    item.out = (
-                        morphed.cpu().numpy(),
-                        None if feats is None else feats.cpu().numpy(),
-                    )
-                else:
-                    item.out = out.cpu().numpy()
-            dt_ms = (time.monotonic() - t0) * 1e3
-        finally:
-            # Results are on the host (or the round failed): the stacks are
-            # free to be patched in place again.  Later writes are ordered
-            # after any kernel still queued on the same stream.
-            for item in work.items:
-                item.plan.holders -= 1
+        if self.injector is not None:
+            self.injector.maybe_fail_phase("device")
+        t0 = time.monotonic()
+        outs = [
+            self._execute(item.mb.x, item.mb.group_tenant, item.plan)
+            if item.lane == "vision" else
+            self._execute_tokens(item.mb.x, item.mb.group_tenant,
+                                 item.want_embed, item.plan)
+            for item in work.items
+        ]
+        for item, out in zip(work.items, outs):
+            if item.lane == "tokens":
+                morphed, feats = out
+                item.out = (
+                    morphed.cpu().numpy(),
+                    None if feats is None else feats.cpu().numpy(),
+                )
+            else:
+                item.out = out.cpu().numpy()
+        dt_ms = (time.monotonic() - t0) * 1e3
         self.stats.record_phase_ms("device", dt_ms)
         # Straggler watch: a device phase far above the running EMA flags
         # this flush as degraded.
@@ -898,7 +904,15 @@ class MoLeDeliveryEngine:
 
     def publish_flush(self, work: _FlushWork) -> dict[int, np.ndarray]:
         """Phase 3 (cheap, engine-state-mutating): scatter executed results
-        into per-request buffers and mark completed requests done."""
+        into per-request buffers and mark completed requests done.
+
+        First returns the work items' pins: their results are on the host,
+        so the stacks are free to be patched in place again.  (Here and not
+        in :meth:`execute_flush`, which the async front door runs off its
+        lock: every pin and every patch decision stays under that lock.)
+        """
+        for item in work.items:
+            item.plan.holders -= 1
         # Injected *before* any scatter: publish is all-or-nothing per
         # round, so recovery never sees a half-published flush.
         if self.injector is not None:

@@ -10,10 +10,11 @@ front doors of later slices.
 ``StragglerMonitor`` flags flushes whose device phase runs far above the
 running EMA.
 
-``EngineSnapshot`` is the engine's in-memory crash image: the registry's
-secrets + in-flight request accounting as ``(arrays, meta)``.
-``ResilientLoop`` and persistence through ``CheckpointManager`` arrive with
-a later slice.
+``EngineSnapshot`` is the engine's crash image: the registry's secrets +
+in-flight request accounting as ``(arrays, meta)``, persisted through
+:class:`repro_torch.checkpoint.CheckpointManager` in the reference's
+layout.  ``ResilientLoop`` (the training loop's checkpoint/restart) arrives
+with the training slice.
 """
 from __future__ import annotations
 
@@ -115,9 +116,19 @@ class EngineSnapshot:
     """A delivery engine's crash-recovery image: flat named host arrays
     (registry secrets + in-flight payloads) and a JSON-able ``meta`` tree
     (slot bookkeeping + request descriptors).  Produced by
-    ``MoLeDeliveryEngine.snapshot()`` and consumed by ``restore()``.  The
-    port keeps it in memory; persistence through a checkpoint manager
-    arrives with a later slice."""
+    ``MoLeDeliveryEngine.snapshot()`` and persisted through
+    :class:`repro_torch.checkpoint.CheckpointManager`'s atomic tmp-dir +
+    rename protocol."""
 
     arrays: dict[str, np.ndarray]
     meta: dict
+
+    def save(self, ckpt, step: int) -> None:
+        """Persist through ``ckpt`` (a CheckpointManager) as step ``step``."""
+        ckpt.save(step, dict(self.arrays), extra=self.meta)
+
+    @classmethod
+    def load(cls, ckpt, step: int | None = None) -> "EngineSnapshot":
+        """Load the latest (or a specific) persisted snapshot."""
+        arrays, meta = ckpt.load(step)
+        return cls(arrays=arrays, meta=meta)

@@ -249,6 +249,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.kernels.block_diag", "repro_torch.kernels.aug_gemm",
             "repro_torch.kernels.gemm", "repro_torch.models.cnn"} <= set(mods)
     assert {"repro_torch.kernels.wkv6", "repro_torch.configs.rwkv6_3b"} <= set(mods)
+    assert {"repro_torch.checkpoint.manager", "repro_torch.runtime.async_engine",
+            "repro_torch.runtime.wire", "repro_torch.launch.server",
+            "repro_torch.launch.client"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
