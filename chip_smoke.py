@@ -71,6 +71,29 @@ printing one JSON line; any failure raises and exits non-zero:
                 are evicted inside one flush round and the engine's
                 copy-on-write of the secret stacks runs; every result must
                 match per-request delivery.
+ 4a. features_path the continuous LM lane (``lane="features"``) of
+                ``MoLeDeliveryEngine`` at Llama-3.2-Vision-90B's frontend
+                width: d_in 7680 (the stubbed vision tower's patch width)
+                to d_model 8192, vocab 128256, kappa 1.  4 tenants in 4
+                slots, each with its own W_in (7680, 8192) and one shared
+                (128256, 8192) embedding; a warm round, then 2 timed rounds
+                of 8 patch streams (1, 1024, 7680) through the default
+                buckets, so K1 runs at x (4, 64, 7680) x cores (4, 7680,
+                7680) and K2 at (4, 64, 7680) x (4, 7680, 8192).  Gated:
+                every rid resolves once with shape (1, 1024, 8192); each
+                output within 1e-5 * max of per-request
+                ``LMSession.deliver_features`` on the card; each output of
+                both rounds within 3 sqrt(d_in) 2^-24 * max of x @ W_in
+                in float64 (the unfuse property; FEAT_UNFUSE_REL says
+                why); K1 and K2 launched once per microbatch, no other
+                kernel.  At these shapes, on the engine's own stacks, K1
+                and K2 against their plain versions (1e-4 * max) and K2
+                against float64 (1e-5 * max), with their device time in
+                CUDA graphs, the plain version's, torch.bmm's and the
+                bound.  Printed: positions/s from submit to take, the
+                coalesce/device/publish p50, the host secret build (an
+                fp64 QR of 7680^2 and the fusion per tenant) timed apart,
+                and the peak device memory.
   5. kernels_k3 the decode-logits kernel (``grouped_row_gemm``, K3) against
                 its plain version at the LM path's shape: h (4, 4096) in
                 bf16 and fp32 against tables (6, 4096, 102400) fp32, every
@@ -231,6 +254,24 @@ SNAPSHOT_BACKLOG = 64           # requests persisted pending and restored
 SERVED_REQUESTS, SERVED_CLIENTS = 256, 16
 SERVED_CHAOS_RATE = 0.2         # serve --chaos's default rate
 CHURN_GEOM = dict(alpha=3, beta=16, m=16, p=3)
+# features_path: Llama-3.2-Vision-90B's frontend as the reference configures
+# it (src/repro/configs/llama32_vision_90b.py: FrontendCfg d_in=7680,
+# n_tokens=1024; d_model 8192; vocab 128256), kappa = 1 (q = 7680).  One
+# request is one image's patch stream (1, 1024, 7680).
+FEAT_ARCH = "llama32_vision_90b"
+FEAT_D_IN, FEAT_D_OUT, FEAT_VOCAB, FEAT_POSITIONS = 7680, 8192, 128256, 1024
+FEAT_TENANTS, FEAT_REQUESTS, FEAT_ROUNDS = 4, 8, 2
+# The unfuse gate: three fp32 products of depth d_in lie between x and the
+# delivered x @ W_in (the host's fusion M^-1 W_in, the morph K1, the
+# projection K2 in split TF32, whose error is below fp32's: err_vs_fp64).  A
+# depth-n fp32 dot product with round-to-nearest errs by about sqrt(n) u of
+# the scale of its terms (u = 2^-24; Higham and Mary's probabilistic bound),
+# and with an orthogonal core and W_in ~ N(0, 1/d_in) every product's terms
+# are of the output's scale, so the three stay under
+# 3 sqrt(d_in) u max|x W_in| (1.57e-5 of the max at d_in = 7680).
+FP32_UNIT_ROUNDOFF = 2.0 ** -24
+FEAT_UNFUSE_REL = 3 * FEAT_D_IN ** 0.5 * FP32_UNIT_ROUNDOFF
+FEAT_REL_TOL = 1e-5             # the engine against per-request delivery
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 # H100 SXM TF32 dense tensor cores.  K2 and K5 in fp32 run three TF32 passes
@@ -1603,6 +1644,199 @@ def churn(dev, core, runtime) -> None:
           "evictions": reg.evictions, "max_err_vs_per_request": worst})
 
 
+# -- phase 4a -----------------------------------------------------------------
+
+def features_kernels(kernels, ref, x, cores, projs) -> dict:
+    """K1 and K2 at the features lane's shapes, on the engine's own stacks
+    and one microbatch of the patch streams (gidx = arange(4)): each held
+    against its plain version at REL_TOL, K2 also against float64
+    (``err_vs_fp64``); device time in CUDA graphs (``graph_ms``), the plain
+    version's and torch.bmm's (over the stack, which is the gathered
+    weights for this gidx) by CUDA events, and the bound of each."""
+    G, B, F = x.shape
+    q, N = cores.shape[-1], projs.shape[-1]
+    ident = torch.arange(G, dtype=torch.int32, device=x.device)
+    out = {}
+    for name, run, plain, library, n_bytes, flops, tag in (
+        ("k1", lambda: kernels.grouped_block_diag_matmul(x, ident, cores, 1),
+         lambda: ref.block_diag_matmul_grouped_ref(x, ident, cores, 1),
+         lambda: torch.bmm(x, cores), 4 * (2 * G * B * F + G * q * q + G),
+         2 * G * B * F * q,
+         f"x({G},{B},{F}) cores({G},{q},{q}) kappa=1 gidx=arange({G})"),
+        ("k2", lambda: kernels.grouped_aug_gemm(x, ident, projs),
+         lambda: ref.aug_gemm_grouped_ref(x, ident, projs),
+         lambda: torch.bmm(x, projs), 4 * (G * B * F + G * F * N + G * B * N + G),
+         2 * G * B * F * N,
+         f"t({G},{B},{F}) projs({G},{F},{N}) gidx=arange({G})"),
+    ):
+        got, want = run(), plain()
+        err = float((got - want).abs().max())
+        lim = REL_TOL * float(want.abs().max())
+        check(bool(torch.isfinite(got).all()), f"features {name}: non-finite")
+        check(err <= lim, f"features {name}: |kernel - plain| {err} > {lim}")
+        row = {"shape": tag, "max_abs_err": err, "limit": lim,
+               "graph_ms": graph_ms(run, 5, 10),
+               "plain_ms": cuda_ms(plain, 10),
+               "library_ms": cuda_ms(library, 10)}
+        if name == "k1":
+            b, by = bound_ms(n_bytes, flops)
+            row.update(bound_ms=b, bound_by=by)
+        else:
+            row.update(split_tf32_bound(n_bytes, flops))
+            row["err_vs_fp64"] = err_vs_fp64("features k2", x, projs, got,
+                                             library())
+        out[name] = row
+        del got, want
+    return out
+
+
+def features_path(dev, core, runtime, kernels, ref) -> dict:
+    """The continuous LM lane at Llama-3.2-Vision-90B's frontend width
+    through ``MoLeDeliveryEngine``: FEAT_TENANTS tenants, each with its own
+    (d_in, d_out) W_in, FEAT_ROUNDS timed rounds of FEAT_REQUESTS patch
+    streams after a warm round, through the default buckets (max_rows 64:
+    one (4, 64, 7680) microbatch holds 64 positions of each tenant)."""
+    t_phase = time.monotonic()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def host_randn(*shape, scale=1.0):
+        """Seeded normals drawn on the card in bulk, handed over as numpy."""
+        return (torch.randn(shape, generator=gen, device=dev) * scale).cpu().numpy()
+
+    # One (V, d_model) embedding shared by every tenant: register needs it,
+    # no token request asks for it, so its AugE stack is never staged.
+    t0 = time.monotonic()
+    embedding = host_randn(FEAT_VOCAB, FEAT_D_OUT)
+    w_ins = [host_randn(FEAT_D_IN, FEAT_D_OUT, scale=FEAT_D_IN ** -0.5)
+             for _ in range(FEAT_TENANTS)]
+    requests = [
+        runtime.DeliveryRequest(f"tenant-{i % FEAT_TENANTS}",
+                                host_randn(1, FEAT_POSITIONS, FEAT_D_IN),
+                                lane="features")
+        for i in range(FEAT_REQUESTS)
+    ]
+    inputs_s = time.monotonic() - t0
+    # The peak covers registration, staging, the rounds and the checks, not
+    # the generator that drew the inputs on the card.
+    torch.cuda.reset_peak_memory_stats()
+    reg = core.LMSessionRegistry(FEAT_VOCAB, FEAT_D_OUT, d_in=FEAT_D_IN,
+                                 d_out=FEAT_D_OUT, kappa=1,
+                                 capacity=FEAT_TENANTS)
+    # The host secret build alone: an fp64 QR of d_in^2 and the fp32 fusion
+    # M^-1 W_in per tenant.
+    t0 = time.monotonic()
+    for i, w in enumerate(w_ins):
+        reg.register(f"tenant-{i}", embedding, w_in=w, seed=SEED + 50 + i)
+    secrets_s = time.monotonic() - t0
+    engine = runtime.MoLeDeliveryEngine(lm_registry=reg, device=dev)
+
+    # Warm round: stages the (S, q, q) cores and (S, d_in, d_out) projections.
+    t0 = time.monotonic()
+    rids = [engine.submit(q) for q in requests]
+    engine.flush()
+    for rid in rids:
+        engine.take(rid)
+    warm_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    base = [reg.session(q.tenant_id).deliver_features(
+                torch.from_numpy(q.payload).to(dev)).cpu().numpy()
+            for q in requests]
+    per_request_s = time.monotonic() - t0
+    engine.stats = runtime.EngineStats()
+    reset_launches(kernels)
+    round_s, outs = [], []
+    for _ in range(FEAT_ROUNDS):
+        t0 = time.monotonic()
+        rids = [engine.submit(q) for q in requests]
+        done = engine.flush()
+        results = [engine.take_result(r) for r in rids]
+        round_s.append(time.monotonic() - t0)
+        check(len(set(rids)) == len(rids) and sorted(done) == sorted(rids),
+              f"features_path: {len(done)} of {len(rids)} rids resolved")
+        outs.append([r.payload for r in results])
+        try:
+            engine.take(rids[0])
+        except KeyError:
+            pass
+        else:
+            raise SmokeFailure("features_path: a rid redeemable twice")
+    counts = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    launches = {n: counts.pop(n) for n in ("grouped_block_diag_matmul",
+                                           "grouped_aug_gemm")}
+    stats = engine.stats
+    n_mb = stats.microbatches
+    check(n_mb > 0 and all(n == n_mb for n in launches.values()),
+          f"features_path: {launches} launches for {n_mb} microbatches")
+    check(not any(counts.values()),
+          f"features_path launched other kernels: {counts}")
+    check(not engine._results and not engine._done
+          and engine.pending_rows == 0, "features_path: results left behind")
+
+    shape = (1, FEAT_POSITIONS, FEAT_D_OUT)
+    worst_rel = 0.0
+    for got_round in outs:
+        for got, want in zip(got_round, base):
+            check(got.shape == shape and bool(np.isfinite(got).all()),
+                  f"features_path: output {got.shape}, expected {shape}")
+            rel = float(np.abs(got - want).max()) / float(np.abs(want).max())
+            check(rel <= FEAT_REL_TOL,
+                  f"features_path: engine vs per-request {rel} > {FEAT_REL_TOL}")
+            worst_rel = max(worst_rel, rel)
+    # Unfuse: every delivery against x @ W_in in float64 on the card.
+    t0 = time.monotonic()
+    unfuse_rel = 0.0
+    for i, w in enumerate(w_ins):
+        w = torch.from_numpy(w).to(dev).double()
+        for j, q in enumerate(requests):
+            if q.tenant_id != f"tenant-{i}":
+                continue
+            want = torch.matmul(torch.from_numpy(q.payload).to(dev).double(), w)
+            scale = float(want.abs().max())
+            for got_round in outs:
+                got = torch.from_numpy(got_round[j]).to(dev).double()
+                rel = float((got - want).abs().max()) / scale
+                check(rel <= FEAT_UNFUSE_REL, f"features_path: |delivered - "
+                      f"x W_in| {rel} > {FEAT_UNFUSE_REL} of the max")
+                unfuse_rel = max(unfuse_rel, rel)
+    del w, want, got
+    checks_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    plan = engine._lm_plan
+    x = torch.from_numpy(np.concatenate(
+        [q.payload[0, :64] for q in requests[:FEAT_TENANTS]])).to(dev).view(
+            FEAT_TENANTS, 64, FEAT_D_IN)
+    t0 = time.monotonic()
+    kernel_rows = features_kernels(kernels, ref, x, plan.arrays["embed_cores"],
+                                   plan.arrays["aug_projs"])
+    kernels_s = time.monotonic() - t0
+    positions = FEAT_REQUESTS * FEAT_POSITIONS
+    out = {
+        "phase": "features_path", "arch": FEAT_ARCH, "d_in": FEAT_D_IN,
+        "d_out": FEAT_D_OUT, "vocab": FEAT_VOCAB, "kappa": 1, "q": FEAT_D_IN,
+        "tenants": FEAT_TENANTS, "capacity": reg.capacity,
+        "requests_per_round": FEAT_REQUESTS,
+        "positions_per_request": FEAT_POSITIONS, "rounds": FEAT_ROUNDS,
+        "microbatches": n_mb, "max_rows": engine.max_rows,
+        "bucket_shapes": sorted(stats.bucket_shapes), "launches": launches,
+        "positions_per_s_submit_to_take": [positions / t for t in round_s],
+        "round_s": round_s,
+        "coalesce_phase_p50_ms": stats.phase_quantile_ms("coalesce", 0.5),
+        "device_phase_p50_ms": stats.phase_quantile_ms("device", 0.5),
+        "publish_phase_p50_ms": stats.phase_quantile_ms("publish", 0.5),
+        "max_rel_err_vs_per_request": worst_rel, "limit_rel": FEAT_REL_TOL,
+        "unfuse_rel_err_vs_fp64": unfuse_rel,
+        "unfuse_limit_rel": FEAT_UNFUSE_REL,
+        "k1": kernel_rows["k1"], "k2": kernel_rows["k2"],
+        "host_inputs_s": inputs_s, "host_secret_build_s": secrets_s,
+        "warm_round_s": warm_s, "per_request_s": per_request_s,
+        "unfuse_check_s": checks_s, "kernel_checks_s": kernels_s,
+        "phase_s": time.monotonic() - t_phase, "peak_mem_gb": peak_gb,
+    }
+    emit(out)
+    return out
+
+
 # -- phase 7 ------------------------------------------------------------------
 
 def k45_checks(dev, kernels, ref) -> dict:
@@ -1948,6 +2182,8 @@ def main() -> None:
     del ctx
     release()
     churn(dev, core, runtime)
+    release()
+    features_path(dev, core, runtime, kernels, ref)
     release()
     rows["grouped_row_gemm"] = k3_checks(dev, kernels, ref)
     release()

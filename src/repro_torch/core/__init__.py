@@ -7,8 +7,11 @@ Modules (ported from ``repro.core``):
   security   attack-probability calculators (paper §4.2, log-space)
   overhead   compute/transmission overhead models (paper §4.3, eqs. 16-17)
   protocol   provider/developer roles end-to-end (paper Fig. 1), vision half
-  lm         MoLe for LMs, discrete (token) mode: vocab-permutation morphing,
-             fused Aug-Embedding / Aug-head, the LM session registry
+  lm         MoLe for LMs: discrete (token) mode — vocab-permutation
+             morphing, fused Aug-Embedding / Aug-head — and continuous
+             (embedding) mode — block-diagonal feature morphing, fused
+             Aug-projection; the LM session registry
+  deploy     fuse_lm_params: provider secrets fused into a params dict
 """
 from .d2r import (
     ConvGeometry,
@@ -31,12 +34,15 @@ from .aug_conv import (
 from .security import MoLeSecurity, analyze as analyze_security
 from .overhead import OverheadReport, analyze as analyze_overhead
 from .lm import (
+    EmbeddingMorpher,
     LMSession,
     LMSessionRegistry,
     TokenMorpher,
     fuse_aug_embedding,
     fuse_aug_head,
+    fuse_aug_projection,
 )
+from .deploy import fuse_lm_params
 from .protocol import (
     DataProvider,
     Developer,
@@ -55,6 +61,7 @@ __all__ = [
     "OverheadReport", "analyze_overhead",
     "DataProvider", "Developer", "MoLeSession", "SessionRegistry",
     "SlotRegistry",
-    "LMSession", "LMSessionRegistry", "TokenMorpher", "fuse_aug_embedding",
-    "fuse_aug_head",
+    "LMSession", "LMSessionRegistry", "TokenMorpher", "EmbeddingMorpher",
+    "fuse_aug_embedding", "fuse_aug_head", "fuse_aug_projection",
+    "fuse_lm_params",
 ]

@@ -1,20 +1,27 @@
-"""MoLe for LM-family architectures on PyTorch: the discrete (token) mode.
+"""MoLe for LM-family architectures on PyTorch.
 
-Ported from ``repro.core.lm``.  The provider ships ``pi(tokens)`` for a
+Ported from ``repro.core.lm``.  Two delivery modes, both first-layer-only:
+
+**Discrete (token) morphing.**  The provider ships ``pi(tokens)`` for a
 secret vocabulary permutation ``pi``; the developer's Aug-Embedding is the
 table with ``pi`` pre-composed (``AugE[pi(v)] == E[v]``) and the fused LM
 head emits logits in morphed vocab order.  Both fusions are gathers and stay
 gathers (numpy on the host: the registry stages the fused tables on the
 device one slot at a time).
 
-Secrets are numpy-RNG-derived exactly as in the reference
-(``np.random.default_rng(seed).permutation(vocab)``), and
-``LMSessionRegistry.restore_state`` accepts the reference registry's
-``snapshot_state``, so both packages serve byte-equal secrets.
+**Continuous (embedding / frontend) morphing.**  For per-position features
+(VLM patch embeddings, audio frames) the paper's scheme applies verbatim
+with ``m^2 -> 1``, ``alpha -> d_in``: a block-diagonal ``M`` over the
+feature dim, and ``AugProj = M^{-1} W_in`` (optionally ``P_out``-permuted)
+fused into the input projection.
 
-The continuous (embedding / frontend) mode — ``EmbeddingMorpher`` and
-``fuse_aug_projection``, the registry's ``d_in``/``w_in`` lane — is not
-ported yet: asking for it raises ``NotImplementedError``.
+Secrets are numpy-RNG-derived exactly as in the reference
+(``np.random.default_rng(seed).permutation(vocab)``; the continuous core
+from the domain-separated seed ``SeedSequence([seed, 1])``), and
+``LMSessionRegistry.restore_state`` accepts the reference registry's
+``snapshot_state``, so both packages serve byte-equal secrets.  The fused
+projection is computed in torch fp32 (the reference sums in jnp fp32), so it
+agrees with the reference's to fp32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -23,21 +30,19 @@ import dataclasses
 import numpy as np
 import torch
 
-from .protocol import SlotRegistry
+from .morphing import MorphCore, make_core, morph
+from .protocol import SlotRegistry, _resident
 from .redact import describe_array
 
 __all__ = [
     "TokenMorpher",
+    "EmbeddingMorpher",
     "LMSession",
     "LMSessionRegistry",
     "fuse_aug_embedding",
     "fuse_aug_head",
+    "fuse_aug_projection",
 ]
-
-_FEATURES_LATER = (
-    "the continuous (features) LM lane — EmbeddingMorpher, "
-    "fuse_aug_projection, d_in/w_in — is not ported yet (a later slice)"
-)
 
 
 @dataclasses.dataclass
@@ -74,42 +79,111 @@ class TokenMorpher:
         return torch.from_numpy(self.inv_perm).to(tokens.device)[tokens]
 
 
-def fuse_aug_embedding(embedding: np.ndarray,
-                       morpher: TokenMorpher) -> np.ndarray:
+def fuse_aug_embedding(embedding, morpher: TokenMorpher):
     """Developer-facing Aug-Embedding table: row ``pi(v)`` holds ``E[v]``.
 
     ``AugE[morph(tokens)] == E[tokens]`` — exact equivalence, the discrete
-    analogue of paper eq. (5).
+    analogue of paper eq. (5).  ``embedding``: a (V, d) numpy array or
+    tensor; the result is of the same kind.
     """
-    return np.asarray(embedding)[morpher.inv_perm]
+    if not isinstance(embedding, torch.Tensor):
+        embedding = np.asarray(embedding)
+    return embedding[morpher.inv_perm]
 
 
-def fuse_aug_head(head: np.ndarray, morpher: TokenMorpher) -> np.ndarray:
+def fuse_aug_head(head, morpher: TokenMorpher):
     """LM-head fused so logits come out in *morphed* vocab order.
 
-    ``head``: (d_model, V); column ``pi(v)`` of the result is column ``v``.
+    ``head``: (d_model, V) numpy array or tensor; column ``pi(v)`` of the
+    result is column ``v``.
     """
+    if isinstance(head, torch.Tensor):
+        return head[:, morpher.inv_perm]
+    # np.take keeps the result C-contiguous (head[:, idx] would not).
     return np.take(np.asarray(head), morpher.inv_perm, axis=1)
+
+
+@dataclasses.dataclass
+class EmbeddingMorpher:
+    """Provider-side continuous morphing over a per-position feature dim."""
+
+    core: MorphCore
+    out_perm: np.ndarray | None  # secret permutation of d_model outputs
+    _core_on: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )                            # device -> core tensor
+
+    @classmethod
+    def create(
+        cls,
+        seed: int,
+        d_in: int,
+        kappa: int,
+        d_out: int | None = None,
+        core_mode: str = "orthogonal",
+    ) -> "EmbeddingMorpher":
+        rng = np.random.default_rng(seed)
+        core = make_core(rng, d_in, kappa, mode=core_mode)
+        perm = rng.permutation(d_out) if d_out is not None else None
+        return cls(core=core, out_perm=perm)
+
+    def morph_features(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., d_in) -> morphed (..., d_in) on ``x``'s device; eq. 2 with
+        m^2 = 1, alpha = d_in (the core is copied to a device once)."""
+        core = _resident(self._core_on, self.core.matrix, x.device)
+        return morph(x, core, self.core.kappa)
+
+    def __repr__(self) -> str:
+        # Redacted: MorphCore repr is itself redacted; out_perm is secret.
+        return (
+            f"EmbeddingMorpher(core={self.core!r}, "
+            f"out_perm={describe_array(self.out_perm)})"
+        )
+
+
+def fuse_aug_projection(w_in: torch.Tensor,
+                        morpher: EmbeddingMorpher) -> torch.Tensor:
+    """``AugProj = M^{-1} @ W_in @ P_out`` — the LM Aug-Conv analogue.
+
+    ``w_in``: (d_in, d_out) tensor; the product runs in ``w_in``'s dtype on
+    its device.  For morphed features ``t``:
+    ``t @ AugProj == (x @ W_in)[..., perm]`` up to rounding.
+    """
+    q, kappa = morpher.core.q, morpher.core.kappa
+    d_in, d_out = w_in.shape
+    inv = torch.as_tensor(morpher.core.inverse, dtype=w_in.dtype,
+                          device=w_in.device)
+    fused = torch.matmul(inv, w_in.reshape(kappa, q, d_out)).reshape(d_in, d_out)
+    if morpher.out_perm is not None:
+        fused = fused[:, morpher.out_perm]
+    return fused
 
 
 @dataclasses.dataclass
 class LMSession:
     """One LM tenant's provider/developer pair for the delivery engine.
 
-    The provider holds the secret ``morpher``; the developer-facing
-    artifacts are the fused ``aug_embedding`` and ``aug_head``, both fused
-    **lazily** (cached on first access): token morphing alone never touches
-    the (V, d_model) tables, and at production vocab sizes each fused copy
-    is the dominant host cost.
+    The provider holds the secrets (``morpher`` and, when the registry has a
+    continuous lane, ``embed_morpher``); the developer-facing artifacts are
+    the fused ``aug_embedding`` and ``aug_head`` and, continuously, the fused
+    ``aug_projection`` (``morph(x) @ AugProj == x @ W_in``).  The first two
+    are fused **lazily** (cached on first access): token morphing alone
+    never touches the (V, d_model) tables, and at production vocab sizes
+    each fused copy is the dominant host cost.
     """
 
     morpher: TokenMorpher
     embedding: np.ndarray                          # (V, d_model) dev table
+    embed_morpher: EmbeddingMorpher | None = None
+    aug_projection: np.ndarray | None = None       # (d_in, d_out)
     head: np.ndarray | None = None                 # (d_model, V) untied head
     _aug_embedding: np.ndarray | None = dataclasses.field(
         default=None, repr=False
     )
     _aug_head: np.ndarray | None = dataclasses.field(default=None, repr=False)
+    _proj_on: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )                                              # device -> AugProj tensor
 
     @property
     def aug_embedding(self) -> np.ndarray:
@@ -145,25 +219,38 @@ class LMSession:
         table = torch.from_numpy(self.aug_embedding).to(tokens.device)
         return table[self.morph_tokens(tokens)]
 
+    def deliver_features(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-request continuous path on ``x``'s device: morph the
+        features, then one ``torch.matmul`` with the fused projection."""
+        if self.embed_morpher is None:
+            raise ValueError("session has no continuous (embedding) lane")
+        proj = _resident(self._proj_on, self.aug_projection, x.device)
+        return torch.matmul(self.embed_morpher.morph_features(x), proj)
+
     def __repr__(self) -> str:
         # Redacted: every array here is a tenant secret or fused from one.
         return (
             f"LMSession(morpher={self.morpher!r}, "
             f"embedding={describe_array(self.embedding)}, "
+            f"embed_morpher={self.embed_morpher!r}, "
+            f"aug_projection={describe_array(self.aug_projection)}, "
             f"head={describe_array(self.head)})"
         )
 
 
 class LMSessionRegistry(SlotRegistry):
-    """Provider-side registry of per-tenant LM-MoLe sessions (token mode).
+    """Provider-side registry of per-tenant LM-MoLe sessions.
 
-    All tenants share one ``vocab`` / ``d_model``, which makes their secrets
-    stackable into dense slot-indexed arrays the engine and the decode lane
-    index per group or row:
+    All tenants share one ``vocab`` / ``d_model`` (and, when the continuous
+    lane is enabled, one ``d_in`` / ``d_out`` / ``kappa``), which makes their
+    secrets stackable into dense slot-indexed arrays the engine and the
+    decode lane index per group or row:
 
       * ``slot_perm``           (V,) int32        per-slot token morph
       * ``slot_aug_embedding``  (V, d_model)      per-slot AugE table
       * ``slot_aug_head``       (d_model, V)      per-slot fused LM head
+      * ``slot_embed_core``     (q, q)            continuous morph core
+      * ``slot_aug_projection`` (d_in, d_out)     fused input projection
 
     Slot churn (LRU eviction, ``updates_since``) is inherited from
     :class:`SlotRegistry`, the reference's code.
@@ -181,14 +268,21 @@ class LMSessionRegistry(SlotRegistry):
         capacity: int | None = None,
     ):
         super().__init__(capacity)
-        if d_in is not None or d_out is not None:
-            raise NotImplementedError(_FEATURES_LATER)
+        if (d_in is None) != (d_out is None):
+            raise ValueError("d_in and d_out must be given together")
+        if d_in is not None and d_in % kappa:
+            raise ValueError(f"kappa={kappa} must divide d_in={d_in}")
         self.vocab = int(vocab)
         self.d_model = int(d_model)
-        self.d_in = None
-        self.d_out = None
+        self.d_in = d_in
+        self.d_out = d_out
         self.kappa = kappa
         self.core_mode = core_mode
+
+    @property
+    def has_embed_lane(self) -> bool:
+        """Whether tenants also carry continuous (embedding-MoLe) secrets."""
+        return self.d_in is not None
 
     def register(
         self,
@@ -199,15 +293,15 @@ class LMSessionRegistry(SlotRegistry):
         weight: float = 1.0,
         head: np.ndarray | None = None,
     ) -> LMSession:
-        """Create an LM tenant with a fresh vocab permutation.
+        """Create an LM tenant: a fresh vocab permutation and, with a
+        continuous lane, a fresh morph core and its fused projection.
 
-        ``embedding`` is the developer's (V, d_model) table; ``head`` the
-        (d_model, V) output projection of an *untied* checkpoint (omitted:
-        the tenant decodes with the tied head ``AugE.T``).  ``weight`` is
-        the tenant's weighted-fair-queueing share.
+        ``embedding`` is the developer's (V, d_model) table; ``w_in`` its
+        (d_in, d_out) continuous-lane analogue; ``head`` the (d_model, V)
+        output projection of an *untied* checkpoint (omitted: the tenant
+        decodes with the tied head ``AugE.T``).  ``weight`` is the tenant's
+        weighted-fair-queueing share.
         """
-        if w_in is not None:
-            raise NotImplementedError(_FEATURES_LATER)
         embedding = np.asarray(embedding, np.float32)
         if embedding.shape != (self.vocab, self.d_model):
             raise ValueError(
@@ -222,9 +316,39 @@ class LMSessionRegistry(SlotRegistry):
                     f"got {head.shape}"
                 )
         seed = self._resolve_seed(seed)
+        morpher = TokenMorpher.create(seed, self.vocab)
+        embed_morpher = aug_projection = None
+        if self.has_embed_lane:
+            if w_in is None:
+                raise ValueError(
+                    "registry has a continuous lane; pass w_in (d_in, d_out)"
+                )
+            w_in = np.asarray(w_in, np.float32)
+            if w_in.shape != (self.d_in, self.d_out):
+                raise ValueError(
+                    f"expected w_in ({self.d_in}, {self.d_out}), got {w_in.shape}"
+                )
+            # Serving mode (no output permutation): delivered features equal
+            # the plain forward.  Domain-separated seed: recovering the vocab
+            # permutation (a substitution cipher) must not let an attacker
+            # regenerate the continuous lane's core from the same rng stream.
+            embed_seed = int(
+                np.random.SeedSequence([seed, 1]).generate_state(1)[0]
+            )
+            embed_morpher = EmbeddingMorpher.create(
+                embed_seed, self.d_in, self.kappa, d_out=None,
+                core_mode=self.core_mode,
+            )
+            aug_projection = fuse_aug_projection(
+                torch.from_numpy(np.require(w_in, requirements=("C", "W"))),
+                embed_morpher,
+            ).numpy()
+        elif w_in is not None:
+            raise ValueError("w_in given but the registry has no continuous lane")
         sess = LMSession(
-            morpher=TokenMorpher.create(seed, self.vocab),
-            embedding=embedding, head=head,
+            morpher=morpher, embedding=embedding,
+            embed_morpher=embed_morpher, aug_projection=aug_projection,
+            head=head,
         )
         self._adopt(tenant_id, sess)
         if weight != 1.0:
@@ -252,22 +376,40 @@ class LMSessionRegistry(SlotRegistry):
         }
         if sess.head is not None:
             arrays["head"] = np.asarray(sess.head)
+        if sess.embed_morpher is not None:
+            arrays["embed_core"] = np.asarray(sess.embed_morpher.core.matrix)
+            arrays["embed_core_inv"] = np.asarray(sess.embed_morpher.core.inverse)
+            arrays["aug_projection"] = np.asarray(sess.aug_projection)
+            if sess.embed_morpher.out_perm is not None:
+                arrays["embed_out_perm"] = np.asarray(sess.embed_morpher.out_perm)
         # analysis: declassified(per-session crash state: packed into the registry snapshot, never serialized elsewhere)
         return {"has_head": sess.head is not None}, arrays
 
     def _session_from_state(
         self, meta: dict, arrays: dict[str, np.ndarray]
     ) -> LMSession:
-        if "embed_core" in arrays:
-            raise NotImplementedError(_FEATURES_LATER)
         perm = np.asarray(arrays["perm"])
         inv = np.empty_like(perm)
         inv[perm] = np.arange(perm.shape[0])
+        embed_morpher = aug_projection = None
+        if "embed_core" in arrays:
+            embed_morpher = EmbeddingMorpher(
+                core=MorphCore(
+                    matrix=np.asarray(arrays["embed_core"], np.float32),
+                    inverse=np.asarray(arrays["embed_core_inv"], np.float32),
+                    kappa=self.kappa,
+                    mode=self.core_mode,
+                ),
+                out_perm=arrays.get("embed_out_perm"),
+            )
+            aug_projection = np.asarray(arrays["aug_projection"], np.float32)
         # The fused aug_embedding/aug_head copies are derived, not secrets:
         # left to recompute lazily on first access.
         return LMSession(
             morpher=TokenMorpher(perm=perm, inv_perm=inv),
             embedding=np.asarray(arrays["embedding"], np.float32),
+            embed_morpher=embed_morpher,
+            aug_projection=aug_projection,
             head=(
                 np.asarray(arrays["head"], np.float32)
                 if meta["has_head"] else None
@@ -297,6 +439,24 @@ class LMSessionRegistry(SlotRegistry):
             return np.zeros((self.d_model, self.vocab), np.float32)
         return self._sessions[t].aug_head
 
+    @property
+    def _core_q(self) -> int:
+        return self.d_in // self.kappa
+
+    def slot_embed_core(self, slot: int) -> np.ndarray:
+        """(q, q) continuous morph core in ``slot`` (zeros when free)."""
+        t = self._slot_tenant[slot]
+        if t is None:
+            return np.zeros((self._core_q, self._core_q), np.float32)
+        return np.asarray(self._sessions[t].embed_morpher.core.matrix)
+
+    def slot_aug_projection(self, slot: int) -> np.ndarray:
+        """(d_in, d_out) fused projection in ``slot`` (zeros when free)."""
+        t = self._slot_tenant[slot]
+        if t is None:
+            return np.zeros((self.d_in, self.d_out), np.float32)
+        return self._sessions[t].aug_projection
+
     def stacked_perms(self) -> np.ndarray:
         return np.stack([self.slot_perm(s) for s in range(self.capacity)])
 
@@ -307,3 +467,13 @@ class LMSessionRegistry(SlotRegistry):
 
     def stacked_aug_heads(self) -> np.ndarray:
         return np.stack([self.slot_aug_head(s) for s in range(self.capacity)])
+
+    def stacked_embed_cores(self) -> np.ndarray:
+        return np.stack(
+            [self.slot_embed_core(s) for s in range(self.capacity)]
+        )
+
+    def stacked_aug_projections(self) -> np.ndarray:
+        return np.stack(
+            [self.slot_aug_projection(s) for s in range(self.capacity)]
+        )

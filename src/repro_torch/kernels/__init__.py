@@ -29,12 +29,14 @@ from .ops import (
     aug_conv_forward,
     aug_conv_forward_batched,
     aug_conv_forward_grouped,
+    aug_embed_batched,
     aug_embed_grouped,
     aug_embed_rows_grouped,
     lm_head_rows_grouped,
     morph_rows,
     morph_rows_batched,
     morph_rows_grouped,
+    token_morph_batched,
     token_morph_grouped,
 )
 from .wkv6 import wkv6_chunked
@@ -49,12 +51,14 @@ __all__ = [
     "aug_conv_forward",
     "aug_conv_forward_batched",
     "aug_conv_forward_grouped",
+    "aug_embed_batched",
     "aug_embed_grouped",
     "aug_embed_rows_grouped",
     "lm_head_rows_grouped",
     "morph_rows",
     "morph_rows_batched",
     "morph_rows_grouped",
+    "token_morph_batched",
     "token_morph_grouped",
     "wkv6_chunked",
     "ref",

@@ -17,9 +17,10 @@ Every kernel masks its ragged edges, so these take any shape: there is no
 tileability test and no route around a kernel on the card.  The activation
 operand is made contiguous here; the secret operands must already be.
 
-``token_morph_grouped``, ``aug_embed_grouped`` and
-``aug_embed_rows_grouped`` are gathers: torch advanced indexing on every
-device, as the reference routes them to XLA's gather on every backend.
+``token_morph_batched``, ``aug_embed_batched`` (one table per group),
+``token_morph_grouped``, ``aug_embed_grouped`` and ``aug_embed_rows_grouped``
+(slot-indexed) are gathers: torch advanced indexing on every device, as the
+reference routes them to XLA's gather on every backend.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from .grouped import grouped_aug_gemm, grouped_block_diag_matmul, grouped_row_ge
 
 __all__ = [
     "morph_rows", "aug_conv_forward", "morph_rows_batched",
-    "aug_conv_forward_batched",
+    "aug_conv_forward_batched", "token_morph_batched", "aug_embed_batched",
     "morph_rows_grouped", "aug_conv_forward_grouped", "token_morph_grouped",
     "aug_embed_grouped", "aug_embed_rows_grouped", "lm_head_rows_grouped",
 ]
@@ -60,6 +61,20 @@ def aug_conv_forward_batched(t: torch.Tensor,
     """Per-group Aug-Conv forward: t (G, B, K) @ c_acs (G, K, N) -> (G, B, N),
     one K5 launch over the group axis."""
     return aug_gemm(t.contiguous(), c_acs)
+
+
+def token_morph_batched(tokens: torch.Tensor,
+                        perms: torch.Tensor) -> torch.Tensor:
+    """Per-group token morphing: tokens (G, B, L) with perms (G, V) ->
+    morphed (G, B, L)."""
+    return ref.token_morph_batched_ref(tokens, perms)
+
+
+def aug_embed_batched(tokens: torch.Tensor,
+                      tables: torch.Tensor) -> torch.Tensor:
+    """Per-group Aug-Embedding forward: morphed tokens (G, B, L) gathered
+    from per-group (V, d) tables -> (G, B, L, d)."""
+    return ref.aug_embed_batched_ref(tokens, tables)
 
 
 def _safe_gidx(gidx, n_slots: int, device: torch.device) -> torch.Tensor:

@@ -72,6 +72,9 @@ class FleetConfig:
     batch: int = 8                    # rows per request
     channels: int = 3
     image_size: int = 16
+    # (positions, d_in): each request is (batch, positions, d_in) features
+    # on the LM "features" lane instead of images on the vision lane.
+    features: tuple[int, int] | None = None
     trace: str = "uniform:200"        # uniform:<rps> | poisson:<rps> | burst:<n>@<gap_ms>
     timeout_ms: float = 20000.0       # total per-rid budget -> "timeout" outcome
     attempt_timeout_ms: float = 2000.0  # hedge trigger: re-send after this
@@ -414,11 +417,15 @@ class ClientFleet:
 
     def _make_request(self, idx: int) -> DeliveryRequest:
         cfg = self.cfg
-        payload = self._rng.standard_normal(
-            (cfg.batch, cfg.channels, cfg.image_size, cfg.image_size)
-        ).astype(np.float32)
+        if cfg.features is None:
+            lane = "rows"
+            shape = (cfg.batch, cfg.channels, cfg.image_size, cfg.image_size)
+        else:
+            lane = "features"
+            shape = (cfg.batch, *cfg.features)
+        payload = self._rng.standard_normal(shape).astype(np.float32)
         return DeliveryRequest(
-            f"tenant-{idx % cfg.tenants}", payload,
+            f"tenant-{idx % cfg.tenants}", payload, lane=lane,
             priority=cfg.priority, deadline_ms=cfg.deadline_ms,
         )
 

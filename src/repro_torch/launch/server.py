@@ -63,7 +63,7 @@ import time
 
 import numpy as np
 
-from repro_torch.runtime import wire
+from repro_torch.runtime import api, wire
 from repro_torch.runtime.async_engine import (
     AdmissionError, AsyncDeliveryEngine, EngineDeadError,
 )
@@ -392,7 +392,9 @@ class DeliveryServer:
         # Load shedding, global cap: reject instead of queueing into
         # latency collapse.  (Per-tenant quotas are the engine's
         # admission="reject" below.)
-        n_rows = int(req.payload.shape[0]) if req.payload.ndim else 1
+        # In the front door's unit: images, sequences, or positions for a
+        # features request.
+        n_rows = api.admission_rows(req) if req.payload.ndim else 1
         if (
             self.max_pending_rows
             and self.front.inflight_rows() + n_rows > self.max_pending_rows

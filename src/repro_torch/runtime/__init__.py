@@ -1,10 +1,10 @@
-"""Serving runtime on PyTorch: the delivery engine (vision and LM token
-lanes), its async front door and wire codec, and the continuous-batched
-decode lane.
+"""Serving runtime on PyTorch: the delivery engine (the vision lane and the
+LM token and continuous features lanes), its async front door and wire
+codec, and the continuous-batched decode lane.
 
   api           typed front door: DeliveryRequest / DeliveryResult descriptors
   engine        batched multi-tenant MoLe delivery engine (morph + Aug-Conv;
-                token morph + Aug-Embedding)
+                token morph + Aug-Embedding; feature morph + Aug-projection)
   async_engine  async front door: deadline flusher, latency SLOs, admission
   decode        continuous-batched cross-tenant LM decode (K3 logits)
   queue         weighted-fair request queue + padded-microbatch coalescing

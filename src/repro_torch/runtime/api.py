@@ -11,12 +11,11 @@ addressed through one request type:
     per-request trace (submit/complete timestamps, queue depth at admission,
     priority) that the scheduling layer accounts against.
 
-The descriptor keeps all three lanes of the reference (``"rows"``,
-``"tokens"``, ``"features"``) so requests look the same in both packages.
-The port serves the vision ``"rows"`` lane and the LM ``"tokens"`` lane
-(``deliver="tokens"`` for morphed tokens, ``"embed"`` for Aug-embedded
-features); the continuous ``"features"`` lane is not ported yet and
-:func:`normalize` raises ``NotImplementedError`` for it.
+The descriptor has the reference's three lanes: the vision ``"rows"``
+lane, the LM ``"tokens"`` lane (``deliver="tokens"`` for morphed tokens,
+``"embed"`` for Aug-embedded features) and the LM continuous ``"features"``
+lane (per-position features through the tenant's morph core and fused
+projection).
 
 Payloads stay numpy on the host until the engine stages a coalesced
 microbatch on its device.
@@ -192,9 +191,18 @@ def _normalize_tokens(engine, req: DeliveryRequest) -> np.ndarray:
 
 
 def _normalize_features(engine, req: DeliveryRequest) -> np.ndarray:
-    raise NotImplementedError(
-        "the continuous LM features lane is not ported yet (a later slice)"
-    )
+    if engine.embed_queue is None:
+        raise ValueError("engine's LM registry has no continuous lane")
+    if req.tenant_id not in engine.lm_registry:
+        raise KeyError(f"unknown LM tenant {req.tenant_id!r}")
+    data = np.asarray(req.payload, np.float32)
+    d_in = engine.lm_registry.d_in
+    if data.ndim not in (2, 3) or data.shape[-1] != d_in:
+        raise ValueError(
+            f"expected (..., {d_in}) features with rank 2 or 3, got {data.shape}"
+        )
+    _require_nonempty(req, int(np.prod(data.shape[:-1])), "position")
+    return data
 
 
 _NORMALIZERS = {
@@ -227,7 +235,7 @@ def admission_rows(request: DeliveryRequest) -> int:
     """Rows a *normalized* request occupies for admission/quota accounting
     (images for rows, sequences for tokens, positions for features)."""
     if request.lane == "features":
-        return int(
-            request.payload.reshape(-1, request.payload.shape[-1]).shape[0]
-        )
+        # No reshape: a payload whose last dim is 0 still counts its
+        # positions, and is refused later by normalization.
+        return int(np.prod(request.payload.shape[:-1]))
     return int(request.payload.shape[0])

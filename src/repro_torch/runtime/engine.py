@@ -1,9 +1,10 @@
 """Batched multi-tenant MoLe delivery engine on PyTorch.
 
-Ported from ``repro.runtime.engine``: the vision lane and the LM token lane.
-Many provider sessions (one per tenant, each with its own secrets) are
-registered in a :class:`~repro_torch.core.protocol.SessionRegistry` (vision)
-and/or a :class:`~repro_torch.core.lm.LMSessionRegistry` (LM tokens);
+Ported from ``repro.runtime.engine``: the vision lane and the LM token and
+continuous features lanes.  Many provider sessions (one per tenant, each
+with its own secrets) are registered in a
+:class:`~repro_torch.core.protocol.SessionRegistry` (vision) and/or a
+:class:`~repro_torch.core.lm.LMSessionRegistry` (LM);
 incoming requests are coalesced into padded microbatches
 (``repro_torch.runtime.queue``).  On the vision lane the provider-side morph
 plus the developer-side Aug-Conv forward run as two grouped-GEMM launches
@@ -18,7 +19,11 @@ kernels of :mod:`repro_torch.kernels.grouped`.  On the token lane, prompts
 coalesce into length-bucketed ``(G, B, L)`` microbatches and the morph is a
 gather through each group's slot of the stacked ``(S, V)`` permutations
 (plus, for ``deliver="embed"`` requests, a gather through the ``(S, V, d)``
-Aug-Embedding stack, staged only once such a request has been seen).
+Aug-Embedding stack, staged only once such a request has been seen).  The
+continuous ``features`` lane is the vision math with ``m^2 -> 1``: rows of
+per-position features go through the same two grouped kernels with the LM
+registry's ``(S, q, q)`` embedding cores and ``(S, d_in, d_out)`` fused
+projections.
 
 **Where the engine runs.**  ``device=None`` means the card (``"cuda"``); the
 CPU runs only when asked for (``device="cpu"``), and then the kernels'
@@ -35,7 +40,8 @@ round, not yet executed) still points at.  The reference's functional
 ``.at[].set`` patch leaves k's arrays untouched; here a patch writes in
 place only while no pending work item holds the stacks, and otherwise
 clones them first.  The rule covers every stack of a plan: the vision
-cores and Aug-Conv matrices and the LM permutations and AugE tables.
+cores and Aug-Conv matrices and the LM permutations, AugE tables,
+embedding cores and fused projections.
 
 **Threads.**  The async front door (``runtime.async_engine``) runs
 ``execute_flush`` on its flusher thread outside its lock, while a submitter
@@ -53,8 +59,7 @@ Not ported, deliberately: ``_delivery_step_small`` (the reference routes
 tiny microbatches there on its jnp backend only; on the card both steps are
 always the grouped kernels), the ``backend`` switch
 (``repro.kernels.dispatch``: the tensor's device picks the implementation),
-and ``sharding.hints.hint`` (a no-op on one device).  The continuous LM
-``features`` lane belongs to a later slice (its registry raises).
+and ``sharding.hints.hint`` (a no-op on one device).
 
 This class is **not** thread-safe: the async front door serializes every
 call but ``execute_flush`` under its lock.
@@ -427,7 +432,7 @@ class _WorkItem:
     until :meth:`MoLeDeliveryEngine.publish_flush` returns the pin.
     """
 
-    lane: str                   # "vision" | "tokens"
+    lane: str                   # "vision" | "tokens" | "features"
     mb: object                  # runtime.queue.Microbatch
     plan: _Plan                 # slot secrets as of this item's coalesce
     want_embed: bool = False    # tokens lane: run the Aug-Embedding gather
@@ -455,8 +460,8 @@ class _FlushWork:
 
 class MoLeDeliveryEngine:
     """Multiplexes many tenants' delivery traffic: two grouped kernel
-    launches per vision microbatch, one slot-indexed gather per token
-    microbatch.
+    launches per vision or features microbatch, one slot-indexed gather per
+    token microbatch.
 
     A tenant is a **vision session** (``registry``: :class:`SessionRegistry`)
     or an **LM session** (``lm_registry``: :class:`LMSessionRegistry`); one
@@ -552,6 +557,15 @@ class MoLeDeliveryEngine:
             )
             if lm_registry is not None else None
         )
+        self.embed_queue = (
+            RequestQueue(
+                lm_registry.d_in, max_rows=max_rows,
+                row_buckets=self.row_buckets, group_buckets=self.group_buckets,
+                id_alloc=self._id_alloc, scheduler=self.scheduler,
+                service_lane="features",
+            )
+            if lm_registry is not None and lm_registry.has_embed_lane else None
+        )
         self.stats = EngineStats()
         self.stats.service_share_fn = self.scheduler.service_share
         # Crash-safety hooks: the injector (resilience.FailureInjector)
@@ -570,13 +584,15 @@ class MoLeDeliveryEngine:
         self._results: dict[int, np.ndarray] = {}
         self._request_shape: dict[int, tuple[int, ...]] = {}
         self._token_deliver: dict[int, str] = {}   # rid -> "tokens" | "embed"
+        self._embed_shape: dict[int, tuple[int, ...]] = {}  # features rid -> out
         self._req_info: dict[int, _ReqInfo] = {}
         self._done: set[int] = set()
 
     @property
     def pending_rows(self) -> int:
-        """Unscheduled rows across every lane (rows == sequences for tokens)."""
-        lanes = (self.queue, self.token_queue)
+        """Unscheduled rows across every lane (rows == sequences for tokens,
+        positions for features)."""
+        lanes = (self.queue, self.token_queue, self.embed_queue)
         return sum(q.pending_rows for q in lanes if q is not None)
 
     def _registry_of(self, tenant_id: str):
@@ -691,14 +707,19 @@ class MoLeDeliveryEngine:
         slot_fns = {"perms": reg.slot_perm}
         if self._embed_tables_needed:
             slot_fns["aug_embeds"] = reg.slot_aug_embedding
+        if reg.has_embed_lane:
+            slot_fns["embed_cores"] = reg.slot_embed_core
+            slot_fns["aug_projs"] = reg.slot_aug_projection
         prev = self._lm_plan
         if prev is not None and set(prev.arrays) != set(slot_fns):
             prev = None   # lane set changed (first embed request): rebuild
         changed = prev is None or prev.version != reg.version
         self._lm_plan = _sync_plan(prev, reg, slot_fns, self.device)
         if changed:
-            self.token_queue.ensure_group_bucket(len(reg))
-            self.token_queue.ensure_group_bucket(reg.capacity)
+            for q in (self.token_queue, self.embed_queue):
+                if q is not None:
+                    q.ensure_group_bucket(len(reg))
+                    q.ensure_group_bucket(reg.capacity)
         return self._lm_plan
 
     # -- request intake: the typed front door --------------------------------
@@ -736,7 +757,7 @@ class MoLeDeliveryEngine:
             )
             n_rows = req.payload.shape[0]
             self._request_shape[rid] = (n_rows, g.beta, g.n, g.n)
-        else:  # tokens
+        elif req.lane == "tokens":
             rid = self.token_queue.submit(
                 req.tenant_id, req.payload, priority=req.priority, rid=rid
             )
@@ -748,6 +769,15 @@ class MoLeDeliveryEngine:
                 (n_rows, L) if req.deliver == "tokens"
                 else (n_rows, L, self.lm_registry.d_model)
             )
+        else:  # features: one queue row per position
+            reg = self.lm_registry
+            rows = req.payload.reshape(-1, reg.d_in)
+            rid = self.embed_queue.submit(
+                req.tenant_id, rows, priority=req.priority, rid=rid
+            )
+            n_rows = rows.shape[0]
+            self._request_shape[rid] = (n_rows, reg.d_out)
+            self._embed_shape[rid] = req.payload.shape[:-1] + (reg.d_out,)
         self._req_info[rid] = _ReqInfo(
             request=req, submitted_at=time.monotonic(),
             queue_depth_at_submit=depth,
@@ -773,6 +803,17 @@ class MoLeDeliveryEngine:
             torch.from_numpy(gidx).to(self.device),
             plan.arrays["perms"],
             plan.arrays["aug_embeds"] if want_embed else None,
+        )
+
+    def _execute_features(self, x: np.ndarray, gidx: np.ndarray,
+                          plan: _Plan) -> torch.Tensor:
+        # The continuous LM lane is the vision math (m^2 -> 1): the same
+        # step, with the registry's embedding cores and fused projections.
+        return _delivery_step(
+            torch.from_numpy(x).to(self.device),
+            torch.from_numpy(gidx).to(self.device),
+            plan.arrays["embed_cores"], plan.arrays["aug_projs"],
+            self.lm_registry.kappa,
         )
 
     # -- phase-split flushing -------------------------------------------------
@@ -809,6 +850,11 @@ class MoLeDeliveryEngine:
                 ("tokens", self.token_queue, self.lm_registry,
                  self._refresh_lm_plan)
             )
+            if self.embed_queue is not None:
+                lanes.append(
+                    ("features", self.embed_queue, self.lm_registry,
+                     self._refresh_lm_plan)
+                )
         # WFQ lag sampled pre-coalesce: the spread the scheduler is about
         # to work off (one sample per flush: the clock is engine-wide).
         self.stats.record_wfq_lag(self.scheduler.wfq_lag())
@@ -875,13 +921,19 @@ class MoLeDeliveryEngine:
         if self.injector is not None:
             self.injector.maybe_fail_phase("device")
         t0 = time.monotonic()
-        outs = [
-            self._execute(item.mb.x, item.mb.group_tenant, item.plan)
-            if item.lane == "vision" else
-            self._execute_tokens(item.mb.x, item.mb.group_tenant,
-                                 item.want_embed, item.plan)
-            for item in work.items
-        ]
+        outs = []
+        for item in work.items:
+            mb = item.mb
+            if item.lane == "vision":
+                outs.append(self._execute(mb.x, mb.group_tenant, item.plan))
+            elif item.lane == "tokens":
+                outs.append(self._execute_tokens(
+                    mb.x, mb.group_tenant, item.want_embed, item.plan
+                ))
+            else:
+                outs.append(self._execute_features(
+                    mb.x, mb.group_tenant, item.plan
+                ))
         for item, out in zip(work.items, outs):
             if item.lane == "tokens":
                 morphed, feats = out
@@ -921,9 +973,11 @@ class MoLeDeliveryEngine:
         done: dict[int, np.ndarray] = {}
         for item in work.items:
             if item.lane == "vision":
-                self._publish_rows(item, done)
-            else:
+                self._publish_rows(item, done, self._finish_vision)
+            elif item.lane == "tokens":
                 self._publish_tokens(item, done)
+            else:
+                self._publish_rows(item, done, self._finish_features)
         self.stats.record_phase_ms("publish", (time.monotonic() - t0) * 1e3)
         return done
 
@@ -939,8 +993,18 @@ class MoLeDeliveryEngine:
                 priority=info.request.priority,
             )
 
-    def _publish_rows(self, item: _WorkItem,
-                      done: dict[int, np.ndarray]) -> None:
+    def _finish_vision(self, rid: int, buf: np.ndarray) -> np.ndarray:
+        shape = self._request_shape[rid]
+        return reroll_batch(buf, shape[1], shape[2])
+
+    def _finish_features(self, rid: int, buf: np.ndarray) -> np.ndarray:
+        return buf.reshape(self._embed_shape[rid])
+
+    def _publish_rows(self, item: _WorkItem, done: dict[int, np.ndarray],
+                      finish: Callable[[int, np.ndarray], np.ndarray]) -> None:
+        """Scatter a row-lane item's output into its requests' buffers;
+        ``finish`` shapes a completed request's rows (vision: re-rolled
+        feature maps; features: the request's leading dims)."""
         out = item.out
         for s in item.mb.slices:
             shape = self._request_shape[s.request_id]
@@ -952,7 +1016,7 @@ class MoLeDeliveryEngine:
                 s.group, s.group_offset : s.group_offset + s.n_rows
             ]
             if s.req_offset + s.n_rows == shape[0]:
-                done[s.request_id] = reroll_batch(buf, shape[1], shape[2])
+                done[s.request_id] = finish(s.request_id, buf)
                 self._results[s.request_id] = done[s.request_id]
                 self._mark_done(s.request_id)
 
@@ -989,7 +1053,9 @@ class MoLeDeliveryEngine:
         requests completed during this flush (results are also retained
         until redeemed via :meth:`take`): vision requests resolve to
         features (b, beta, n, n), token requests to morphed tokens (b, L)
-        or Aug-embedded features (b, L, d_model).
+        or Aug-embedded features (b, L, d_model), features requests to
+        projected features of their own leading shape, (b, L, d_out) or
+        (n, d_out).
         """
         done: dict[int, np.ndarray] = {}
         while True:
@@ -1021,6 +1087,7 @@ class MoLeDeliveryEngine:
         out = self._results.pop(request_id)
         self._request_shape.pop(request_id, None)
         self._token_deliver.pop(request_id, None)
+        self._embed_shape.pop(request_id, None)
         self._done.discard(request_id)
         info = self._req_info.pop(request_id)
         req = info.request
@@ -1049,6 +1116,7 @@ class MoLeDeliveryEngine:
         self._results.clear()
         self._request_shape.clear()
         self._token_deliver.clear()
+        self._embed_shape.clear()
         self._req_info.clear()
         self._done.clear()
 
@@ -1083,6 +1151,15 @@ class MoLeDeliveryEngine:
             # current, so _refresh_lm_plan would not re-ensure them.
             for g in sorted(tq._ensured_groups):
                 self.token_queue.ensure_group_bucket(g)
+        if self.embed_queue is not None:
+            eq = self.embed_queue
+            eq.release()
+            self.embed_queue = RequestQueue(
+                eq.feature_dim, max_rows=self.max_rows,
+                row_buckets=eq.row_buckets, group_buckets=eq.group_buckets,
+                dtype=eq.dtype, id_alloc=self._id_alloc,
+                scheduler=self.scheduler, service_lane="features",
+            )
 
     # -- crash safety: snapshot / restore ------------------------------------
     def snapshot(self) -> EngineSnapshot:

@@ -252,6 +252,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.checkpoint.manager", "repro_torch.runtime.async_engine",
             "repro_torch.runtime.wire", "repro_torch.launch.server",
             "repro_torch.launch.client"} <= set(mods)
+    assert "repro_torch.core.deploy" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -372,6 +372,70 @@ def test_engine_on_card_matches_cpu_under_eviction(rng, cuda):
         np.testing.assert_allclose(eng.take(rid), want.numpy(), atol=1e-4)
 
 
+@pytest.mark.parametrize("kappa", [1, 2])
+def test_k1_k2_at_the_features_shapes(cuda, kappa):
+    """K1 and K2 at the features lane's full width (Llama-3.2-Vision-90B's
+    frontend, d_in 7680 -> d_model 8192, one (4, 64) microbatch; kappa 2
+    gives q = 3840), slots out of order: each against its plain version
+    within 1e-4 * max|plain|, and the two in a row (morph, then the
+    projection) against a float64 product on the card over the first 1024
+    columns within 1e-5 * max|fp64|."""
+    G, B, d_in, d_out, cols = 4, 64, 7680, 8192, 1024
+    q = d_in // kappa
+    gen = torch.Generator(device=cuda).manual_seed(kappa)
+    x = torch.randn((G, B, d_in), generator=gen, device=cuda)
+    cores = torch.randn((G, q, q), generator=gen, device=cuda) * q ** -0.5
+    projs = torch.randn((G, d_in, d_out), generator=gen, device=cuda) * d_in ** -0.5
+    gidx = torch.tensor([3, 1, 0, 2], dtype=torch.int32, device=cuda)
+    k1, k2 = grouped_block_diag_matmul.launches, grouped_aug_gemm.launches
+    t = grouped_block_diag_matmul(x, gidx, cores, kappa)
+    y = grouped_aug_gemm(t, gidx, projs)
+    torch.cuda.synchronize()
+    assert (grouped_block_diag_matmul.launches, grouped_aug_gemm.launches) == (
+        k1 + 1, k2 + 1)
+    for got, want in ((t, ref.block_diag_matmul_grouped_ref(x, gidx, cores, kappa)),
+                      (y, ref.aug_gemm_grouped_ref(t, gidx, projs))):
+        assert got.shape == want.shape
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    slots = gidx.long()
+    t64 = torch.bmm(x.double().view(G, B * kappa, q), cores[slots].double())
+    want = torch.bmm(t64.view(G, B, d_in), projs[slots, :, :cols].double())
+    err = float((y[..., :cols].double() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_features_engine_on_card_matches_cpu(rng, cuda):
+    """The engine's features lane on the card (K1 then K2 per microbatch,
+    capacity below the tenant count) against per-request delivery on the
+    CPU, within 1e-4 * max."""
+    from repro_torch.core import LMSessionRegistry
+
+    d_in, d_out = 96, 80
+    reg = LMSessionRegistry(64, 16, d_in=d_in, d_out=d_out, kappa=2,
+                            capacity=2)
+    for i in range(4):
+        reg.register(f"t{i}", rng.standard_normal((64, 16)).astype(np.float32),
+                     w_in=rng.standard_normal((d_in, d_out)).astype(
+                         np.float32) / np.sqrt(d_in), seed=i)
+    reqs = [DeliveryRequest(f"t{i % 4}", rng.standard_normal(
+        ((1, 7, d_in), (5, d_in))[i % 2]).astype(np.float32), lane="features")
+        for i in range(10)]
+    eng = MoLeDeliveryEngine(lm_registry=reg, device=cuda)
+    k1, k2 = grouped_block_diag_matmul.launches, grouped_aug_gemm.launches
+    rids = [eng.submit(q) for q in reqs]
+    eng.flush()
+    n_mb = eng.stats.microbatches
+    assert (grouped_block_diag_matmul.launches - k1,
+            grouped_aug_gemm.launches - k2) == (n_mb, n_mb)
+    for rid, q in zip(rids, reqs):
+        want = reg.session(q.tenant_id).deliver_features(
+            torch.from_numpy(q.payload)).numpy()
+        got = eng.take(rid)
+        assert got.shape == want.shape
+        assert float(np.abs(got - want).max()) <= 1e-4 * float(np.abs(want).max())
+
+
 def _scan_ops(rng, BH, T, D):
     r, k, v = (_rand(rng, BH, T, D) for _ in range(3))
     logw = -torch.exp(_rand(rng, BH, T, D))

@@ -294,10 +294,12 @@ def test_engine_without_device_needs_cuda(rng, monkeypatch):
 
 
 def test_unported_lanes_raise(rng):
-    """The LM token lane is served (``lm_registry=``: morphed tokens equal
-    the tenant's permutation of the prompt); the continuous ``features``
-    lane is not ported and raises.  A vision-only engine still refuses
-    token requests."""
+    """A lane the engine's registries do not serve raises.  The LM token
+    lane is served (``lm_registry=``: morphed tokens equal the tenant's
+    permutation of the prompt); an LM registry without ``d_in``/``d_out``
+    has no continuous lane, so a ``features`` request is refused with the
+    reference's ValueError, and ``d_in`` without ``d_out`` is refused.  A
+    vision-only engine refuses token requests."""
     from repro_torch.core.lm import LMSessionRegistry
 
     _, treg = _registries(rng, tenants=1)
@@ -307,12 +309,12 @@ def test_unported_lanes_raise(rng):
     toks = rng.integers(0, 32, (2, 6)).astype(np.int32)
     got = leng.deliver(trt.DeliveryRequest("lm0", toks, lane="tokens")).payload
     np.testing.assert_array_equal(got, lreg.session("lm0").morpher.perm[toks])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="no continuous lane"):
         leng.submit(trt.DeliveryRequest(
             "lm0", np.zeros((1, 4), np.float32), lane="features"
         ))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        LMSessionRegistry(32, 8, d_in=4, d_out=4)
+    with pytest.raises(ValueError, match="together"):
+        LMSessionRegistry(32, 8, d_in=4)
     eng = trt.MoLeDeliveryEngine(treg, "cpu")
     with pytest.raises(ValueError, match="no LM registry"):
         eng.submit(trt.DeliveryRequest(

@@ -206,12 +206,24 @@ def test_lm_registry_secrets_byte_equal(rng, head):
 
 
 def test_lm_registry_features_lane_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlm.LMSessionRegistry(VOCAB, D, d_in=8, d_out=8)
+    """The continuous lane's configuration errors raise the reference's
+    ValueErrors: d_in without d_out, a kappa that does not divide d_in,
+    w_in for a registry without the lane, a missing or misshapen w_in for
+    one with it."""
+    with pytest.raises(ValueError, match="together"):
+        tlm.LMSessionRegistry(VOCAB, D, d_in=8)
+    with pytest.raises(ValueError, match="must divide"):
+        tlm.LMSessionRegistry(VOCAB, D, d_in=8, d_out=8, kappa=3)
+    emb = np.zeros((VOCAB, D), np.float32)
     reg = tlm.LMSessionRegistry(VOCAB, D)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        reg.register("a", np.zeros((VOCAB, D), np.float32),
-                     w_in=np.zeros((8, 8), np.float32))
+    with pytest.raises(ValueError, match="no continuous lane"):
+        reg.register("a", emb, w_in=np.zeros((8, 8), np.float32))
+    reg = tlm.LMSessionRegistry(VOCAB, D, d_in=8, d_out=6)
+    with pytest.raises(ValueError, match="pass w_in"):
+        reg.register("a", emb)
+    with pytest.raises(ValueError, match="expected w_in"):
+        reg.register("a", emb, w_in=np.zeros((8, 8), np.float32))
+    assert len(reg) == 0
 
 
 def _token_traffic(rng, tenants):
@@ -306,6 +318,6 @@ def test_mixed_vision_and_token_lanes(rng):
     )
     np.testing.assert_array_equal(
         eng.take(rt), treg.session("lm2").morpher.perm[toks])
-    with pytest.raises(NotImplementedError, match="features lane"):
+    with pytest.raises(ValueError, match="no continuous lane"):
         eng.submit(trt.DeliveryRequest(
             "lm0", np.zeros((1, 4), np.float32), lane="features"))
