@@ -104,7 +104,13 @@ printing one JSON line; any failure raises and exits non-zero:
                 rounds once).  Times kernel, plain version and one library
                 call (torch.bmm of h[:, None, :] against the pre-gathered
                 tables cast to bf16 beforehand, a yardstick the port never
-                calls), and for scale the same bmm in fp32.
+                calls), and for scale the same bmm in fp32.  The same at
+                phi3_path's shape, h (4, 3072) x tables (6, 3072, 32064)
+                (``row_phi3``): every slot-index pattern in bf16 and fp32,
+                the ragged last 1,024-column strip (320 columns) held apart,
+                K3 and torch.bmm (fp32 tables, and bf16 tables cast
+                beforehand) timed in CUDA graphs and back to back, the plain
+                version back to back, the byte bound (1.58 GB of tables).
   6. lm_path    ``serve --mode lm`` at deepseek_7b FULL width (30 layers,
                 d_model 4096, vocab 102400, bf16) with random weights from
                 a seeded generator on the card: 4 tenants at capacity 4,
@@ -128,6 +134,41 @@ printing one JSON line; any failure raises and exits non-zero:
                 margin).  Printed, not gated: tokens/s, decode-step p50,
                 where a decode step's time goes (trunk, K3, sampling), the
                 admission prefill's time and a profiled step's idle share.
+ 6a. lm_long_prompt lm_path at deepseek_7b FULL with 4 requests of 2048
+                prompt tokens, 8 generated each: every admission prefill is
+                above dense_attn_max_seq (1024), so its attention runs the
+                chunked flash scan (``models.layers.flash_attention``: 4 Q
+                blocks of 512 by 2 KV blocks of 1024, the future block of
+                the first two skipped).  Gated as lm_path, plus: the flash
+                scan called exactly layers x admissions (30 x 4) times in the
+                lane, and twice (once a layer) in the twin's plain
+                reference, which past dense_attn_max_seq is the raw model
+                served as --mole off serves it: a plain forward (prefill) of
+                the 2048-token prompts, then decode steps teacher-forced
+                with the lane's tokens (a forward over the generated
+                positions would run the flash scan there, whose rounding is
+                not decode attention's); the scan at (1, 2048, 32, 128) bf16
+                against an fp32 dense attention of the same inputs, within
+                twice bf16 dense attention's own distance from it.  Printed:
+                each admission prefill's time and their p50, the flash
+                scan's, dense attention's and SDPA's (flash backend; a
+                yardstick the port never calls) time at that shape.
+ 6b. mole_off   ``serve.run_lm`` with ``--mole off`` on the card, on
+                lm_long_prompt's weights and (the same seeded) prompts: one
+                prefill of the 4 raw prompts and a greedy decode, no
+                registry, engine or kernel.  Gated: all six launch counters
+                stay 0; the prompts are lm_long_prompt's; each token is the
+                argmax of its plain logits; the tokens equal the lane's over
+                each request's decided prefix (positions before the first
+                whose plain top-1/top-2 gap is within the tie margin); the
+                rest is counted, not gated.  Printed: --mole off tokens/s
+                beside the lane's.
+ 6c. phi3_path  lm_path at phi3_mini_3p8b FULL (32 layers, d 3072, 32 heads
+                of 96, vocab 32064, bf16): 4 tenants, 8 requests of 3072
+                prompt tokens (3 x 1024 KV blocks, 6 Q blocks of 512), 16
+                generated; K3 at h (4, 3072) x tables (4, 3072, 32064).
+                Gated as lm_long_prompt (the flash scan 32 x 8 times in the
+                lane, twice in the twin's plain prefill).
   7. kernels_k45 the single-tenant / per-group morph (``block_diag_matmul``,
                 K4) and Aug-Conv (``aug_gemm``, K5) against their plain
                 versions in fp32 and bf16: K4 at (R, kappa, q) = (256, 1,
@@ -286,6 +327,19 @@ EX2_PER_S = FP32_FLOP_PER_S / 16
 K3_R, K3_K, K3_N = 4, 4096, 102400
 K3_RAGGED = [(3, 3000, 1000), (3, 3000, 999)]
 LM_ARCH, LM_TENANTS, LM_REQUESTS, LM_PROMPT, LM_GEN = "deepseek_7b", 4, 8, 32, 16
+# Long prompts (lm_long_prompt, mole_off): deepseek_7b FULL, 4 requests of
+# 2048 tokens, 8 generated.  Above dense_attn_max_seq (1024) every admission
+# prefill runs the chunked flash scan: 4 Q blocks of 512 by 2 KV blocks of
+# 1024 per layer.  FLASH_SHAPE is one layer's (B, S, H, hd) there.
+LONG_PROMPT, LONG_REQUESTS, LONG_GEN = 2048, 4, 8
+FLASH_SHAPE = (1, 2048, 32, 128)
+# phi3_path: phi3_mini_3p8b FULL (32 layers, d 3072, 32 heads of 96, vocab
+# 32064).  3072 + 16 + 1 positions stay inside its published 4k context, and
+# 3072 is the longest such prompt that the flash scan's KV block (1024)
+# divides.  K3 there: h (4, 3072) x tables (4, 3072, 32064); 32064 is not a
+# multiple of K3's 1,024-column strip.
+PHI3_ARCH, PHI3_PROMPT = "phi3_mini_3p8b", 3072
+K3_PHI3 = (4, 3072, 32064)
 # K6 (kernels_k6) and the RWKV path (rwkv_path): rwkv6_3b FULL, 40 heads of
 # 64, chunk 128.  A 300-token prompt pads to 3 chunks (84 padded tokens).
 RWKV_ARCH, RWKV_PROMPT = "rwkv6_3b", 300
@@ -666,10 +720,74 @@ def k3_checks(dev, kernels, ref) -> dict:
     for R, K, N in K3_RAGGED:
         run_cases(f"ragged_R{R}_K{K}_N{N}", R, K, N,
                   (torch.bfloat16, torch.float32))
+    phi3 = k3_phi3_row(dev, kernels, ref, gen, checks)
     emit({"phase": "kernels_k3", "checks": len(checks),
           "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
-          "row": row})
+          "row": row, "row_phi3": phi3})
     return row
+
+
+def k3_phi3_row(dev, kernels, ref, gen, checks: list) -> dict:
+    """K3 at phi3_path's shape, h (4, 3072) x tables (6, 3072, 32064), in
+    bf16 and fp32 against the plain version for every slot-index pattern:
+    the whole output, and apart the ragged last 1,024-column strip (32064 =
+    31 x 1024 + 320).  Timed on 4 distinct slots with bf16 h: K3 and
+    torch.bmm (on the fp32 tables, and on the tables cast to bf16
+    beforehand) in CUDA graphs (``graph_ms``) and back to back
+    (``cuda_ms``), the plain version back to back (its per-row slot lookup
+    reads the indices on the host, which a graph cannot capture)."""
+    R, K, N = K3_PHI3
+    strip = N - N % 1024
+    tables = torch.randn((N_SLOTS, K, N), generator=gen, device=dev) * K ** -0.5
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        h = torch.randn((R, K), generator=gen, device=dev).to(dtype)
+        name = str(dtype).split(".")[-1]
+        for case, idx in GIDX_CASES.items():
+            gidx = torch.tensor(idx[:R], dtype=torch.int32, device=dev)
+            got = kernels.grouped_row_gemm(h, gidx, tables)
+            want = ref.lm_head_rows_grouped_ref(h, gidx, tables)
+            torch.cuda.synchronize()
+            check(got.shape == (R, N) and got.dtype == dtype,
+                  f"K3 phi3/{case}: got {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got).all()), f"K3 phi3/{case}: non-finite")
+            for part, cols in (("all", slice(None)), ("last_strip", slice(strip, None))):
+                err = float((got[:, cols].float() - want[:, cols].float()).abs().max())
+                scale = float(want[:, cols].float().abs().max())
+                lim = (REL_TOL * scale if dtype == torch.float32
+                       else 2 * bf16_ulp(scale))
+                checks.append({"case": f"phi3_R{R}_K{K}_N{N}/{name}/{case}/{part}",
+                               "max_abs_err": err, "limit": lim})
+                check(err <= lim, f"K3 phi3/{name}/{case}/{part}: "
+                                  f"|kernel - plain| {err} > {lim}")
+                worst = max(worst, err)
+    ident = torch.arange(R, dtype=torch.int32, device=dev)
+    main = tables[:R].contiguous()
+    del tables
+    h = torch.randn((R, K), generator=gen, device=dev).to(torch.bfloat16)
+    cast = main.to(torch.bfloat16)
+    h32 = h.float()
+    run_k3 = lambda: kernels.grouped_row_gemm(h, ident, main)  # noqa: E731
+    bmm16 = lambda: torch.bmm(h[:, None, :], cast)  # noqa: E731
+    bmm32 = lambda: torch.bmm(h32[:, None, :], main)  # noqa: E731
+    b, by = bound_ms(4 * R * K * N + 2 * R * (K + N) + 4 * R, 2 * R * K * N)
+    out = {"max_abs_err": worst, "ms": graph_ms(run_k3, 5, 10),
+           "eager_ms": cuda_ms(run_k3, 10),
+           "plain_ms": cuda_ms(lambda: ref.lm_head_rows_grouped_ref(h, ident, main), 10),
+           "library_ms": graph_ms(bmm16, 5, 10),
+           "library_eager_ms": cuda_ms(bmm16, 10),
+           "library_fp32_ms": graph_ms(bmm32, 5, 10),
+           "library_fp32_eager_ms": cuda_ms(bmm32, 10),
+           "bound_ms": b, "bound_by": by,
+           "table_bytes": 4 * R * K * N,
+           "timed_shape": f"h({R},{K}) bf16, tables({R},{K},{N}) fp32, "
+                          f"gidx=arange({R})",
+           "library_reads": "library_ms: bf16 tables, cast beforehand; "
+                            "library_fp32_ms: K3's fp32 tables",
+           "last_strip_columns": N - strip}
+    del main, cast
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -796,7 +914,8 @@ def k6_checks(dev, kernels, ref, build_report) -> dict:
     return row
 
 
-# -- phases 6 and 10 (lm_path, rwkv_path) ------------------------------------
+# -- phases 6, 6a-6c and 10 (lm_path and its long-prompt, --mole off and phi3
+#    runs, rwkv_path) ---------------------------------------------------------
 
 class HeadTap:
     """Records what the decode lane hands K3 at every batched decode step.
@@ -834,11 +953,12 @@ class HeadTap:
         self.steps.lm_head_rows_grouped = self._real
 
 
-def run_lane(lane, served, tenant_of) -> dict:
-    """Drive ``lane`` over the morphed prompts; count its batched decode
-    steps (a step that returns > 0 ran one) and time the pure decode steps
-    (no admission) on the host clock (each step reads its tokens back)."""
-    sids = [lane.submit(tenant_of[r], served[r], LM_GEN, premorphed=True)
+def run_lane(lane, served, tenant_of, gen: int) -> dict:
+    """Drive ``lane`` over the morphed prompts, ``gen`` tokens each; count
+    its batched decode steps (a step that returns > 0 ran one) and time the
+    pure decode steps (no admission) on the host clock (each step reads its
+    tokens back)."""
+    sids = [lane.submit(tenant_of[r], served[r], gen, premorphed=True)
             for r in range(len(served))]
     steps, pure_ms = 0, []
     t0 = time.monotonic()
@@ -928,15 +1048,38 @@ def lane_head_checks(records, registry, head_raw) -> dict:
             "unmorph_vs_raw_head_worst_share_of_limit": worst4}
 
 
-def forward_gaps(S, params, cfg, prompts, final, dev):
-    """Teacher-forced plain ``forward`` on the raw weights: each request's
-    unmorphed prompt + generation as one sequence; the logits at the
-    positions that predicted the generated tokens."""
-    seqs = torch.from_numpy(np.concatenate([prompts, final], axis=1)).to(dev)
-    logits, _ = S.forward(params, cfg, seqs)
+def plain_gaps(model, params, prompts, final, dev):
+    """The twin's independent plain reference on the raw weights, teacher
+    forced with the lane's generations: the logits that predicted each
+    generated token, as ``gaps_in_ulps``.
+
+    Up to ``dense_attn_max_seq`` positions, one full ``forward`` over
+    prompt + generation.  Longer, the raw model as ``--mole off`` serves
+    it: a prefill of the prompts (a forward through the flash scan, as the
+    lane's admission prefill) and a decode step per generated token fed the
+    lane's token (decode attention, as the lane's steps).  A forward there
+    would run the flash scan at the generated positions as well, whose
+    rounding (``p`` rounded to bf16 before its product, one division at the
+    end) is not decode attention's."""
+    from repro_torch.models import stack as S
+
+    cfg = model.cfg
+    P, gen = prompts.shape[1], final.shape[1]
+    if P + gen <= cfg.dense_attn_max_seq:
+        seqs = torch.from_numpy(np.concatenate([prompts, final], axis=1)).to(dev)
+        logits = S.forward(params, cfg, seqs)[0][:, P - 1 : P - 1 + gen]
+    else:
+        caches = model.init_cache(len(prompts), P + gen + 1)
+        tokens = torch.from_numpy(final).long().to(dev)
+        step, caches = model.prefill_with_cache(
+            params, {"tokens": torch.from_numpy(prompts).long().to(dev)}, caches)
+        steps = [step[:, 0]]
+        for i in range(gen - 1):
+            step, caches = model.decode(params, tokens[:, i : i + 1], P + i, caches)
+            steps.append(step[:, 0])
+        logits = torch.stack(steps, dim=1)
     check(bool(torch.isfinite(logits).all()), "plain logits non-finite")
-    P = prompts.shape[1]
-    return gaps_in_ulps(logits[:, P - 1 : P - 1 + LM_GEN], final)
+    return gaps_in_ulps(logits, final)
 
 
 def decode_step_profile(fn, step_ms: float) -> dict:
@@ -969,14 +1112,16 @@ def decode_step_profile(fn, step_ms: float) -> dict:
 
 
 class ScanTap:
-    """Counts the decode lane's admission prefills and keeps what one of
-    them hands K6.
+    """Counts and times the decode lane's admission prefills and keeps what
+    one of them hands K6.
 
     While installed, the lane's prefill step and
     ``repro_torch.models.blocks.wkv6_chunked`` (the name the time-mix calls)
-    are wrapped.  At the first prefill, the operands (r, k, v, logw, u, s0)
-    of the call ``layer`` (0-based) and K6's outputs are cloned.  Each
-    wrapper calls the real function once, so launch counts are unchanged.
+    are wrapped.  Each prefill is timed on the host clock between two
+    ``torch.cuda.synchronize()``.  At the first prefill, the operands (r,
+    k, v, logw, u, s0) of the call ``layer`` (0-based) and K6's outputs are
+    cloned.  Each wrapper calls the real function once, so launch counts
+    are unchanged.
     """
 
     def __init__(self, lane, layer: int):
@@ -984,11 +1129,17 @@ class ScanTap:
 
         self.lane, self.blocks, self.layer = lane, blocks, layer
         self.prefills, self.calls, self.captured = 0, 0, None
+        self.prefill_ms = []
         self._scan, self._prefill = blocks.wkv6_chunked, lane._prefill
 
     def _count_prefill(self, *args):
         self.prefills += 1
-        return self._prefill(*args)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = self._prefill(*args)
+        torch.cuda.synchronize()
+        self.prefill_ms.append((time.monotonic() - t0) * 1e3)
+        return out
 
     def _wkv6(self, *ops, chunk):
         out = self._scan(*ops, chunk=chunk)
@@ -1006,6 +1157,30 @@ class ScanTap:
     def __exit__(self, *exc):
         self.blocks.wkv6_chunked = self._scan
         self.lane._prefill = self._prefill
+
+
+class FlashTap:
+    """Counts the calls of the chunked flash scan while installed: the
+    attention dispatch calls ``repro_torch.models.layers.flash_attention``
+    by that name above ``dense_attn_max_seq``, and the wrapper calls the
+    real function once."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.calls = layers, 0
+        self._real = layers.flash_attention
+
+    def _flash(self, *args, **kw):
+        self.calls += 1
+        return self._real(*args, **kw)
+
+    def __enter__(self):
+        self.layers.flash_attention = self._flash
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention = self._real
 
 
 class PlainScan:
@@ -1049,12 +1224,20 @@ def k6_against_recurrence(captured) -> dict:
     return res
 
 
-def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
-    """``serve --mode lm`` at ``arch`` FULL: the token lane, then the
+def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
+            requests: int = LM_REQUESTS, gen: int = LM_GEN,
+            ctx: dict | None = None, flash_shape: bool = False) -> dict:
+    """``serve --mode lm`` at ``arch`` FULL, ``requests`` prompts of
+    ``prompt_len`` tokens, ``gen`` generated each: the token lane, then the
     continuous-batched decode lane; gated checks and a time breakdown.
     For an RWKV stack also: K6 launched once per layer per admission
     prefill, K6 on one layer's captured operands against the token
-    recurrence, and the twin's plain forward through that recurrence."""
+    recurrence, and the twin's plain forward through that recurrence.  For
+    an attention stack: the flash scan called once per layer per admission
+    prefill when the prompt exceeds ``dense_attn_max_seq``, never
+    otherwise, in the twin's plain reference too (:func:`plain_gaps`).  ``flash_shape`` adds
+    :func:`flash_checks`.  ``ctx``, if given, receives the weights, prompts
+    and the lane's generations for a later phase."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1071,7 +1254,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
     cfg = get_config(arch)
     rwkv = cfg.rwkv is not None
     torch.cuda.reset_peak_memory_stats()
-    max_len = prompt_len + LM_GEN + 1
+    max_len = prompt_len + gen + 1
     model = Model(cfg, dev)
     t0 = time.monotonic()
     params = model.init(SEED)
@@ -1085,9 +1268,9 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
         registry.register(f"lm-{i}", embed, seed=i, head=head)
     del embed, head
     src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
-                                 global_batch=LM_REQUESTS, seed=SEED))
+                                 global_batch=requests, seed=SEED))
     prompts = src.batch(0)["tokens"]
-    tenant_of = [f"lm-{r % LM_TENANTS}" for r in range(LM_REQUESTS)]
+    tenant_of = [f"lm-{r % LM_TENANTS}" for r in range(requests)]
     engine = MoLeDeliveryEngine(
         lm_registry=registry, device=dev,
         seq_buckets=tuple(sorted({8, 16, 64, prompt_len})),
@@ -1105,17 +1288,18 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
     t1 = time.monotonic()
     rids = [engine.submit(DeliveryRequest(tenant_of[r], prompts[r : r + 1],
                                           lane="tokens"))
-            for r in range(LM_REQUESTS)]
+            for r in range(requests)]
     engine.flush()
     served = np.concatenate([engine.take(r) for r in rids])
     morph_s = time.monotonic() - t1
-    with torch.no_grad(), HeadTap(lane) as tap, \
+    with torch.no_grad(), HeadTap(lane) as tap, FlashTap() as flash, \
             ScanTap(lane, layer=cfg.n_layers - 1) as scan:
-        run = run_lane(lane, served, tenant_of)
+        run = run_lane(lane, served, tenant_of, gen)
     launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    admission_ms = scan.prefill_ms
     # Check 1: the token lane's morphed prompts are numpy's perm[tokens].
     want = np.stack([registry.session(tenant_of[r]).morpher.perm[prompts[r]]
-                     for r in range(LM_REQUESTS)])
+                     for r in range(requests)])
     check(served.shape == want.shape and np.array_equal(served, want),
           "check 1: morphed prompts differ from perm[tokens]")
     # Check 2: one K3 launch per batched decode step; for an RWKV stack one
@@ -1123,8 +1307,17 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
     check(launches["grouped_row_gemm"] == run["steps"] == len(tap.records),
           f"check 2: K3 launched {launches['grouped_row_gemm']} times for "
           f"{run['steps']} decode steps ({len(tap.records)} recorded)")
-    check(scan.prefills == LM_REQUESTS,
-          f"{scan.prefills} admission prefills for {LM_REQUESTS} requests")
+    check(scan.prefills == requests,
+          f"{scan.prefills} admission prefills for {requests} requests")
+    # The chunked flash scan: once per layer per admission prefill above
+    # dense_attn_max_seq (the decode steps attend one position), else never.
+    flash_want = (cfg.n_layers * scan.prefills
+                  if not rwkv and prompt_len > cfg.dense_attn_max_seq else 0)
+    check(flash.calls == flash_want,
+          f"check 2: the flash scan ran {flash.calls} times, expected "
+          f"{flash_want} ({cfg.n_layers} layers x {scan.prefills} prefills "
+          f"of {prompt_len} tokens, dense_attn_max_seq "
+          f"{cfg.dense_attn_max_seq})")
     k6_want = cfg.n_layers * scan.prefills if rwkv else 0
     check(launches["wkv6_chunked"] == k6_want,
           f"check 2: K6 launched {launches['wkv6_chunked']} times, expected "
@@ -1133,7 +1326,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
               if n not in ("grouped_row_gemm", "wkv6_chunked") and c}
     check(not others, f"the LM path launched other kernels: {others}")
     final = run["final"]
-    check(final.shape == (LM_REQUESTS, LM_GEN), f"generations {final.shape}")
+    check(final.shape == (requests, gen), f"generations {final.shape}")
     check(final.min() >= 0 and final.max() < cfg.vocab, "token ids out of range")
     # Checks 3 and 4: K3 in the lane against the plain head and the raw
     # weights, on the lane's own hidden states.
@@ -1153,7 +1346,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
     rows = LM_TENANTS
     plan = lane._plan
     sidx = torch.arange(rows, dtype=torch.int32, device=dev)
-    tpos = torch.full((rows,), prompt_len + LM_GEN - 1, device=dev)
+    tpos = torch.full((rows,), prompt_len + gen - 1, device=dev)
     caches = model.init_cache(rows, max_len)
     h0 = torch.zeros((rows, 1, cfg.d_model), dtype=cfg.adtype, device=dev)
     hN = torch.randn((rows, cfg.d_model), device=dev).to(cfg.adtype)
@@ -1198,27 +1391,38 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
     lane2 = ContinuousDecodeLane(model2, params2, registry, rows=LM_TENANTS,
                                  max_len=max_len, device=dev)
     with torch.no_grad():
-        run2 = run_lane(lane2, served, tenant_of)
-        with PlainScan():
-            gap2, exact2 = forward_gaps(S, params2, cfg2, prompts,
-                                        run2["final"], dev)
+        run2 = run_lane(lane2, served, tenant_of, gen)
+        with PlainScan(), FlashTap() as flash2:
+            gap2, exact2 = plain_gaps(model2, params2, prompts, run2["final"],
+                                      dev)
+    check(flash2.calls == (cfg2.n_layers if flash_want else 0),
+          f"the twin's plain reference ran the flash scan {flash2.calls} times")
     check(bool((gap2 <= TIE_MARGIN_ULPS).all()),
-          f"check {6 if rwkv else 5}, twin (2 layers, plain forward): a "
+          f"check {6 if rwkv else 5}, twin (2 layers, plain reference): a "
           f"generated token is "
           f"{gap2.max():.2f} bf16 ulps below the plain max "
           f"(margin {TIE_MARGIN_ULPS})")
     del lane2
     torch.cuda.empty_cache()
+    flash_gate = flash_checks(dev) if flash_shape else None
 
-    tokens = LM_REQUESTS * LM_GEN
+    if ctx is not None:
+        ctx.update(params=params, prompts=prompts, final=final,
+                   tokens_per_s=requests * gen / run["lane_s"])
+    tokens = requests * gen
     out = {
         "phase": phase, "arch": arch, "layers": cfg.n_layers,
         "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
         "tenants": LM_TENANTS, "capacity": LM_TENANTS, "rows": rows,
-        "requests": LM_REQUESTS, "prompt_len": prompt_len, "gen": LM_GEN,
-        "decode_steps": run["steps"], "admission_prefills": LM_REQUESTS,
+        "requests": requests, "prompt_len": prompt_len, "gen": gen,
+        "decode_steps": run["steps"], "admission_prefills": requests,
         "k3_launches": launches["grouped_row_gemm"],
         "k6_launches": launches["wkv6_chunked"],
+        "dense_attn_max_seq": cfg.dense_attn_max_seq,
+        "flash_block_kv": cfg.flash_block_kv,
+        "flash_scan_calls": flash.calls,
+        "lane_admission_prefill_ms": admission_ms,
+        "lane_admission_prefill_p50_ms": float(np.median(admission_ms)),
         "tokens_per_s": tokens / run["lane_s"], "lane_s": run["lane_s"],
         "token_lane_s": morph_s,
         "decode_step_p50_ms": step_p50, "trunk_ms": trunk_ms, "k3_ms": k3_ms,
@@ -1229,11 +1433,17 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
         "decode_step_profile": prof,
         "twin_2_layers": {"decode_steps": run2["steps"],
                           "forward_worst_gap_ulps": float(gap2.max()),
+                          "plain_reference": ("forward" if prompt_len + gen
+                                              <= cfg.dense_attn_max_seq
+                                              else "prefill and decode"),
+                          "forward_flash_scan_calls": flash2.calls,
                           "forward_exact_argmax_share": float(exact2.mean())},
         "weights_init_s": init_s, "host_secret_and_staging_s": setup_s,
         "peak_mem_gb": peak_gb,
         "first_generation": final[0][:12].tolist(),
     }
+    if flash_gate is not None:
+        out["flash_vs_dense"] = flash_gate
     if rwkv:
         out.update(
             k6_vs_recurrence=k6_gate, k6_ms_per_launch=k6_ms,
@@ -1244,6 +1454,184 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int) -> dict:
             k6_eager_share_of_admission_prefill=(k6_eager_ms * cfg.n_layers
                                                  / prefill_ms),
         )
+    emit(out)
+    return out
+
+
+def flash_checks(dev) -> dict:
+    """The port's flash scan (``models.layers.flash_attention``, plain torch
+    ops) at one deepseek_7b layer of a 2048-token prompt, FLASH_SHAPE in
+    bf16, against an fp32 dense attention of the same bf16 inputs on the
+    card; gated: within twice the distance of bf16 dense attention from
+    that fp32 result.  Times the flash scan, the dense attention and
+    PyTorch's SDPA on its flash backend (a yardstick the port never calls)
+    on the same inputs, back to back (``cuda_ms``)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    q, k, v = (torch.randn(FLASH_SHAPE, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, H, S, hd)
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    with torch.no_grad():
+        exact = layers.dense_attention(q.float(), k.float(), v.float())
+        errs = {}
+        for name, fn in (("flash", lambda: layers.flash_attention(q, k, v)),
+                         ("dense", lambda: layers.dense_attention(q, k, v)),
+                         ("sdpa", lambda: sdpa().transpose(1, 2))):
+            got = fn()
+            torch.cuda.synchronize()
+            check(got.shape == q.shape and got.dtype == torch.bfloat16
+                  and bool(torch.isfinite(got).all()),
+                  f"{name} attention: {tuple(got.shape)} {got.dtype}")
+            errs[name] = float((got.float() - exact).abs().max())
+        scale = float(exact.abs().max())
+        del exact, got
+        check(0 < errs["dense"] and errs["flash"] <= 2 * errs["dense"],
+              f"flash scan: |flash - fp32 dense| {errs['flash']} > 2 x "
+              f"|bf16 dense - fp32 dense| {errs['dense']}")
+        flash_fn = lambda: layers.flash_attention(q, k, v)  # noqa: E731
+        dense_fn = lambda: layers.dense_attention(q, k, v)  # noqa: E731
+        times = [cuda_ms(flash_fn, 5), cuda_ms(dense_fn, 5), cuda_ms(sdpa, 10),
+                 cuda_ms(flash_fn, 5), cuda_ms(dense_fn, 5), cuda_ms(sdpa, 10)]
+    B, S, H, hd = FLASH_SHAPE
+    n_bytes = 4 * B * S * H * hd * 2        # q, k, v in and the output, bf16
+    causal_flops = 2 * 2 * B * H * hd * S * (S + 1) / 2
+    # The scan's block products: Q block i reads the KV blocks up to its
+    # last position (the rest lie wholly in its future and are skipped).
+    bq, bkv = min(512, S), min(1024, S)
+    pairs = sum((i * bq + bq - 1) // bkv + 1 for i in range(S // bq))
+    formed_flops = 2 * 2 * B * H * hd * bq * bkv * pairs
+    b16, by16 = bound_ms(n_bytes, causal_flops, BF16_FLOP_PER_S)
+    b32, by32 = bound_ms(n_bytes, formed_flops)
+    return {"shape": list(FLASH_SHAPE), "dtype": "bfloat16",
+            "block_q": bq, "block_kv": bkv, "block_pairs_formed": pairs,
+            "block_pairs_all": (S // bq) * (S // bkv),
+            "max_abs_fp32": scale,
+            "flash_err_vs_fp32": errs["flash"],
+            "dense_bf16_err_vs_fp32": errs["dense"],
+            "sdpa_err_vs_fp32": errs["sdpa"], "limit": 2 * errs["dense"],
+            "flash_ms": (times[0] + times[3]) / 2,
+            "dense_ms": (times[1] + times[4]) / 2,
+            "sdpa_flash_ms": (times[2] + times[5]) / 2, "runs_ms": times,
+            "bound_ms_bf16": b16, "bound_by_bf16": by16,
+            "bound_ms_fp32_products": b32, "bound_by_fp32_products": by32}
+
+
+class StepTap:
+    """Keeps the logits of every step of ``serve --mole off``'s plain path.
+
+    While installed, ``repro_torch.launch.steps.make_prefill_step`` and
+    ``make_decode_step`` (the names ``serve._serve_plain`` imports when it
+    runs) return steps that record their last-position logits (fp32, on the
+    card) and, for the prefill, the prompt tokens; each calls the real step
+    once."""
+
+    def __init__(self):
+        from repro_torch.launch import steps
+
+        self.steps, self.logits, self.prompts = steps, [], None
+        self._prefill, self._decode = steps.make_prefill_step, steps.make_decode_step
+
+    def _wrap_prefill(self, model):
+        step = self._prefill(model)
+
+        def prefill(params, batch, caches):
+            logits, caches = step(params, batch, caches)
+            self.prompts = batch["tokens"].cpu().numpy()
+            self.logits.append(logits[:, 0].float().clone())
+            return logits, caches
+        return prefill
+
+    def _wrap_decode(self, model):
+        step = self._decode(model)
+
+        def decode(params, token, t, caches):
+            logits, caches = step(params, token, t, caches)
+            self.logits.append(logits[:, 0].float().clone())
+            return logits, caches
+        return decode
+
+    def __enter__(self):
+        self.steps.make_prefill_step = self._wrap_prefill
+        self.steps.make_decode_step = self._wrap_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.make_prefill_step = self._prefill
+        self.steps.make_decode_step = self._decode
+
+
+def mole_off_path(dev, kernels, ctx) -> dict:
+    """``serve --mode lm --mole off`` on the card with lm_long_prompt's
+    weights and prompts (``run_lm``: no registry, no engine, one prefill of
+    the 4 raw prompts, greedy decode).  Gated: all six launch counters stay
+    0; the prompts are lm_long_prompt's; every token is the argmax of the
+    plain logits it came from; and the tokens equal lm_long_prompt's lane
+    generations over each request's decided prefix: the positions before
+    the first whose plain top-1/top-2 gap is within the tie margin
+    (``TIE_MARGIN_ULPS`` bf16 ulps of the row's max|logit|), where the
+    lane's fused heads and K3 may break a near-tie another way; what is
+    left is counted as undecided, never gated."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args([
+        "--mode", "lm", "--arch", LM_ARCH, "--requests", str(LONG_REQUESTS),
+        "--prompt-len", str(LONG_PROMPT), "--gen", str(LONG_GEN),
+        "--mole", "off", "--seed", str(SEED),
+    ])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    with torch.no_grad(), StepTap() as tap:
+        t0 = time.monotonic()
+        off = serve.run_lm(args, params=ctx["params"])
+        off_s = time.monotonic() - t0
+    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    check(not any(launches.values()), f"--mole off launched kernels: {launches}")
+    lane = ctx["final"]
+    check(tap.prompts is not None and np.array_equal(tap.prompts, ctx["prompts"]),
+          "--mole off served other prompts than lm_long_prompt")
+    check(off.shape == lane.shape == (LONG_REQUESTS, LONG_GEN),
+          f"--mole off generations {off.shape}, lane {lane.shape}")
+    check(len(tap.logits) == LONG_GEN, f"{len(tap.logits)} plain steps recorded")
+    logits = torch.stack(tap.logits, dim=1)          # (requests, gen, V)
+    top2 = torch.topk(logits, 2, dim=-1).values.cpu().numpy().astype(np.float64)
+    top = logits.abs().amax(dim=-1).cpu().numpy()
+    check(np.array_equal(logits.argmax(dim=-1).cpu().numpy(), off),
+          "--mole off: a token is not the argmax of its plain logits")
+    gaps = (top2[..., 0] - top2[..., 1]) / np.vectorize(bf16_ulp)(top)
+    gated = undecided = equal_after = 0
+    for r in range(LONG_REQUESTS):
+        decided = gaps[r] > TIE_MARGIN_ULPS
+        n = LONG_GEN if decided.all() else int(np.argmin(decided))
+        check(np.array_equal(off[r, :n], lane[r, :n]),
+              f"request {r}: --mole off {off[r, :n].tolist()} differs from "
+              f"the lane's {lane[r, :n].tolist()} over its decided prefix")
+        gated += n
+        undecided += LONG_GEN - n
+        equal_after += int((off[r, n:] == lane[r, n:]).sum())
+    check(gated > 0, "no decided position: the comparison held nothing")
+    tokens = LONG_REQUESTS * LONG_GEN
+    out = {"phase": "mole_off", "arch": LM_ARCH, "requests": LONG_REQUESTS,
+           "prompt_len": LONG_PROMPT, "gen": LONG_GEN, "launches": launches,
+           "mole_off_s": off_s, "mole_off_tokens_per_s": tokens / off_s,
+           "lane_tokens_per_s": ctx["tokens_per_s"],
+           "lane_over_mole_off": ctx["tokens_per_s"] * off_s / tokens,
+           "tie_margin_ulps": TIE_MARGIN_ULPS,
+           "gap_ulps_min": float(gaps.min()),
+           "gated_prefix_tokens": gated, "undecided_tokens": undecided,
+           "equal_past_the_prefix": equal_after,
+           "tokens_equal": int((off == lane).sum()), "tokens": tokens,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_generation_off": off[0].tolist(),
+           "first_generation_lane": lane[0].tolist()}
     emit(out)
     return out
 
@@ -2189,6 +2577,17 @@ def main() -> None:
     release()
     lm = lm_path(dev, kernels, phase="lm_path", arch=LM_ARCH,
                  prompt_len=LM_PROMPT)
+    release()
+    long_ctx = {}
+    lm_path(dev, kernels, phase="lm_long_prompt", arch=LM_ARCH,
+            prompt_len=LONG_PROMPT, requests=LONG_REQUESTS, gen=LONG_GEN,
+            ctx=long_ctx, flash_shape=True)
+    release()
+    mole_off_path(dev, kernels, long_ctx)
+    del long_ctx
+    release()
+    lm_path(dev, kernels, phase="phi3_path", arch=PHI3_ARCH,
+            prompt_len=PHI3_PROMPT)
     release()
     rows.update(k45_checks(dev, kernels, ref))
     release()

@@ -2,8 +2,9 @@
 
 ``get_config(name)`` / ``get_smoke_config(name)``.  The reference's
 registry (``repro.configs``) names ten architectures; the port runs them
-as their slices land (dense global attention, then RWKV-6).  Every other
-name raises ``NotImplementedError``.
+as their slices land (dense global attention: deepseek_7b and
+phi3_mini_3p8b; RWKV-6: rwkv6_3b).  Every other name raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import importlib
 
 from ..models.base import ModelConfig
 
-ARCHS: tuple[str, ...] = ("deepseek_7b", "rwkv6_3b")
+ARCHS: tuple[str, ...] = ("deepseek_7b", "phi3_mini_3p8b", "rwkv6_3b")
 
 
 def _module(name: str):

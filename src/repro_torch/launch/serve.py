@@ -18,12 +18,18 @@ engine's token lane morphs the prompts (provider side), and the
 continuous-batched cross-tenant decode lane generates from the morphed
 prompts with every tenant's fused Aug-Embedding / Aug-head
 (``repro_torch.runtime.decode``, logits through the K3 kernel); the lane
-unmorphs the generations for the provider.
+unmorphs the generations for the provider.  ``--mole off`` serves the
+raw model on the raw prompts instead: no registry, no engine, one prefill
+and a greedy decode for all requests together.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch deepseek_7b --smoke --requests 8 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch phi3_mini_3p8b --smoke --requests 4 --prompt-len 16 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch rwkv6_3b --smoke --requests 4 --prompt-len 13 --gen 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch deepseek_7b --smoke --requests 4 --prompt-len 16 --mole off
 
 ``--mode serve`` — the **network front door**
 (``repro_torch.launch.server``): the async delivery engine behind a TCP
@@ -49,10 +55,9 @@ additionally reports p50/p95 completion latency.
 Flags that only make sense for another mode are an error, not silently
 ignored, as in the reference launcher.  Runs on the card (``--device
 cuda``, the default) unless ``--device cpu`` asks for the plain versions on
-the CPU.  ``--mole off`` belongs to a later slice of the port and raises
-``NotImplementedError``, as do architectures the port does not run yet;
-the reference's ``--backend`` has no counterpart (the device picks the
-implementation).
+the CPU.  Architectures the port does not run yet raise
+``NotImplementedError``; the reference's ``--backend`` has no counterpart
+(the device picks the implementation).
 """
 from __future__ import annotations
 
@@ -62,6 +67,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.configs import ARCHS
 
 
 def _weights_of(args, tenants: int) -> list[float]:
@@ -225,8 +232,10 @@ def run_lm(args, params=None) -> np.ndarray:
     Developer side: the
     :class:`~repro_torch.runtime.ContinuousDecodeLane` decodes every
     tenant's rows in one shared batched step against the registry's stacked
-    AugE tables / Aug-heads.  ``params`` (a :class:`ParamTree` on the
-    device) replaces the random weights drawn from ``--seed``.
+    AugE tables / Aug-heads.  With ``--mole off`` neither runs: the raw
+    model serves the raw prompts (:func:`_serve_plain`).  ``params`` (a
+    :class:`ParamTree` on the device) replaces the random weights drawn
+    from ``--seed``.
 
     Returns the unmorphed generations, request-ordered.
     """
@@ -239,25 +248,38 @@ def run_lm(args, params=None) -> np.ndarray:
         resolve_device,
     )
 
-    if args.mole != "token":
-        raise NotImplementedError(
-            "--mole off (per-tenant plain decode) is not ported yet"
-        )
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, mole=MoLeCfg(enabled=True, mode="token"))
+    use_mole = args.mole != "off"
+    if use_mole:
+        cfg = dataclasses.replace(cfg, mole=MoLeCfg(enabled=True, mode="token"))
     device = resolve_device(args.device)
     model = Model(cfg, device)
     if params is None:
         params = model.init(args.seed)
-    embed = params["embed"].float().cpu().numpy()
-    head = (None if cfg.tie_embeddings
-            else params["head"].float().cpu().numpy())
 
     tenants = max(1, min(args.tenants, args.requests))
     src = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
                                  global_batch=args.requests, seed=args.seed))
     raw_prompts = np.asarray(src.batch(0)["tokens"])
     tenant_of = [f"lm-{i % tenants}" for i in range(args.requests)]
+
+    if not use_mole:
+        t0 = time.time()
+        final = _serve_plain(model, params, raw_prompts, args, device)
+        dt = time.time() - t0
+        # analysis: declassified(demo CLI prints the generation of the raw model on the raw prompts - output data, not key material)
+        print(
+            f"arch={cfg.name} requests={args.requests} tenants={tenants} "
+            f"gen={args.gen} mole=off device={device}  {dt:.2f}s  "
+            f"{args.requests * args.gen / dt:.1f} tok/s\n"
+            f"first request generation (provider view): "
+            f"{final[0][:12].tolist()}"
+        )
+        return final
+
+    embed = params["embed"].float().cpu().numpy()
+    head = (None if cfg.tie_embeddings
+            else params["head"].float().cpu().numpy())
 
     # ---- provider side: engine-morphed prompts ---------------------------
     capacity = args.capacity if args.capacity is not None else tenants
@@ -340,6 +362,30 @@ def run_lm(args, params=None) -> np.ndarray:
         for line in stats.summary().splitlines():
             print(f"  {line}")
     return final
+
+
+def _serve_plain(model, params, prompts: np.ndarray, args,
+                 device) -> np.ndarray:
+    """``--mole off``: no registry and no engine.  All requests form one
+    group: one prefill of the raw prompts on the plain params
+    (:func:`~repro_torch.launch.steps.make_prefill_step`), then greedy
+    decode from ``prompt_len`` (:func:`make_decode_step`), as the
+    reference's plain path does.  Returns the generations, (requests, gen)
+    int64."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(model)
+    decode = make_decode_step(model)
+    caches = model.init_cache(len(prompts), args.prompt_len + args.gen + 1)
+    batch = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(device)}
+    logits, caches = prefill(params, batch, caches)
+    tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+    out = [tok]
+    for i in range(args.gen - 1):
+        logits, caches = decode(params, tok, args.prompt_len + i, caches)
+        tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1).cpu().numpy().astype(np.int64)
 
 
 # Mode gating: CLI spelling -> (argparse dest, default, modes that accept
@@ -457,7 +503,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--out-channels", type=int, default=None)
     ap.add_argument("--image-size", type=int, default=None)
     # lm-only options
-    ap.add_argument("--arch", default=None, help="--mode lm architecture")
+    ap.add_argument("--arch", default=None,
+                    help=f"--mode lm architecture: {', '.join(ARCHS)}")
     ap.add_argument("--smoke", action="store_true", default=None,
                     help="--mode lm: the architecture's smoke config")
     ap.add_argument("--prompt-len", type=int, default=None)

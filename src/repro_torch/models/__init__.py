@@ -2,7 +2,7 @@
 global attention, RWKV-6), and the paper's VGG.
 
   base    configs (copied from ``repro.models.base``) + parameter init
-  layers  norms, RoPE, dense/decode attention, gated MLPs
+  layers  norms, RoPE, dense/flash-scan/decode attention, gated MLPs
   blocks  the dense global self-attention block and the RWKV-6 block
   stack   embedding -> blocks -> final norm -> LM head
   api     ``Model`` and ``params_from_jax``

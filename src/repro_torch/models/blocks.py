@@ -165,6 +165,8 @@ def apply_attn(
         positions = torch.arange(S, device=h.device)
         q = L.rope(q, positions[None], cfg.rope_theta)
         k = L.rope(k, positions[None], cfg.rope_theta)
+        # dense up to dense_attn_max_seq, the flash scan above it; no
+        # window: check_supported refuses sliding-window configs
         o = L.attention(
             q, k, v, causal=causal, logit_cap=cfg.attn_softcap,
             dense_max_seq=cfg.dense_attn_max_seq, block_kv=cfg.flash_block_kv,

@@ -1,13 +1,12 @@
-"""Shared neural layers on PyTorch: norms, RoPE, attention, gated MLPs.
+"""Shared neural layers on PyTorch: norms, RoPE, attention (dense / flash-scan
+/ decode), gated MLPs.
 
 Ported from ``repro.models.layers``: pure functions over tensors, with the
 reference's layouts (``(B, S, H, hd)`` for attention) and dtype rules
 (norms, RoPE angles and softmax in fp32; products in the activation dtype,
-attention scores accumulated in fp32).
-
-``flash_attention`` (the reference's chunked long-sequence path) is not
-ported yet: :func:`attention` raises above ``dense_max_seq ** 2`` score
-entries instead of computing something else.
+attention scores accumulated in fp32).  :func:`attention` dispatches by
+sequence length, as the reference does: dense up to ``dense_max_seq ** 2``
+score entries, the two-level chunked :func:`flash_attention` above.
 """
 from __future__ import annotations
 
@@ -16,7 +15,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "rms_norm", "layer_norm", "norm", "softcap", "act_fn", "rope",
-    "dense_attention", "decode_attention", "attention", "gated_mlp",
+    "dense_attention", "flash_attention", "decode_attention", "attention",
+    "gated_mlp",
 ]
 
 # ---------------------------------------------------------------------------
@@ -142,6 +142,93 @@ def dense_attention(
     return out.reshape(B, Sq, Hq, hd)
 
 
+def flash_attention(
+    q: torch.Tensor,               # (B, Sq, Hq, hd)
+    k: torch.Tensor,               # (B, Skv, Hkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    logit_cap: float | None = None,
+    q_offset: int = 0,             # absolute position of q[0] (chunked prefill)
+    block_q: int = 512,
+    block_kv: int = 1024,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Two-level chunked attention with a running log-sum-exp.
+
+    The reference's blocking: Q in blocks of ``min(block_q, Sq)``, each
+    scanning KV in blocks of ``min(block_kv, Skv)`` with a running max
+    ``m``, normaliser ``l`` and fp32 accumulator, so the working set is one
+    ``(block_q, block_kv)`` score tile per head instead of ``Sq x Skv``.
+    Both products return fp32, as the reference's einsums with
+    ``preferred_element_type=float32`` do (a bf16 ``torch.einsum`` would
+    round the scores and each block's ``p @ v`` to bf16); ``p`` is rounded
+    to ``v.dtype`` before its product, as the reference's is.
+
+    A KV block that lies wholly in a causal Q block's future is skipped:
+    under the reference's mask it contributes exactly zero (``p = 0``, the
+    correction exactly 1, or 0 on a row still fully masked).  Nothing else
+    departs from the reference's arithmetic.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = (hd ** -0.5) if scale is None else scale
+    block_q = min(block_q, Sq)
+    block_kv = min(block_kv, Skv)
+    if Sq % block_q or Skv % block_kv:
+        raise AssertionError((Sq, block_q, Skv, block_kv))
+    nq, nk = Sq // block_q, Skv // block_kv
+
+    # (B, Hkv, G, S, hd) / (B, Hkv, 1, S, hd): each block a matmul operand.
+    qh = q.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4).float().contiguous()
+    kh = k.permute(0, 2, 1, 3)[:, :, None].float().contiguous()
+    vh = v.permute(0, 2, 1, 3)[:, :, None].float().contiguous()
+    out = torch.empty((B, Hkv, G, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    ar_q = torch.arange(block_q, device=q.device)
+    ar_kv = torch.arange(block_kv, device=q.device)
+    for qi in range(nq):
+        q0 = q_offset + qi * block_q
+        q_pos = q0 + ar_q
+        qblk = qh[:, :, :, qi * block_q : (qi + 1) * block_q]
+        acc = torch.zeros((B, Hkv, G, block_q, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, Hkv, G, block_q), float("-inf"),
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        for ki in range(nk):
+            if causal and ki * block_kv > q0 + block_q - 1:
+                break                # this block and the rest: all future
+            kv = slice(ki * block_kv, (ki + 1) * block_kv)
+            kv_pos = ki * block_kv + ar_kv
+            s = torch.matmul(qblk, kh[:, :, :, kv].transpose(-1, -2)) * scale
+            s = softcap(s, logit_cap)
+            ok = torch.ones((block_q, block_kv), dtype=torch.bool,
+                            device=q.device)
+            if causal:
+                ok &= kv_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                ok &= kv_pos[None, :] > (q_pos[:, None] - window)
+            s = s.masked_fill(~ok, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # fully masked rows keep m = -inf; exp(-inf - -inf) needs a safe m
+            m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(torch.where(torch.isinf(m), float("-inf"),
+                                         m - m_safe))
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.matmul(p.to(v.dtype).float(), vh[:, :, :, kv])
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out[:, :, :, qi * block_q : (qi + 1) * block_q] = (
+            acc / torch.clamp_min(l, 1e-30)[..., None]
+        )
+    # (B, Hkv, G, Sq, hd) -> (B, Sq, Hq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
 def decode_attention(
     q: torch.Tensor,               # (B, 1, Hq, hd)
     k_cache: torch.Tensor,         # (B, Smax, Hkv, hd)
@@ -175,22 +262,16 @@ def decode_attention(
 
 def attention(q, k, v, *, causal=True, window=None, logit_cap=None,
               q_offset=0, dense_max_seq=1024, block_kv=1024, scale=None):
-    """Dense attention up to ``dense_max_seq ** 2`` score entries.
-
-    Above that the reference switches to its chunked ``flash_attention``,
-    which this slice of the port does not have yet: raise rather than run
-    the dense path at a size the reference never runs it at.
-    """
-    if q.shape[1] * k.shape[1] > dense_max_seq * dense_max_seq:
-        raise NotImplementedError(
-            f"attention over {q.shape[1]} x {k.shape[1]} positions needs the "
-            f"chunked flash_attention (above dense_attn_max_seq="
-            f"{dense_max_seq}), which is not ported yet"
+    """Dispatch dense vs flash-scan by sequence length."""
+    if q.shape[1] * k.shape[1] <= dense_max_seq * dense_max_seq:
+        return dense_attention(
+            q, k, v, causal=causal, window=window, logit_cap=logit_cap,
+            q_pos=q_offset + torch.arange(q.shape[1], device=q.device),
+            kv_pos=torch.arange(k.shape[1], device=q.device), scale=scale,
         )
-    return dense_attention(
+    return flash_attention(
         q, k, v, causal=causal, window=window, logit_cap=logit_cap,
-        q_pos=q_offset + torch.arange(q.shape[1], device=q.device),
-        kv_pos=torch.arange(k.shape[1], device=q.device), scale=scale,
+        q_offset=q_offset, block_kv=block_kv, scale=scale,
     )
 
 

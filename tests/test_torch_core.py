@@ -249,6 +249,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.kernels.block_diag", "repro_torch.kernels.aug_gemm",
             "repro_torch.kernels.gemm", "repro_torch.models.cnn"} <= set(mods)
     assert {"repro_torch.kernels.wkv6", "repro_torch.configs.rwkv6_3b"} <= set(mods)
+    assert "repro_torch.configs.phi3_mini_3p8b" in mods
     assert {"repro_torch.checkpoint.manager", "repro_torch.runtime.async_engine",
             "repro_torch.runtime.wire", "repro_torch.launch.server",
             "repro_torch.launch.client"} <= set(mods)

@@ -582,3 +582,49 @@ def test_rwkv_smoke_model_on_card_equals_cpu(rng, cuda):
         lc, cc = cpu.decode(params, tok, t, cc)
         lg, cg = card.decode(params_c, tok.to(cuda), t, cg)
         close(lg, lc)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["identity", "out_of_order", "out_of_range"])
+def test_k3_at_the_phi3_shape(cuda, dtype, name):
+    """K3 at phi3_mini_3p8b's decode shape: h (4, 3072) against tables
+    (6, 3072, 32064).  32064 = 31 x 1024 + 320, so the last 1,024-column
+    strip is ragged; the whole output and that strip apart are held to the
+    plain version: fp32 within 1e-4 * max|plain|, bf16 within two bf16
+    ulps of max|plain|."""
+    R, K, N = 4, 3072, 32064
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    tables = torch.randn((6, K, N), generator=gen, device=cuda) * K ** -0.5
+    h = torch.randn((R, K), generator=gen, device=cuda).to(dtype)
+    gidx = torch.tensor(GIDX_CASES[name], dtype=torch.int32, device=cuda)
+    want = ref.lm_head_rows_grouped_ref(h, gidx.clamp(0, 5), tables)
+    before = grouped_row_gemm.launches
+    got = grouped_row_gemm(h, gidx, tables)
+    torch.cuda.synchronize()
+    assert grouped_row_gemm.launches == before + 1
+    _hold(got, want, dtype)
+    last = N - N % 1024
+    _hold(got[:, last:].contiguous(), want[:, last:].contiguous(), dtype)
+
+
+def test_flash_attention_on_card_at_the_long_prompt_shape(cuda):
+    """The port's flash scan (``models.layers.flash_attention``, plain
+    torch ops) at (1, 2048, 32, 128) in bf16, the shape of one deepseek_7b
+    layer on a 2048-token prompt, against an fp32 dense attention of the
+    same bf16 inputs on the card: within twice the distance of bf16 dense
+    attention from that fp32 result (the bound of ``chip_smoke.py``'s
+    lm_long_prompt phase)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, 2048, 32, 128), generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    exact = layers.dense_attention(q.float(), k.float(), v.float())
+    dense = layers.dense_attention(q, k, v)
+    flash = layers.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.dtype == torch.bfloat16 and flash.shape == q.shape
+    assert bool(torch.isfinite(flash).all())
+    e_dense = float((dense.float() - exact).abs().max())
+    e_flash = float((flash.float() - exact).abs().max())
+    assert 0 < e_dense and e_flash <= 2 * e_dense, (e_flash, e_dense)

@@ -10,7 +10,6 @@ crash-and-restore mid-decode — and the port's own per-tenant plain decode.
 One batched decode step's logits are held to the reference's per-tenant
 decode on fused parameters within rtol 1e-5 (fp32, sums in other orders).
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -29,12 +28,14 @@ from repro.models.api import Model as JModel  # noqa: E402
 import repro_torch.core.lm as tlm  # noqa: E402
 import repro_torch.runtime as trt  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import grouped_row_gemm  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     make_batched_decode_logits, make_row_prefill_step,
 )
 from repro_torch.models import Model, params_from_jax  # noqa: E402
+from _lm_parity import hold_lane  # noqa: E402
 
 PROMPT_LEN, MAX_LEN = 8, 24
 TENANTS = 8
@@ -252,29 +253,67 @@ def test_lane_runs_on_the_card_unless_asked(lm, monkeypatch):
         )
 
 
-@pytest.mark.parametrize("argv", [["--mole", "off"], ["--arch", "gemma2_27b"]])
+@pytest.mark.parametrize("argv", [["--arch", "gemma2_27b"]])
 def test_serve_lm_unported_options_raise(argv):
-    """The per-tenant plain decode (``--mole off``) and architectures of
-    later slices are refused, not served some other way."""
+    """Architectures of later slices are refused, not served some other
+    way."""
     with pytest.raises(NotImplementedError, match="not ported"):
         tserve.main(["--mode", "lm", "--smoke", "--device", "cpu", *argv])
 
 
-def test_serve_lm_smoke_matches_reference_cli(capsys):
+def _reference_weights(arch):
+    jcfg = j_smoke(arch)
+    jparams = JModel(jcfg).init(jax.random.key(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams),
+                             get_smoke_config(arch), device="cpu")
+    return jcfg, jparams, params
+
+
+def test_serve_lm_mole_off_matches_reference_and_mole_token(capsys):
+    """``tests/test_lm_engine.py::test_serve_lm_engine_matches_plain_serving``
+    across the packages: ``serve --mode lm --mole off`` on the CPU with the
+    reference's weights serves the raw model on the raw prompts, one group,
+    no registry, engine or kernel; its generations equal the reference
+    launcher's ``--mole off``, and the port's ``--mole token`` at 1 and 2
+    tenants equal them, token for token wherever the reference's top-2 gap
+    decides (:func:`_lm_parity.hold_lane`)."""
+    flags = ["--mode", "lm", "--arch", "deepseek_7b", "--smoke",
+             "--requests", "4", "--prompt-len", "16", "--gen", "4"]
+    want = np.asarray(jserve.main([*flags, "--mole", "off"]))
+    ref_out = capsys.readouterr().out
+    jcfg, jparams, params = _reference_weights("deepseek_7b")
+    prompts = np.asarray(SyntheticLM(DataConfig(
+        vocab=jcfg.vocab, seq_len=16, global_batch=4, seed=0)).batch(0)["tokens"])
+    before = grouped_row_gemm.launches
+    off = tserve.run_lm(tserve.parse_args([*flags, "--mole", "off",
+                                           "--device", "cpu"]), params=params)
+    port_out = capsys.readouterr().out
+    assert grouped_row_gemm.launches == before
+    assert off.shape == (4, 4) and off.dtype == np.int64
+    assert hold_lane(jparams, jcfg, prompts, off, want) > 0
+    assert "mole=off device=cpu" in port_out and "engine morph" not in port_out
+    for out, gens in ((ref_out, want), (port_out, off)):
+        line = f"first request generation (provider view): {gens[0][:12].tolist()}"
+        assert line in out.splitlines()
+    for tenants in ("1", "2"):
+        mole = tserve.run_lm(tserve.parse_args(
+            [*flags, "--mole", "token", "--tenants", tenants, "--device", "cpu"]),
+            params=params)
+        assert hold_lane(jparams, jcfg, prompts, mole, off) > 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek_7b", "phi3_mini_3p8b"])
+def test_serve_lm_smoke_matches_reference_cli(capsys, arch):
     """``serve --mode lm --smoke --device cpu`` with the reference's weights:
     the same generations as the reference launcher, and the first one
     printed the same way; the CPU run launches no kernel."""
-    flags = ["--mode", "lm", "--arch", "deepseek_7b", "--smoke",
+    flags = ["--mode", "lm", "--arch", arch, "--smoke",
              "--requests", "6", "--tenants", "3", "--prompt-len", "8",
              "--gen", "5"]
     want = jserve.main([*flags, "--backend", "jnp"])
     ref_out = capsys.readouterr().out
     args = tserve.parse_args([*flags, "--device", "cpu"])
-    cfg = dataclasses.replace(j_smoke("deepseek_7b"))
-    params = params_from_jax(
-        jax.tree.map(np.asarray, JModel(cfg).init(jax.random.key(0))),
-        get_smoke_config("deepseek_7b"), device="cpu",
-    )
+    _, _, params = _reference_weights(arch)
     before = grouped_row_gemm.launches
     got = tserve.run_lm(args, params=params)
     port_out = capsys.readouterr().out

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as j_config  # noqa: E402
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
 from repro.models import blocks as jB, layers as jL, stack as jS  # noqa: E402
 from repro.models.api import Model as JModel  # noqa: E402
@@ -96,10 +97,15 @@ def test_gated_mlp(rng):
                jL.gated_mlp(*map(jnp.asarray, (x, wg, wu, wo)), act))
 
 
-def test_attention_above_dense_limit_raises(rng):
-    x = torch.zeros((1, 9, 2, 8))
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tL.attention(x, x, x, dense_max_seq=8)
+def test_attention_above_dense_limit_is_flash(rng):
+    """Above ``dense_max_seq ** 2`` score entries the dispatch computes the
+    reference's chunked ``flash_attention`` (block_q 16, block_kv 8 here).
+    The flash scan's own cases are in ``test_torch_flash.py``."""
+    q, k, v = (rng.standard_normal((1, 16, 2, 8)).astype(np.float32)
+               for _ in range(3))
+    _close(tL.attention(_t(q), _t(k), _t(v), dense_max_seq=8, block_kv=8),
+           jL.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              block_kv=8))
 
 
 @pytest.mark.parametrize("variant", [
@@ -206,6 +212,15 @@ def test_unported_configs_raise(change):
 
 def test_config_registry():
     assert get_config("deepseek_7b").d_model == 4096
+    # phi3_mini_3p8b is the reference's config, FULL and smoke
+    for port, ref in ((get_config, j_config), (get_smoke_config, j_smoke)):
+        tc, jc = port("phi3_mini_3p8b"), ref("phi3_mini_3p8b")
+        for f in dataclasses.fields(tc):
+            if f.name != "mole":
+                assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+    full = get_config("phi3_mini_3p8b")
+    assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
+            full.vocab) == (32, 3072, 32, 96, 32064)
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("gemma2_27b")
     with pytest.raises(NotImplementedError, match="unknown or not ported"):

@@ -49,10 +49,10 @@ from repro_torch.launch.steps import (  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     Model, check_supported, params_from_jax, stack as tS,
 )
+from _lm_parity import decided as _decided, hold_lane as _hold_lane  # noqa: E402
 
 ARCH = "rwkv6_3b"
 LOGIT_RTOL = 1e-5
-GAP_MARGIN = 1e-4
 
 
 def _t(a):
@@ -70,14 +70,6 @@ def _close(got, want, rtol=LOGIT_RTOL):
 def _jparams(cfg, seed=0):
     params = JModel(cfg).init(jax.random.key(seed))
     return params, jax.tree.map(np.asarray, params)
-
-
-def _decided(logits) -> np.ndarray:
-    """Positions whose top-1/top-2 gap exceeds ``GAP_MARGIN`` x max|logit|
-    of that position: there the argmax is the same on every machine."""
-    lg = np.asarray(logits, np.float64)
-    top2 = np.sort(lg, axis=-1)[..., -2:]
-    return top2[..., 1] - top2[..., 0] > GAP_MARGIN * np.abs(lg).max(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -244,47 +236,6 @@ def test_model_init_and_support():
 
 PROMPT_LEN, MAX_LEN, TENANTS = 9, 24, 6
 GENS = [3, 6, 4, 8, 2, 5]
-
-
-def _ref_logits(jparams, jcfg, prompts, gens) -> list[np.ndarray]:
-    """The reference's teacher-forced forward on each ``prompt + gen[:-1]``
-    (raw token ids; one batch, zero-padded at the end, which a causal model
-    does not see): the logits at the positions that predicted ``gen``."""
-    P, G = len(prompts[0]), max(len(g) for g in gens)
-    seqs = np.zeros((len(gens), P + G - 1), np.int32)
-    for i, (p, g) in enumerate(zip(prompts, gens)):
-        seqs[i, :P + len(g) - 1] = np.concatenate([p, g[:-1]])
-    lg = np.asarray(jS.forward(jparams, jcfg, jnp.asarray(seqs))[0],
-                    np.float64)
-    return [lg[i, P - 1:P - 1 + len(g)] for i, g in enumerate(gens)]
-
-
-def _hold_lane(jparams, jcfg, prompts, got, want):
-    """Hold the port's generations ``got`` against the reference's ``want``
-    (lists of unmorphed token arrays, one per request) without asking two
-    machines to break a near-tie the same way:
-
-      * token for token up to the first step at which the reference's own
-        logits (its teacher-forced forward on its generation) have a
-        top-1/top-2 gap under ``GAP_MARGIN`` x max|logit|; such steps are
-        rare (at most one in ten);
-      * every token of the port is, on its own prefix, within the margin
-        of the reference forward's maximum, so after a near-tie the port
-        still decodes greedily under the reference's model.
-    """
-    got = [np.asarray(g) for g in got]
-    want = [np.asarray(w) for w in want]
-    assert [g.shape for g in got] == [w.shape for w in want]
-    n_steps = n_ties = 0
-    for g, w, lg in zip(got, want, _ref_logits(jparams, jcfg, prompts, want)):
-        decided = _decided(lg)
-        first = len(w) if decided.all() else int(np.argmin(decided))
-        np.testing.assert_array_equal(g[:first], w[:first])
-        n_steps, n_ties = n_steps + len(w), n_ties + int((~decided).sum())
-    assert n_ties * 10 <= n_steps, f"{n_ties} near-ties in {n_steps} steps"
-    for g, lg in zip(got, _ref_logits(jparams, jcfg, prompts, got)):
-        slack = lg.max(-1) - lg[np.arange(len(g)), g]
-        assert (slack <= GAP_MARGIN * np.abs(lg).max(-1)).all(), slack
 
 
 @pytest.fixture(scope="module")
