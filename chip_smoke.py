@@ -95,25 +95,29 @@ printing one JSON line; any failure raises and exits non-zero:
                 fp64 QR of 7680^2 and the fusion per tenant) timed apart,
                 and the peak device memory.
   5. kernels_k3 the decode-logits kernel (``grouped_row_gemm``, K3) against
-                its plain version at the LM path's shape: h (4, 4096) in
-                bf16 and fp32 against tables (6, 4096, 102400) fp32, every
-                slot-index pattern incl. the out-of-range clamp and
-                duplicates, plus ragged (R=3, K=3000, N=1000 and N=999).
-                Bound: fp32 max|kernel - plain| <= 1e-4 * max|plain|; bf16
-                two bf16 units in the last place of max|plain| (each side
-                rounds once).  Times kernel, plain version and one library
-                call (torch.bmm of h[:, None, :] against the pre-gathered
-                tables cast to bf16 beforehand, a yardstick the port never
-                calls), and for scale the same bmm in fp32.  The same at
-                phi3_path's shape, h (4, 3072) x tables (6, 3072, 32064)
-                (``row_phi3``): every slot-index pattern in bf16 and fp32,
-                the ragged last 1,024-column strip (320 columns) held apart,
-                K3 and torch.bmm (fp32 tables, and bf16 tables cast
-                beforehand) timed in CUDA graphs and back to back, the plain
-                version back to back, the byte bound (1.58 GB of tables).
+                its plain version at the LM paths' shapes, deepseek_7b's h
+                (4, 4096) x tables (6, 4096, 102400) and phi3_mini_3p8b's h
+                (4, 3072) x tables (6, 3072, 32064) (``row_phi3``; its
+                ragged last strip of 512 table bytes, the last 64 columns
+                on either table dtype, held apart too), and ragged (R=3,
+                K=3000, N=1000 and N=999): fp32 tables and the same tables
+                cast to bf16, h in bf16 and fp32, every slot-index pattern
+                incl. the out-of-range clamp and duplicates.  Bound: fp32 h
+                max|kernel - plain| <= 1e-4 * max|plain|; bf16 h two bf16
+                units in the last place of max|plain| (each side rounds
+                once).  Gated: two calls give the same bits.  At
+                both shapes, on 4 distinct slots with bf16 h, for bf16
+                tables (the lane's head stacks: the main path) and fp32
+                tables: K3 in CUDA graphs (``graph_ms``) and back to back
+                (``cuda_ms``), the plain version back to back, one library
+                call (torch.bmm of h[:, None, :] against the same tables, a
+                yardstick the port never calls) both ways, and the byte
+                bound of each table dtype.
   6. lm_path    ``serve --mode lm`` at deepseek_7b FULL width (30 layers,
                 d_model 4096, vocab 102400, bf16) with random weights from
-                a seeded generator on the card: 4 tenants at capacity 4,
+                a seeded generator on the card: 4 tenants at capacity 4
+                (the lane's Aug-head stack gated to be staged in the
+                model's bf16, its AugE tables in fp32; their bytes printed),
                 8 requests of 32 prompt tokens, 16 generated tokens each, so
                 rows retire and new ones are admitted mid-run.  Gated:
                 (1) the token lane's morphed prompts equal numpy's
@@ -252,8 +256,10 @@ printing one JSON line; any failure raises and exits non-zero:
                 (reset at its start).  Every path phase sets all six
                 launch counters to 0 before its run and fails if a kernel
                 not on its path was launched.
- 11. the ``kernels`` line (K1-K6, each launched on its path), the card's
-     name and power limit, and the final ``{"ok": true, ...}`` line.
+ 11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
+     on bf16 tables, its fp32-table numbers beside them under
+     ``fp32_tables``), the card's name and power limit, and the final
+     ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -337,7 +343,7 @@ FLASH_SHAPE = (1, 2048, 32, 128)
 # 32064).  3072 + 16 + 1 positions stay inside its published 4k context, and
 # 3072 is the longest such prompt that the flash scan's KV block (1024)
 # divides.  K3 there: h (4, 3072) x tables (4, 3072, 32064); 32064 is not a
-# multiple of K3's 1,024-column strip.
+# multiple of K3's strip (128 fp32 or 256 bf16 columns): its last is 64 wide.
 PHI3_ARCH, PHI3_PROMPT = "phi3_mini_3p8b", 3072
 K3_PHI3 = (4, 3072, 32064)
 # K6 (kernels_k6) and the RWKV path (rwkv_path): rwkv6_3b FULL, 40 heads of
@@ -652,142 +658,139 @@ def kernel_checks(dev, kernels, ref) -> dict:
 
 # -- phase 5 ------------------------------------------------------------------
 
-def k3_checks(dev, kernels, ref) -> dict:
-    """K3 vs its plain version at the LM path's shape and ragged shapes, in
-    bf16 and fp32; returns its error and timing row (bf16, the main path's
-    activation type)."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    checks = []
-    row = {"max_abs_err": 0.0}
+def k3_bound(R: int, K: int, N: int, h_dtype, t_dtype) -> tuple[float, str]:
+    """The least time for one K3 call on R distinct slots: each table read
+    once (R x K x N entries of ``t_dtype``), h and the output once, the
+    slot indices; 2 R K N flops of fp32 FFMA."""
+    hb, tb = h_dtype.itemsize, t_dtype.itemsize
+    return bound_ms(tb * R * K * N + hb * R * (K + N) + 4 * R, 2 * R * K * N)
 
-    def run_cases(tag, R, K, N, dtypes):
-        tables = torch.randn((N_SLOTS, K, N), generator=gen, device=dev)
-        tables *= K ** -0.5
-        for dtype in dtypes:
-            h = torch.randn((R, K), generator=gen, device=dev).to(dtype)
+
+def k3_cases(kernels, ref, gen, tag: str, R: int, K: int, N: int,
+             checks: list, last_strip: bool = False) -> float:
+    """K3 against its plain version on the same operands for every slot
+    pattern, both table dtypes (fp32 tables, and the same tables cast to
+    bf16) and both h dtypes; with ``last_strip`` also the kernel's last
+    strip of 512 table bytes a row apart (ragged where N is not a multiple
+    of its 128 fp32 or 256 bf16 columns).  Bound: fp32 h within 1e-4 *
+    max|plain|, bf16 h two bf16 ulps of max|plain| (each side rounds once).
+    Gated too: two calls give the same bits.  Returns the largest error."""
+    dev = gen.device
+    worst = 0.0
+    t32 = torch.randn((N_SLOTS, K, N), generator=gen, device=dev) * K ** -0.5
+    for t_dtype in (torch.float32, torch.bfloat16):
+        tables = t32 if t_dtype == torch.float32 else t32.to(t_dtype)
+        tname = str(t_dtype).split(".")[-1]
+        width = 512 // t_dtype.itemsize
+        strip = (N - 1) // width * width
+        for h_dtype in (torch.bfloat16, torch.float32):
+            h = torch.randn((R, K), generator=gen, device=dev).to(h_dtype)
+            name = str(h_dtype).split(".")[-1]
             for case, idx in GIDX_CASES.items():
                 gidx = torch.tensor(idx[:R], dtype=torch.int32, device=dev)
                 got = kernels.grouped_row_gemm(h, gidx, tables)
+                again = kernels.grouped_row_gemm(h, gidx, tables)
                 want = ref.lm_head_rows_grouped_ref(h, gidx, tables)
                 torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                scale = float(want.float().abs().max())
-                lim = (REL_TOL * scale if dtype == torch.float32
-                       else 2 * bf16_ulp(scale))
-                name = str(dtype).split(".")[-1]
-                checks.append({"case": f"{tag}/{name}/{case}",
-                               "max_abs_err": err, "limit": lim})
-                check(got.shape == (R, N) and got.dtype == dtype,
-                      f"K3 {tag}/{case}: got {tuple(got.shape)} {got.dtype}")
-                check(bool(torch.isfinite(got).all()), f"K3 {tag}/{case}: non-finite")
-                check(err <= lim, f"K3 {tag}/{name}/{case}: |kernel - plain| {err} > {lim}")
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-        return tables
-
-    tables = run_cases(f"R{K3_R}_K{K3_K}_N{K3_N}", K3_R, K3_K, K3_N,
-                       (torch.bfloat16, torch.float32))
-    # Timed at the main path's shape: 4 rows on 4 distinct slots (a
-    # contiguous prefix of the stack, gidx = arange(4)), bf16 activations.
-    ident = torch.arange(K3_R, dtype=torch.int32, device=dev)
-    main = tables[:K3_R]
-    h = torch.randn((K3_R, K3_K), generator=gen, device=dev).to(torch.bfloat16)
-    # The library call: torch.bmm of h[:, None, :] against the tables cast
-    # to bf16 beforehand (the same function; it reads half K3's bytes).
-    # For scale, the same bmm in fp32 against the fp32 tables (K3's bytes).
-    cast = main.to(torch.bfloat16)
-    h32 = h.float()
-    times = [
-        cuda_ms(lambda: kernels.grouped_row_gemm(h, ident, main), 10),
-        cuda_ms(lambda: ref.lm_head_rows_grouped_ref(h, ident, main), 10),
-        cuda_ms(lambda: kernels.grouped_row_gemm(h, ident, main), 10),
-        cuda_ms(lambda: ref.lm_head_rows_grouped_ref(h, ident, main), 10),
-        cuda_ms(lambda: torch.bmm(h[:, None, :], cast), 10),
-        cuda_ms(lambda: torch.bmm(h32[:, None, :], main), 10),
-    ]
-    fp32_ms = cuda_ms(lambda: kernels.grouped_row_gemm(h32, ident, main), 10)
-    # Bytes this call needs: each of the 4 distinct slots' tables once, h
-    # and the output once; fp32 FFMA for the products.
-    b, by = bound_ms(4 * K3_R * K3_K * K3_N + 2 * K3_R * (K3_K + K3_N) + 4 * K3_R,
-                     2 * K3_R * K3_K * K3_N)
-    row.update(ms=(times[0] + times[2]) / 2, plain_ms=(times[1] + times[3]) / 2,
-               library_ms=times[4], bound_ms=b, bound_by=by,
-               timed_shape=f"h({K3_R},{K3_K}) bf16, tables({K3_R},{K3_K},{K3_N}) "
-                           f"fp32, gidx=arange({K3_R})",
-               library_reads="bf16 tables, cast beforehand",
-               library_fp32_ms=times[5], runs_ms=times, fp32_h_ms=fp32_ms)
-    del tables, main, cast
+                what = f"{tag}/{tname}_tables/{name}_h/{case}"
+                check(got.shape == (R, N) and got.dtype == h_dtype,
+                      f"K3 {what}: got {tuple(got.shape)} {got.dtype}")
+                check(bool(torch.isfinite(got).all()), f"K3 {what}: non-finite")
+                check(same_bits(got, again), f"K3 {what}: two calls differ")
+                parts = [("all", slice(None))]
+                if last_strip:
+                    parts.append(("last_strip", slice(strip, None)))
+                for part, cols in parts:
+                    err = float((got[:, cols].float()
+                                 - want[:, cols].float()).abs().max())
+                    scale = float(want[:, cols].float().abs().max())
+                    lim = (REL_TOL * scale if h_dtype == torch.float32
+                           else 2 * bf16_ulp(scale))
+                    checks.append({"case": f"{what}/{part}",
+                                   "max_abs_err": err, "limit": lim})
+                    check(err <= lim, f"K3 {what}/{part}: |kernel - plain| "
+                                      f"{err} > {lim}")
+                    worst = max(worst, err)
+        del tables
+    del t32
     torch.cuda.empty_cache()
-    for R, K, N in K3_RAGGED:
-        run_cases(f"ragged_R{R}_K{K}_N{N}", R, K, N,
-                  (torch.bfloat16, torch.float32))
-    phi3 = k3_phi3_row(dev, kernels, ref, gen, checks)
-    emit({"phase": "kernels_k3", "checks": len(checks),
-          "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
-          "row": row, "row_phi3": phi3})
-    return row
+    return worst
 
 
-def k3_phi3_row(dev, kernels, ref, gen, checks: list) -> dict:
-    """K3 at phi3_path's shape, h (4, 3072) x tables (6, 3072, 32064), in
-    bf16 and fp32 against the plain version for every slot-index pattern:
-    the whole output, and apart the ragged last 1,024-column strip (32064 =
-    31 x 1024 + 320).  Timed on 4 distinct slots with bf16 h: K3 and
-    torch.bmm (on the fp32 tables, and on the tables cast to bf16
-    beforehand) in CUDA graphs (``graph_ms``) and back to back
-    (``cuda_ms``), the plain version back to back (its per-row slot lookup
-    reads the indices on the host, which a graph cannot capture)."""
-    R, K, N = K3_PHI3
-    strip = N - N % 1024
-    tables = torch.randn((N_SLOTS, K, N), generator=gen, device=dev) * K ** -0.5
-    worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        h = torch.randn((R, K), generator=gen, device=dev).to(dtype)
-        name = str(dtype).split(".")[-1]
-        for case, idx in GIDX_CASES.items():
-            gidx = torch.tensor(idx[:R], dtype=torch.int32, device=dev)
-            got = kernels.grouped_row_gemm(h, gidx, tables)
-            want = ref.lm_head_rows_grouped_ref(h, gidx, tables)
-            torch.cuda.synchronize()
-            check(got.shape == (R, N) and got.dtype == dtype,
-                  f"K3 phi3/{case}: got {tuple(got.shape)} {got.dtype}")
-            check(bool(torch.isfinite(got).all()), f"K3 phi3/{case}: non-finite")
-            for part, cols in (("all", slice(None)), ("last_strip", slice(strip, None))):
-                err = float((got[:, cols].float() - want[:, cols].float()).abs().max())
-                scale = float(want[:, cols].float().abs().max())
-                lim = (REL_TOL * scale if dtype == torch.float32
-                       else 2 * bf16_ulp(scale))
-                checks.append({"case": f"phi3_R{R}_K{K}_N{N}/{name}/{case}/{part}",
-                               "max_abs_err": err, "limit": lim})
-                check(err <= lim, f"K3 phi3/{name}/{case}/{part}: "
-                                  f"|kernel - plain| {err} > {lim}")
-                worst = max(worst, err)
+def k3_timed(gemm, kernels, ref, gen, R: int, K: int, N: int) -> dict:
+    """K3 at the decode lane's shape on R distinct slots (gidx = arange(R),
+    a contiguous stack of R) with bf16 h, on bf16 tables (the lane's head
+    stacks in a bf16 model: the main path) and on fp32 tables of the same
+    values.  Each: K3 in CUDA graphs of 10 calls (``graph_ms``) and 10
+    back to back (``cuda_ms``), in turns; the plain version back to back
+    (its per-row slot lookup reads the indices on the host, which a graph
+    cannot capture); torch.bmm of h[:, None, :] against the same tables (a
+    yardstick the port never calls; on fp32 tables it runs in fp32, on K3's
+    bytes, without K3's rounding of the entries to bf16) both ways; the
+    byte bound; the split of the work (``gemm.row_splits``: the grid's
+    strips and each warp's rows of K)."""
+    dev = gen.device
     ident = torch.arange(R, dtype=torch.int32, device=dev)
-    main = tables[:R].contiguous()
-    del tables
+    t32 = torch.randn((R, K, N), generator=gen, device=dev) * K ** -0.5
     h = torch.randn((R, K), generator=gen, device=dev).to(torch.bfloat16)
-    cast = main.to(torch.bfloat16)
-    h32 = h.float()
-    run_k3 = lambda: kernels.grouped_row_gemm(h, ident, main)  # noqa: E731
-    bmm16 = lambda: torch.bmm(h[:, None, :], cast)  # noqa: E731
-    bmm32 = lambda: torch.bmm(h32[:, None, :], main)  # noqa: E731
-    b, by = bound_ms(4 * R * K * N + 2 * R * (K + N) + 4 * R, 2 * R * K * N)
-    out = {"max_abs_err": worst, "ms": graph_ms(run_k3, 5, 10),
-           "eager_ms": cuda_ms(run_k3, 10),
-           "plain_ms": cuda_ms(lambda: ref.lm_head_rows_grouped_ref(h, ident, main), 10),
-           "library_ms": graph_ms(bmm16, 5, 10),
-           "library_eager_ms": cuda_ms(bmm16, 10),
-           "library_fp32_ms": graph_ms(bmm32, 5, 10),
-           "library_fp32_eager_ms": cuda_ms(bmm32, 10),
-           "bound_ms": b, "bound_by": by,
-           "table_bytes": 4 * R * K * N,
-           "timed_shape": f"h({R},{K}) bf16, tables({R},{K},{N}) fp32, "
-                          f"gidx=arange({R})",
-           "library_reads": "library_ms: bf16 tables, cast beforehand; "
-                            "library_fp32_ms: K3's fp32 tables",
-           "last_strip_columns": N - strip}
-    del main, cast
+    out = {}
+    for t_dtype in (torch.bfloat16, torch.float32):
+        tables = t32.to(t_dtype)
+        hb = h if t_dtype == torch.bfloat16 else h.float()
+        run = lambda: kernels.grouped_row_gemm(h, ident, tables)  # noqa: E731
+        bmm = lambda: torch.bmm(hb[:, None, :], tables)  # noqa: E731
+        g = [graph_ms(run, 5, 10), graph_ms(run, 5, 10)]
+        e = [cuda_ms(run, 10), cuda_ms(run, 10)]
+        b, by = k3_bound(R, K, N, h.dtype, t_dtype)
+        strips, kslice = gemm.row_splits(R, K, N, t_dtype.itemsize)
+        tname = str(t_dtype).split(".")[-1]
+        out[tname] = {
+            "ms": float(np.mean(g)), "graph_ms": g, "cuda_ms": e,
+            "plain_ms": cuda_ms(lambda: ref.lm_head_rows_grouped_ref(
+                h, ident, tables), 10),
+            "library_ms": graph_ms(bmm, 5, 10),
+            "library_cuda_ms": cuda_ms(bmm, 10),
+            "bound_ms": b, "bound_by": by,
+            "ms_over_bound": float(np.mean(g)) / b,
+            "table_bytes": t_dtype.itemsize * R * K * N,
+            "grid": [strips, R], "warp_kslice": kslice,
+            "timed_shape": f"h({R},{K}) bf16, tables({R},{K},{N}) {tname}, "
+                           f"gidx=arange({R})",
+            "library": f"torch.bmm, {str(hb.dtype).split('.')[-1]} h "
+                       f"against the same {tname} tables",
+        }
+        del tables
+    del t32
     torch.cuda.empty_cache()
     return out
+
+
+def k3_checks(dev, kernels, ref) -> dict:
+    """K3 vs its plain version at the LM paths' shapes (deepseek_7b, then
+    phi3_mini_3p8b as ``row_phi3``) and ragged shapes, every slot pattern,
+    both table dtypes and both h dtypes, two calls the same bits; the timing
+    rows.  Returns the deepseek row on bf16 tables (the main path's stacks), its
+    fp32-table figures beside it."""
+    from repro_torch.kernels import gemm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    checks = []
+    err = k3_cases(kernels, ref, gen, f"R{K3_R}_K{K3_K}_N{K3_N}", K3_R, K3_K,
+                   K3_N, checks)
+    for R, K, N in K3_RAGGED:
+        err = max(err, k3_cases(kernels, ref, gen, f"ragged_R{R}_K{K}_N{N}",
+                                R, K, N, checks))
+    R, K, N = K3_PHI3
+    err_phi3 = k3_cases(kernels, ref, gen, f"phi3_R{R}_K{K}_N{N}", R, K, N,
+                        checks, last_strip=True)
+    timed = k3_timed(gemm, kernels, ref, gen, K3_R, K3_K, K3_N)
+    phi3 = k3_timed(gemm, kernels, ref, gen, R, K, N)
+    row = dict(timed["bfloat16"], max_abs_err=max(err, err_phi3),
+               fp32_tables=timed["float32"])
+    emit({"phase": "kernels_k3", "checks": len(checks),
+          "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
+          "row": row, "row_phi3": dict(phi3, max_abs_err=err_phi3)})
+    return row
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -1279,9 +1282,17 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         model, params, registry, rows=LM_TENANTS, max_len=max_len,
         device=dev, scheduler=engine.scheduler,
     )
-    lane._refresh_plan()            # stage the (S, V, d) / (S, d, V) stacks
+    stacks = lane._refresh_plan().arrays   # stage (S, V, d) / (S, d, V)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
+    # The lane holds its Aug-heads in the model's activation type (bf16
+    # here: K3 reads half an fp32 stack's bytes), its AugE tables in fp32.
+    check(stacks["aug_heads"].dtype == cfg.adtype
+          and stacks["aug_embeds"].dtype == torch.float32,
+          f"the lane staged aug_heads {stacks['aug_heads'].dtype} (model "
+          f"{cfg.adtype}), aug_embeds {stacks['aug_embeds'].dtype}")
+    stack_bytes = {n: a.numel() * a.element_size() for n, a in stacks.items()}
+    del stacks
 
     # -- the main path: provider-side token lane, then the decode lane -----
     reset_launches(kernels)
@@ -1439,6 +1450,8 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
                           "forward_flash_scan_calls": flash2.calls,
                           "forward_exact_argmax_share": float(exact2.mean())},
         "weights_init_s": init_s, "host_secret_and_staging_s": setup_s,
+        "aug_heads_dtype": str(cfg.adtype).split(".")[-1],
+        "stack_bytes": stack_bytes,
         "peak_mem_gb": peak_gb,
         "first_generation": final[0][:12].tolist(),
     }
@@ -2613,15 +2626,20 @@ def main() -> None:
         "aug_gemm": ("aug_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
         "wkv6_chunked": ("wkv6.cu", "src/repro/kernels/wkv6.py:71"),
     }
-    emit({"kernels": [
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
-         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
-         "bound_by": rows[name]["bound_by"],
-         "library_ms": rows[name]["library_ms"]}
+         "max_abs_err": rows[name]["max_abs_err"],
+         **{k: rows[name][k] for k in keys}}
         for name, (src, replaces) in kernel_rows.items()
-    ]})
+    ]
+    # K3's figures are on bf16 tables, the decode lane's head stacks; its
+    # figures on fp32 tables of the same values stand beside them.
+    k3 = line[list(kernel_rows).index("grouped_row_gemm")]
+    k3["fp32_tables"] = {k: rows["grouped_row_gemm"]["fp32_tables"][k]
+                         for k in keys}
+    emit({"kernels": line})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -8,9 +8,12 @@ slot-indexed, fp32; :mod:`.grouped`) and ``aug_gemm_typed`` (K5 in
 :func:`aug`.  ``csrc/morph_gemm.cu`` serves the morph, narrow and deep:
 ``morph_sgemm`` (K1, slot-indexed, fp32; :mod:`.grouped`) and
 ``morph_gemm_typed`` (K4 in :mod:`.block_diag`, fp32 or bf16), its sum over
-K split into slices by :func:`morph_splits`.  ``csrc/row_gemm.cu`` has ``row_gemm`` (K3;
-:mod:`.grouped`).  ``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6
-scan as a state-column recurrence; :mod:`.wkv6`), its block width chosen by
+K split into slices by :func:`morph_splits`.  ``csrc/row_gemm.cu`` has
+``row_gemm`` (K3; :mod:`.grouped`: fp32 or bf16 h against fp32 or bf16
+tables), its work split into column strips and per-warp slices of K by
+:func:`row_splits`.
+``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6 scan as a
+state-column recurrence; :mod:`.wkv6`), its block width chosen by
 :func:`scan_width`.  Each wrapper counts its own launches; this module
 counts none.  The libraries are built at first use (:mod:`.build`); nothing
 here runs at import.
@@ -26,8 +29,8 @@ from . import build
 
 __all__ = ["MAX_GRID_YZ", "MORPH_BK", "check_operands", "aug",
            "aug_workspace_floats", "morph", "morph_splits", "sm_count", "rows",
-           "scan", "scan_smem_bytes", "scan_width", "scan_widths",
-           "SCAN_SPLIT"]
+           "row_splits", "scan", "scan_smem_bytes", "scan_width",
+           "scan_widths", "SCAN_SPLIT"]
 
 MAX_GRID_YZ = 65535
 _BM = 64            # rows per block in morph_gemm.cu, at least in aug_gemm.cu
@@ -38,6 +41,12 @@ _MORPH_RESIDENT = 3     # morph_gemm.cu blocks that fit one SM (launch bounds)
 _MORPH_MIN_SLICE = 8    # k-steps per slice at least
 _MORPH_FILL = 2         # k-steps a block spends filling its pipeline (STAGES - 1)
 _MORPH_MAX_SPLITS = 16
+# row_gemm.cu (K3): a block of _ROW_WARPS warps takes one row and one strip
+# of _ROW_STRIP_BYTES of each table row; its warps split K into slices of
+# whole batches of _ROW_U table rows.
+_ROW_WARPS = 8
+_ROW_STRIP_BYTES = 512
+_ROW_U = 4
 # wkv6.cu's Split: per head size, the threads per state column (G) and the
 # columns per thread (CPT) it is compiled for; its consumer threads per
 # block at most.
@@ -56,8 +65,9 @@ _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
     "morph_sgemm": ("morph_gemm", [_P] * 5 + [_I] * 8 + [_P]),
     # a, b, out, ws, G, M, N, K, bf16, splits, kslice, device, stream
     "morph_gemm_typed": ("morph_gemm", [_P] * 4 + [_I] * 8 + [_P]),
-    # h, gidx, tables, out, R, N, K, S, bf16, device, stream
-    "row_gemm": ("row_gemm", [_P] * 4 + [_I] * 6 + [_P]),
+    # h, gidx, tables, out, R, N, K, S, h_bf16, tables_bf16, kslice,
+    # device, stream
+    "row_gemm": ("row_gemm", [_P] * 4 + [_I] * 8 + [_P]),
     # r, k, v, logw, u, s0, out, s_out, BH, T, D, C, device, stream
     "wkv6_chunked": ("wkv6", [_P] * 8 + [_I] * 5 + [_P]),
     # D -> bytes
@@ -237,15 +247,37 @@ def morph(name: str, a: torch.Tensor, gidx: torch.Tensor | None,
     return out
 
 
+def row_splits(R: int, K: int, N: int, table_bytes: int) -> tuple[int, int]:
+    """K3's split of the work for ``R`` rows of ``K`` against tables of
+    ``N`` columns of ``table_bytes`` bytes an entry: ``(strips, kslice)``.
+
+    A block takes one row and one strip of 512 bytes of each table row (128
+    fp32 or 256 bf16 columns), so the grid is ``(strips, R)``; its 8 warps
+    take slices of ``kslice`` table rows of K, a multiple of the kernel's
+    batch of 4, the last taking the rest (warps past K idle), and add their
+    sums in warp order.  At phi3_mini_3p8b's shape (R 4, K 3072, N 32064)
+    that is 504 blocks on bf16 tables and 1,004 on fp32 ones, at
+    deepseek_7b's (K 4096, N 102400) 1,600 and 3,200: every one of 132 SMs
+    busy, 4 blocks an SM resident."""
+    strips = -(-N // (_ROW_STRIP_BYTES // table_bytes))
+    per_warp = -(-K // _ROW_WARPS)
+    return strips, -(-per_warp // _ROW_U) * _ROW_U
+
+
 def rows(name: str, h: torch.Tensor, gidx: torch.Tensor,
          tables: torch.Tensor) -> torch.Tensor:
-    """``out[r] = h[r] @ tables[gidx[r]]`` in ``h.dtype`` (K3)."""
+    """``out[r] = h[r] (K,) @ round_to(h.dtype, tables[slot(r)]) (K, N)``
+    on ``csrc/row_gemm.cu`` (K3), ``slot = clamp(gidx[r], 0, S - 1)``; h in
+    fp32 or bf16, tables in fp32 or bf16; fp32 sums, one rounding to
+    ``h.dtype``; one launch, split by :func:`row_splits`."""
     R, K = h.shape
     S, _, N = tables.shape
+    _, kslice = row_splits(R, K, N, tables.element_size())
     out = torch.empty((R, N), dtype=h.dtype, device=h.device)
     _call(name, "row_gemm", h, h.data_ptr(), gidx.data_ptr(),
           tables.data_ptr(), out.data_ptr(), R, N, K, S,
-          int(h.dtype == torch.bfloat16))
+          int(h.dtype == torch.bfloat16), int(tables.dtype == torch.bfloat16),
+          kslice)
     return out
 
 

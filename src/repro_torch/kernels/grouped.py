@@ -15,8 +15,10 @@ stack (no ``(G, ...)`` gather copy), for any index vector and any shape:
     times the slot's Aug-Conv matrix, in split TF32 on the tensor cores,
     through ``csrc/aug_gemm.cu`` (``aug_sgemm_grouped``);
   * :func:`grouped_row_gemm` (K3) replaces ``grouped_row_gemm``, the logits
-    step of batched decode: ``h[r]`` times its slot's fused LM head, through
-    the decode-shaped kernel in ``csrc/row_gemm.cu``.
+    step of batched decode: ``h[r]`` times its slot's fused LM head (fp32
+    or bf16 stacks), through the decode-shaped kernel in
+    ``csrc/row_gemm.cu`` (its split of the work is
+    :func:`.gemm.row_splits`).
 
 Each of these CUDA sources also has an entry point with a null slot-index
 pointer (slot = group index): ``morph_gemm_typed`` serves K4
@@ -111,14 +113,17 @@ def grouped_aug_gemm(
 def grouped_row_gemm(
     h: torch.Tensor,        # (R, K) fp32 or bf16, one decode row per group
     gidx: torch.Tensor,     # (R,) int32 slot index per row
-    tables: torch.Tensor,   # (S, K, N) fp32 stacked per-slot matrices
+    tables: torch.Tensor,   # (S, K, N) fp32 or bf16 stacked per-slot matrices
 ) -> torch.Tensor:
     """Decode-shaped grouped GEMM ``h[r] @ tables[gidx[r]]`` -> (R, N).
 
     Contracts in ``h.dtype``: each table entry is rounded to ``h.dtype``
     before the product, the sum is accumulated in fp32, and the result is
     ``h.dtype`` — the semantics of the reference's jnp path and of
-    ``models.stack.lm_head``.
+    ``models.stack.lm_head``.  Tables may be fp32 or bf16 with either h: a
+    bf16 entry is exact in fp32, so bf16 tables give the logits that fp32
+    tables holding the same (bf16-representable) values give, from half
+    the bytes; the decode lane stages its head stacks so in bf16 models.
     """
     name = "grouped_row_gemm"
     if not (h.device == gidx.device == tables.device):
@@ -128,8 +133,10 @@ def grouped_row_gemm(
         )
     if h.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: h must be float32 or bfloat16, got {h.dtype}")
-    if tables.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32 tables, got {tables.dtype}")
+    if tables.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"{name}: expected float32 or bfloat16 tables, got {tables.dtype}"
+        )
     if gidx.dtype != torch.int32:
         raise TypeError(f"{name}: expected int32 gidx, got {gidx.dtype}")
     if (h.dim() != 2 or tables.dim() != 3 or gidx.shape != (h.shape[0],)

@@ -137,8 +137,9 @@ def aug_embed_rows_grouped(tokens: torch.Tensor, gidx,
 def lm_head_rows_grouped(h: torch.Tensor, gidx,
                          heads: torch.Tensor) -> torch.Tensor:
     """Slot-indexed per-row LM-head GEMM, the batched-decode logits step:
-    h (R, d), gidx (R,), heads (S, d, V) fp32 -> (R, V) morphed-order
-    logits in ``h.dtype`` (K3: :func:`~repro_torch.kernels.grouped.grouped_row_gemm`)."""
+    h (R, d), gidx (R,), heads (S, d, V) fp32 or bf16 -> (R, V)
+    morphed-order logits in ``h.dtype`` (K3:
+    :func:`~repro_torch.kernels.grouped.grouped_row_gemm`)."""
     return grouped_row_gemm(
         h.contiguous(), _safe_gidx(gidx, heads.shape[0], h.device), heads
     )

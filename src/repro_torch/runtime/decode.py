@@ -19,12 +19,18 @@ over a fixed pool of **rows**:
     positions, masks and gathers), so garbage rows cannot perturb live ones.
 
 Secrets reach the step through the engine's ``_sync_plan``: stacked
-``(S, V, d)`` AugE tables and ``(S, d, V)`` Aug-heads staged on the device,
-patched per slot on tenant churn.  Active tenants are LRU-touched before any
-admission (``_pin_active``), so registry eviction never reassigns a slot out
-from under a running sequence.  The reference also keeps per-slot device
-arrays (``keep_slots``) so admission prefills read one slot without slicing
-the stack; a slot of a torch stack is already a view, so that is not needed.
+``(S, V, d)`` AugE tables (fp32, as the registry holds them) and
+``(S, d, V)`` Aug-heads staged on the device, patched per slot on tenant
+churn.  The Aug-heads are staged in the model's activation type
+(``cfg.adtype``): the head product rounds every entry to it anyway (K3 and
+the admission prefill's ``aug_head.to(h.dtype)``), and torch's cast rounds
+to nearest even as they do, so a bf16 stack gives the same logits from half
+the bytes and half the memory.  The registry and its snapshots stay fp32.
+Active tenants are LRU-touched before any admission (``_pin_active``), so
+registry eviction never reassigns a slot out from under a running sequence.
+The reference also keeps per-slot device arrays (``keep_slots``) so
+admission prefills read one slot without slicing the stack; a slot of a
+torch stack is already a view, so that is not needed.
 
 **Where the lane runs.**  ``device=None`` means the card; the CPU only when
 asked for (``device="cpu"``).  The model and its parameters must live there.
@@ -175,7 +181,7 @@ class ContinuousDecodeLane:
             self._plan, reg,
             {"aug_embeds": reg.slot_aug_embedding,
              "aug_heads": reg.slot_aug_head},
-            self.device,
+            self.device, {"aug_heads": self.model.cfg.adtype},
         )
         return self._plan
 

@@ -386,13 +386,16 @@ def _stage(arr: torch.Tensor, slots, fn: Callable[[int], np.ndarray]) -> None:
 
 def _sync_plan(plan: _Plan | None, registry,
                slot_fns: dict[str, Callable[[int], np.ndarray]],
-               device: torch.device) -> _Plan:
+               device: torch.device,
+               dtypes: dict[str, torch.dtype] | None = None) -> _Plan:
     """Bring a device plan up to ``registry.version``.
 
     ``slot_fns`` maps each stacked-tensor name to the registry's per-slot
-    host materializer.  Changed slots are copied into the stacks one by one;
-    the stacks are allocated once per capacity and rebuilt only when the
-    changelog has been trimmed or capacity grew.  A plan that pending work
+    host materializer.  A stack is held in ``dtypes[name]`` where given (the
+    host array is cast as it is copied, rounding to nearest even), else in
+    the host array's dtype.  Changed slots are copied into the stacks one by
+    one; the stacks are allocated once per capacity and rebuilt only when
+    the changelog has been trimmed or capacity grew.  A plan that pending work
     holds is never written: it is cloned and the clone patched, so earlier
     work items keep the secrets their ``gidx`` was built against.
     """
@@ -408,8 +411,8 @@ def _sync_plan(plan: _Plan | None, registry,
         for name, fn in slot_fns.items():
             first = _host(fn(0))
             arrays[name] = torch.empty(
-                (registry.capacity, *first.shape), dtype=first.dtype,
-                device=device,
+                (registry.capacity, *first.shape),
+                dtype=(dtypes or {}).get(name, first.dtype), device=device,
             )
             _stage(arrays[name], range(registry.capacity), fn)
         return _Plan(version=registry.version, arrays=arrays)

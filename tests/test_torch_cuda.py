@@ -628,3 +628,84 @@ def test_flash_attention_on_card_at_the_long_prompt_shape(cuda):
     e_dense = float((dense.float() - exact).abs().max())
     e_flash = float((flash.float() - exact).abs().max())
     assert 0 < e_dense and e_flash <= 2 * e_dense, (e_flash, e_dense)
+
+
+# -- K3 on bf16 tables, its split of K, its determinism ------------------------
+
+K3_SHAPES = {"deepseek_7b": (4096, 102400), "phi3_mini_3p8b": (3072, 32064),
+             "ragged_n999": (3000, 999), "ragged_n1000": (3000, 1000),
+             "ragged_k": (129, 131)}
+
+
+@pytest.mark.parametrize("h_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", sorted(K3_SHAPES))
+def test_k3_bf16_tables_match_plain(cuda, shape, h_dtype):
+    """K3 on bf16 tables (the decode lane's head stacks in a bf16 model)
+    at both decode shapes and ragged ones, for every slot pattern and both
+    h dtypes: against the plain version on the same tables (fp32 within
+    1e-4 * max|plain|, bf16 two bf16 ulps of max|plain|), and bit for bit
+    what K3 gives on the same entries held in fp32 (a bf16 entry is exact
+    in fp32, and the warps split K alike for both table types)."""
+    K, N = K3_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    t16 = (torch.randn((6, K, N), generator=gen, device=cuda)
+           * K ** -0.5).to(torch.bfloat16)
+    t32 = t16.float()
+    h = torch.randn((4, K), generator=gen, device=cuda).to(h_dtype)
+    for name in sorted(GIDX_CASES):
+        gidx = torch.tensor(GIDX_CASES[name], dtype=torch.int32, device=cuda)
+        want = ref.lm_head_rows_grouped_ref(h, gidx.clamp(0, 5), t16)
+        before = grouped_row_gemm.launches
+        got = grouped_row_gemm(h, gidx, t16)
+        torch.cuda.synchronize()
+        assert grouped_row_gemm.launches == before + 1
+        _hold(got, want, h_dtype)
+        assert torch.equal(got, grouped_row_gemm(h, gidx, t32)), name
+    del t16, t32
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["phi3_mini_3p8b", "ragged_n999"])
+def test_k3_gives_same_bits_twice(cuda, shape, h_dtype, t_dtype):
+    """Two calls on the same operands give the same bits, on the 16-byte
+    load form (phi3's shape) and the scalar one (N = 999): a block's warps
+    add their sums in a fixed order, without atomics."""
+    K, N = K3_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    tables = (torch.randn((6, K, N), generator=gen, device=cuda)
+              * K ** -0.5).to(t_dtype)
+    h = torch.randn((4, K), generator=gen, device=cuda).to(h_dtype)
+    gidx = torch.tensor(GIDX_CASES["duplicates"], dtype=torch.int32,
+                        device=cuda)
+    first = grouped_row_gemm(h, gidx, tables)
+    second = grouped_row_gemm(h, gidx, tables)
+    torch.cuda.synchronize()
+    bits = torch.int32 if h_dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), second.view(bits))
+
+
+@pytest.mark.parametrize("N", [1024, 131])
+@pytest.mark.parametrize("t_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("slices", range(1, 9))
+def test_k3_at_each_split_the_rule_picks(cuda, slices, t_dtype, N):
+    """At K = 4 * slices - 3, ``gemm.row_splits`` gives K to ``slices``
+    warps of the 8 (one short batch last, the rest idle), and at K = 4097
+    to all 8 with a short last slice; K3 against its plain version there
+    for the slot patterns with duplicates and clamps, on the 16-byte and
+    the scalar load forms (bf16 and fp32 h)."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    for K in (4 * slices - 3, 4097):
+        _, kslice = gemm.row_splits(4, K, N, t_dtype.itemsize)
+        assert -(-K // kslice) == (slices if K < 4097 else 8)
+        tables = (torch.randn((6, K, N), generator=gen, device=cuda)
+                  * K ** -0.5).to(t_dtype)
+        for h_dtype in (torch.bfloat16, torch.float32):
+            h = torch.randn((4, K), generator=gen, device=cuda).to(h_dtype)
+            for name in ("duplicates", "out_of_range"):
+                gidx = torch.tensor(GIDX_CASES[name], dtype=torch.int32,
+                                    device=cuda)
+                got = grouped_row_gemm(h, gidx, tables)
+                _hold(got, ref.lm_head_rows_grouped_ref(
+                    h, gidx.clamp(0, 5), tables), h_dtype)

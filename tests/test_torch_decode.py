@@ -9,7 +9,12 @@ request's unmorphed generation must equal the reference
 crash-and-restore mid-decode — and the port's own per-tenant plain decode.
 One batched decode step's logits are held to the reference's per-tenant
 decode on fused parameters within rtol 1e-5 (fp32, sums in other orders).
+The lane's Aug-head stacks take the model's activation type: with the
+smoke config in bf16 they are bf16, and every step's logits are the bits
+that fp32 stacks give.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -35,6 +40,7 @@ from repro_torch.launch.steps import (  # noqa: E402
     make_batched_decode_logits, make_row_prefill_step,
 )
 from repro_torch.models import Model, params_from_jax  # noqa: E402
+from repro_torch.runtime.engine import _sync_plan  # noqa: E402
 from _lm_parity import hold_lane  # noqa: E402
 
 PROMPT_LEN, MAX_LEN = 8, 24
@@ -336,3 +342,113 @@ def test_fair_admission_matches_reference():
             q.submit("light", np.zeros(2, np.int32), 4 + i % 3, weight=1.0)
         orders.append([(s.tenant_id, s.seq_id) for s in iter(q.take, None)])
     assert orders[0] == orders[1]
+
+
+# -- the head stacks' storage type (bf16 models stage bf16 Aug-heads) --------
+
+BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+
+
+class _Fp32Heads(trt.ContinuousDecodeLane):
+    """The lane with its Aug-head stack held in the registry's fp32, as it
+    was staged before the stacks took the model's activation type."""
+
+    def _refresh_plan(self):
+        reg = self.registry
+        self._plan = _sync_plan(
+            self._plan, reg, {"aug_embeds": reg.slot_aug_embedding,
+                              "aug_heads": reg.slot_aug_head}, self.device)
+        return self._plan
+
+
+@pytest.fixture(scope="module")
+def lm16():
+    """The ``deepseek_7b`` smoke model in bf16 (the port's seeded init) and
+    a registry of its tenants, whose secrets are fused from its weights."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek_7b"), **BF16)
+    model = Model(cfg, "cpu")
+    params = model.init(0)
+    embed = params["embed"].float().numpy()
+    head = params["head"].float().numpy()
+
+    def registry(capacity=TENANTS):
+        reg = tlm.LMSessionRegistry(cfg.vocab, cfg.d_model, capacity=capacity)
+        for i in range(TENANTS):
+            reg.register(f"t{i}", embed, seed=100 + i, head=head)
+        return reg
+
+    return model, params, registry
+
+
+def test_bf16_lane_stages_bf16_heads(lm16):
+    """A bf16 model's lane stages its Aug-heads in bf16, each slot the
+    registry's fp32 head rounded to bf16 (torch's cast, nearest even), and
+    keeps its AugE tables in fp32, as the registry holds them; also after
+    an eviction patches one slot of the stacks in place."""
+    model, params, registry = lm16
+    reg = registry(capacity=3)
+    lane = trt.ContinuousDecodeLane(model, params, reg, rows=2,
+                                    max_len=MAX_LEN, device="cpu")
+    for step in range(2):
+        plan = lane._refresh_plan()
+        heads, embeds = plan.arrays["aug_heads"], plan.arrays["aug_embeds"]
+        assert heads.dtype == torch.bfloat16 and embeds.dtype == torch.float32
+        want = torch.from_numpy(reg.stacked_aug_heads())
+        assert torch.equal(heads, want.bfloat16())
+        assert torch.equal(embeds, torch.from_numpy(np.stack(
+            [reg.slot_aug_embedding(s) for s in range(reg.capacity)])))
+        if step == 0:
+            evictions = reg.evictions
+            reg.slot_for("t0")      # not resident: evicts a slot, patched below
+            assert reg.evictions == evictions + 1
+
+
+def _step_logits(monkeypatch, lane, lm16_prompts, gens):
+    """Every batched decode step's logits (as the lane's step computed
+    them) and the generations, for one run with joins and retirements."""
+    import repro_torch.launch.steps as steps
+
+    seen, real = [], steps.lm_head_rows_grouped
+    monkeypatch.setattr(steps, "lm_head_rows_grouped",
+                        lambda *a: seen.append(real(*a)) or seen[-1])
+    sids = [lane.submit(f"t{i}", p, g) for i, (p, g)
+            in enumerate(zip(lm16_prompts, gens))]
+    lane.run()
+    monkeypatch.undo()
+    return seen, [lane.take(s) for s in sids]
+
+
+def test_bf16_heads_give_the_fp32_heads_logits_bit_for_bit(lm16, monkeypatch):
+    """In a bf16 model every decode step's logits, and every generation, are
+    the same bits with the bf16 Aug-head stacks as with fp32 stacks: K3
+    (and the admission prefill) round each fp32 entry to bf16 before the
+    product, which is what the stack's cast does."""
+    model, params, registry = lm16
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, model.cfg.vocab, PROMPT_LEN).astype(np.int32)
+               for _ in range(5)]
+    gens = GENS[:5]
+    runs = []
+    for cls in (trt.ContinuousDecodeLane, _Fp32Heads):
+        lane = cls(model, params, registry(), rows=2, max_len=MAX_LEN,
+                   device="cpu")
+        runs.append(_step_logits(monkeypatch, lane, prompts, gens))
+        assert lane._plan.arrays["aug_heads"].dtype == (
+            torch.float32 if cls is _Fp32Heads else torch.bfloat16)
+    (l16, g16), (l32, g32) = runs
+    assert len(l16) == len(l32) >= max(gens) - 1
+    for a, b in zip(l16, l32):
+        assert a.dtype == b.dtype == torch.bfloat16 and torch.equal(a, b)
+    for a, b in zip(g16, g32):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fp32_model_keeps_fp32_heads(lm):
+    """An fp32 model (every smoke config) stages fp32 Aug-heads, equal to
+    the registry's."""
+    lane = lm.lane(rows=2)
+    plan = lane._refresh_plan()
+    heads = plan.arrays["aug_heads"]
+    assert heads.dtype == torch.float32 == lm.cfg.adtype
+    assert torch.equal(heads, torch.from_numpy(
+        lane.registry.stacked_aug_heads()))

@@ -1,5 +1,6 @@
 """The port's LM delivery pieces on the CPU against the JAX reference:
-K3's plain version (``grouped_row_gemm`` / ``lm_head_rows_grouped``), the
+K3's plain version (``grouped_row_gemm`` / ``lm_head_rows_grouped``, on
+fp32 and bf16 tables), the
 LM gathers, ``core.lm`` (secrets byte-equal through ``snapshot_state`` /
 ``restore_state``), and the engine's token lane against
 ``MoLeDeliveryEngine(lm_registry=...)``.
@@ -103,14 +104,44 @@ def test_k3_plain_matches_pallas_interpret(rng, case, dtype):
     _hold_k3(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GIDX_CASES))
+def test_k3_plain_bf16_tables_match_reference_ref(rng, case, dtype):
+    """bf16 tables, the decode lane's head stacks in a bf16 model: the
+    plain version on the tables rounded to bf16 against the reference's
+    ``lm_head_rows_grouped_ref`` on the same values in fp32, for both h
+    dtypes; and bit for bit what the port gives on those values held in
+    fp32 (a bf16 entry is exact in fp32)."""
+    h, tables = _k3_inputs(rng)
+    t16 = torch.from_numpy(tables).bfloat16()
+    rounded = t16.float()
+    gidx = np.asarray(GIDX_CASES[case], np.int32)
+    safe = np.clip(gidx, 0, S - 1)
+    th = torch.from_numpy(h).to(getattr(torch, dtype))
+    want = jref.lm_head_rows_grouped_ref(jnp.asarray(h, getattr(jnp, dtype)),
+                                         jnp.asarray(safe),
+                                         jnp.asarray(rounded.numpy()))
+    before = tk.grouped_row_gemm.launches
+    got = tk.grouped_row_gemm(th, torch.from_numpy(safe), t16)
+    assert got.dtype == th.dtype and got.shape == (R, N)
+    _hold_k3(got, want, dtype)
+    assert torch.equal(got, tk.grouped_row_gemm(th, torch.from_numpy(safe),
+                                                rounded))
+    assert torch.equal(tk.lm_head_rows_grouped(th, gidx, t16),
+                       tk.lm_head_rows_grouped(th, gidx, rounded))
+    assert tk.grouped_row_gemm.launches == before   # CPU: no kernel launch
+
+
 def test_k3_wrapper_validates(rng):
     h, tables = _k3_inputs(rng)
     th, tt = torch.from_numpy(h), torch.from_numpy(tables)
     g = torch.zeros(R, dtype=torch.int32)
     with pytest.raises(TypeError, match="int32 gidx"):
         tk.grouped_row_gemm(th, g.long(), tt)
-    with pytest.raises(TypeError, match="float32 tables"):
+    with pytest.raises(TypeError, match="float32 or bfloat16 tables"):
         tk.grouped_row_gemm(th, g, tt.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16 tables"):
+        tk.grouped_row_gemm(th, g, tt.half())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tk.grouped_row_gemm(th.half(), g, tt)
     with pytest.raises(ValueError, match=r"\(R, K\)"):
