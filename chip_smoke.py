@@ -256,6 +256,33 @@ printing one JSON line; any failure raises and exits non-zero:
                 (reset at its start).  Every path phase sets all six
                 launch counters to 0 before its run and fails if a kernel
                 not on its path was launched.
+ 10a. train_path the train step (``launch/steps.py`` ``make_train_step``:
+                loss through the chunked ``fused_ce``, per-block remat,
+                gradients of 2 microbatches of 4 summed in fp32, the port's
+                AdamW) at deepseek_7b's published width (d 4096, 32 heads
+                of 128, d_ff 11008, vocab 102400, bf16) cut to 15 layers
+                (training holds 16 B a parameter; TRAIN_LAYERS says why),
+                random weights from a seed, 2048 positions a sequence (the
+                flash scan and its backward), on ``Pipeline``'s stream
+                morphed by its provider stage (``--mole token``): 2
+                untimed and 5 timed steps, then one profiled.  Gated: (1)
+                loss and grad_norm finite at every step, the optimizer's
+                count equal to the steps run; (2) all six launch counters
+                0; (3) on a 2-layer twin at full width, 3 steps of the raw
+                params on the raw stream against the fused params
+                (``fuse_lm_params``) on the morphed stream, from one init:
+                the losses of the first 2 fp32 steps and of the first bf16
+                step within TRAIN_LOSS_RTOL (later steps part as fast as
+                the raw run in one microbatch does, printed beside it);
+                (4) after
+                training, no leaf requires grad, and the decode lane's
+                admission prefill and batched decode step on the trained
+                twin return tensors without ``grad_fn``.  Printed:
+                train_step_ms (p50 of the timed steps), train_tokens_per_s,
+                train_peak_gb, train_mfu (6 (N - V d) + 6 L S d flops a
+                token, remat's recompute not counted, over 989 TFLOP/s),
+                the profiled step's top kernels and operations and its idle
+                share, and the phase's own time.
  11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
      ``fp32_tables``), the card's name and power limit, and the final
@@ -365,6 +392,32 @@ VGG_BATCH, VGG_STEP_BATCH, VGG_STEPS, VGG_LR = 256, 64, 3, 1e-3
 VGG_LOGIT_TOL = 1e-3            # x max|plain logits|: 10x the first layer's
 VGG_LOSS_RTOL = 1e-3
 PAPER_OVERHEAD = 0.09           # "VGG-16 on CIFAR ... computational overhead only 9%"
+# train_path: deepseek_7b at its published width, cut in depth.  Training
+# holds 16 B a parameter at its peak (bf16 params and grads, the fp32
+# microbatch sum, AdamW's two fp32 moments): 30 layers (6.91 B) need 110 GB.
+# Each layer is 0.2025 B parameters, 3.24 GB; 8 layers (2.46 B, 39.3 GB of
+# state) peaked at 45.87 GB (NVIDIA H100 80GB HBM3, 700.00 W), so 15 layers
+# (3.87 B, 62.0 GB of state) stay under 72 GB.  2048 positions are past dense_attn_max_seq,
+# so the flash scan's backward runs; a global batch of 8 in 2 microbatches
+# of 4; remat on; AdamW's defaults, warmup 2.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = (
+    "deepseek_7b", 15, 2048, 8, 2)
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5            # untimed, then timed steps
+TRAIN_TWIN_LAYERS, TRAIN_TWIN_STEPS = 2, 3  # gate 3: raw against fused
+# Gate 3: the reference test's bound (tests/test_mole_lm.py) on the raw and
+# fused twins' losses over the steps TRAIN_GATED_STEPS names; the same
+# comparison in fp32 on the CPU
+# (tests/test_torch_train.py::test_token_mole_training_equivalence) departs
+# by at most 7.6e-8 over 3 steps.  Later steps are printed beside a control,
+# the raw run in one microbatch (the same function summed in another
+# order): from random init at lr 3e-4 Adam amplifies rounding about tenfold
+# a step, so the control departs by 8.6e-6 and 9.4e-5 at fp32
+# steps 2 and 3, the fused run by 8.1e-8 and 4.1e-5; in bf16 the fused run
+# departs by 5.1e-5 at step 2 (the backward's dh = dlogits @ head^T sums
+# over the vocabulary in the permuted order and rounds to bf16).  Measured
+# on an NVIDIA H100 80GB HBM3 at 700.00 W.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GATED_STEPS = {"float32": 2, "bfloat16": 1}
 
 
 def bf16_ulp(x: float) -> float:
@@ -1085,12 +1138,14 @@ def plain_gaps(model, params, prompts, final, dev):
     return gaps_in_ulps(logits, final)
 
 
-def decode_step_profile(fn, step_ms: float) -> dict:
+def step_profile(fn, step_ms: float) -> dict:
     """One call of ``fn`` under torch.profiler: device-busy time (the sum
     of the kernels' device time; CPU-side ops are left out, as they carry
     their kernels' time again), the number of kernel launches, the five
-    kernels with the most device time, and the idle share of an
-    unprofiled step of ``step_ms``."""
+    kernels with the most device time, the eight CPU-side operations with
+    the most device time of the kernels they launched themselves
+    (``self_device_time_total``: an op's children count apart), and the
+    idle share of an unprofiled step of ``step_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1101,9 +1156,12 @@ def decode_step_profile(fn, step_ms: float) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                 key=lambda e: e.self_device_time_total, reverse=True)
     return {
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if kern else "not measured",
@@ -1111,6 +1169,8 @@ def decode_step_profile(fn, step_ms: float) -> dict:
         "kernel_launches": sum(e.count for e in kern),
         "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3]
                            for e in top[:5]],
+        "top_ops_ms": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                       for e in ops[:8]],
     }
 
 
@@ -1382,7 +1442,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
             k6_ms = graph_ms(run_k6, 5, 10)
             k6_eager_ms = cuda_p50(run_k6, 5, 10)
         logits_fn = make_batched_decode_logits(model)
-        prof = decode_step_profile(lambda: torch.argmax(logits_fn(
+        prof = step_profile(lambda: torch.argmax(logits_fn(
             params, plan.arrays["aug_embeds"], plan.arrays["aug_heads"], sidx,
             torch.zeros(rows, dtype=torch.int32, device=dev), tpos, caches,
         )[0], dim=-1).cpu(), step_p50)
@@ -2554,6 +2614,193 @@ def vgg_path(dev, core, kernels) -> dict:
     emit(out)
     return out
 
+# -- phase 12 -------------------------------------------------------------------
+
+def train_path(dev, kernels) -> dict:
+    """The train step of ``launch/steps.py`` at deepseek_7b's published
+    width, ``TRAIN_LAYERS`` layers, on ``Pipeline``'s morphed stream
+    (``--mole token``); gates 1-4 of the module docstring; step time,
+    tokens/s, MFU, the peak and a profiled step."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import fuse_lm_params
+    from repro_torch.data import DataConfig, Pipeline, ProviderStage
+    from repro_torch.launch.steps import (
+        TrainHParams, make_batched_decode_logits, make_row_prefill_step,
+        make_train_step,
+    )
+    from repro_torch.models import Model, ParamTree, layers as L
+    from repro_torch.models.base import MoLeCfg
+    from repro_torch.optim import adamw
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_groups=TRAIN_LAYERS,
+                              mole=MoLeCfg(enabled=True, mode="token",
+                                           seed=SEED))
+    hp = TrainHParams(optimizer=adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP),
+                      microbatch=TRAIN_MICRO, remat=True)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=SEED)
+
+    def on_card(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    model = Model(cfg, dev)
+    n_params = model.param_count()
+    params = model.init(SEED)
+    opt = adamw.init_state(params)
+    step = make_train_step(model, hp)
+    pipe = Pipeline(data, model_cfg=cfg)
+    metrics, step_ms = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        batch = on_card(next(pipe))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        metrics.append(m)
+    p50 = float(np.median(step_ms[TRAIN_WARMUP:]))
+
+    def profiled():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, batch)
+        metrics.append(m)
+
+    prof = step_profile(profiled, p50)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Gate 1: finite loss and grad_norm at every step; count = steps run.
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"gate 1: non-finite loss {losses} or grad_norm {norms}")
+    check(int(opt["count"]) == len(metrics),
+          f"gate 1: opt count {int(opt['count'])} after {len(metrics)} steps")
+    del params, opt, step, model, batch, metrics
+    release()
+
+    # Gate 3: the raw params on the raw stream against the fused params on
+    # the morphed stream, from one init, on a 2-layer twin at full width
+    # (both runs do not fit beside each other at TRAIN_LAYERS), in fp32 and
+    # in bf16, beside the raw run in one microbatch.
+    def twin_losses(dtype):
+        twin = dataclasses.replace(cfg, n_groups=TRAIN_TWIN_LAYERS,
+                                   dtype=dtype, param_dtype=dtype)
+        model = Model(twin, dev)
+        raw_cfg = dataclasses.replace(twin, mole=MoLeCfg())
+
+        def run(params, model_cfg, microbatch):
+            step = make_train_step(model, dataclasses.replace(
+                hp, microbatch=microbatch))
+            stream = Pipeline(data, model_cfg=model_cfg)
+            opt, out = adamw.init_state(params), []
+            for _ in range(TRAIN_TWIN_STEPS):
+                params, opt, m = step(params, opt, on_card(next(stream)))
+                out.append(float(m["loss"]))
+            return params, out
+
+        _, raw = run(model.init(SEED), raw_cfg, TRAIN_MICRO)
+        release()
+        _, control = run(model.init(SEED), raw_cfg, 1)
+        release()
+        fused = ParamTree(fuse_lm_params(
+            model.init(SEED), twin,
+            token_morpher=ProviderStage.for_model(twin).token_morpher))
+        fused, morphed = run(fused, twin, TRAIN_MICRO)
+        out = {"raw": raw, "fused": morphed, "one_microbatch": control,
+               "fused_rel": [abs(a - b) / abs(a) for a, b in zip(raw, morphed)],
+               "one_microbatch_rel": [abs(a - b) / abs(a)
+                                      for a, b in zip(raw, control)],
+               "gated_steps": TRAIN_GATED_STEPS[dtype]}
+        check(max(out["fused_rel"][:out["gated_steps"]]) <= TRAIN_LOSS_RTOL,
+              f"gate 3: {dtype} twin, raw against fused losses {out}")
+        return model, fused, out
+
+    _, fused, twin_fp32 = twin_losses("float32")
+    del fused
+    release()
+    twin_model, fused, twin_bf16 = twin_losses(cfg.dtype)
+    # Gate 2: no kernel on this path.
+    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    check(not any(launches.values()), f"gate 2: train_path launched {launches}")
+
+    # Gate 4: the trained tree serves without recording a graph: the decode
+    # lane's admission prefill and batched decode step on it (K3 runs here,
+    # after the counters were read).
+    check(not any(p.requires_grad for p in fused.parameters()),
+          "gate 4: a leaf still requires grad after training")
+    prompt = torch.from_numpy(
+        next(Pipeline(data, model_cfg=twin_model.cfg))["tokens"][:1, :32]).to(dev)
+    caches = twin_model.init_cache(1, 40)
+    embed, head = fused["embed"], fused["head"]
+    first, caches = make_row_prefill_step(twin_model)(fused, embed, head,
+                                                      prompt, caches)
+    logits, caches = make_batched_decode_logits(twin_model)(
+        fused, embed[None], head[None], torch.zeros(1, dtype=torch.int32,
+                                                    device=dev),
+        first, torch.full((1,), 32, device=dev), caches)
+    outs = [first, logits] + [c[k] for c in caches["blocks"] for k in ("k", "v")]
+    check(all(o.grad_fn is None and not o.requires_grad for o in outs),
+          "gate 4: a serving output after training carries a graph")
+    check(bool(torch.isfinite(logits).all()), "gate 4: non-finite logits")
+    del fused, caches, logits, outs
+    release()
+
+    # Not gated: the flash scan at one layer's shape of the step, forward
+    # and forward + backward, beside SDPA's (a yardstick the port never
+    # calls); a step runs TRAIN_MICRO x layers x (forward + forward and
+    # backward: remat runs each block's forward twice).
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B_, H, hd = TRAIN_BATCH // TRAIN_MICRO, cfg.n_heads, cfg.head_dim
+    qkv = [torch.randn(B_, TRAIN_SEQ, H, hd, generator=gen, device=dev)
+           .to(cfg.adtype).requires_grad_() for _ in range(3)]
+    go = torch.randn(B_, TRAIN_SEQ, H, hd, generator=gen, device=dev).to(cfg.adtype)
+
+    def flash(backward):
+        with torch.enable_grad():
+            o = L.flash_attention(*qkv, block_kv=cfg.flash_block_kv)
+            if backward:
+                torch.autograd.grad(o, qkv, go)
+
+    def sdpa():
+        q, k, v = (a.transpose(1, 2) for a in qkv)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.autograd.grad(o, qkv, go.transpose(1, 2))
+
+    flash_ms = {"shape": [B_, TRAIN_SEQ, H, hd],
+                "forward": cuda_ms(lambda: flash(False), 3),
+                "forward_backward": cuda_ms(lambda: flash(True), 3),
+                "sdpa_forward_backward": cuda_ms(sdpa, 3)}
+    flash_ms["share_of_step"] = (TRAIN_MICRO * cfg.n_layers * (
+        flash_ms["forward"] + flash_ms["forward_backward"]) / p50)
+    del qkv, go
+    release()
+
+    tokens, d = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
+    flops = tokens * (6 * (n_params - cfg.vocab * d)
+                      + 6 * cfg.n_layers * TRAIN_SEQ * d)
+    out = {"phase": "train_path", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+           "params": n_params, "seq_len": TRAIN_SEQ,
+           "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+           "remat": True, "mole": "token", "launches": launches,
+           "losses": losses, "grad_norms": norms,
+           "step_ms": step_ms, "train_step_ms": p50,
+           "train_tokens_per_s": tokens / (p50 / 1e3),
+           "train_peak_gb": peak_gb,
+           "train_mfu": flops / (p50 / 1e3) / BF16_FLOP_PER_S,
+           "flops_per_step": flops,
+           "train_step_profile": prof, "flash_ms": flash_ms,
+           "mole_twin": {"layers": TRAIN_TWIN_LAYERS, "fp32": twin_fp32,
+                         "bf16": twin_bf16, "limit_rel": TRAIN_LOSS_RTOL},
+           "phase_s": time.monotonic() - t_phase}
+    emit(out)
+    return out
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2610,6 +2857,8 @@ def main() -> None:
     release()
     rwkv = lm_path(dev, kernels, phase="rwkv_path", arch=RWKV_ARCH,
                    prompt_len=RWKV_PROMPT)
+    release()
+    train_path(dev, kernels)
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
                     wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
     check(all(launches[n] > 0 for n in KERNEL_NAMES),

@@ -1,4 +1,5 @@
-"""Synthetic data sources (numpy only), copied from ``repro.data``."""
-from .pipeline import DataConfig, SyntheticLM
+"""Synthetic data sources and the MoLe provider stage (numpy only), copied
+from ``repro.data``."""
+from .pipeline import DataConfig, Pipeline, ProviderStage, SyntheticLM
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "Pipeline", "ProviderStage", "SyntheticLM"]

@@ -1,19 +1,33 @@
-"""Deterministic, seekable synthetic token source.
+"""Deterministic, seekable synthetic data pipeline with a MoLe provider
+stage.
 
-Copied from ``repro.data.pipeline`` (``DataConfig`` and ``SyntheticLM``,
-numpy only), so both packages draw the same prompts from the same seed.
-Batch ``i`` is a pure function of ``(seed, i)``.  Synthetic text: a mixture
-of Zipf-distributed unigrams and a deterministic "grammar" (next token
-depends on the current token).  The reference's ``ProviderStage`` and
-sharded loader arrive with the training slice.
+Copied from ``repro.data.pipeline`` (numpy only), so both packages draw the
+same batches from the same seed:
+
+  * **stateless indexing** — batch ``i`` is a pure function of
+    ``(seed, i)``, so a restart is a seek, not a replay;
+  * **provider stage** — with MoLe on, the token stream leaving the
+    pipeline is morphed by the secret vocabulary permutation (labels
+    included); the trainer never sees raw tokens.
+
+Synthetic text: a mixture of Zipf-distributed unigrams and a deterministic
+"grammar" (next token depends on the current token), so a model can learn
+it.  The reference's frontend stub and continuous (embedding) morphing
+serve frontend models, which the port does not run yet: ``Pipeline``
+refuses such configs (``check_supported``) and ``ProviderStage`` the
+embedding mode.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
-__all__ = ["DataConfig", "SyntheticLM"]
+from ..core.lm import TokenMorpher
+from ..models.base import ModelConfig, check_supported
+
+__all__ = ["DataConfig", "Pipeline", "ProviderStage", "SyntheticLM"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,3 +68,60 @@ class SyntheticLM:
             "tokens": toks[:, :S].astype(np.int32),
             "targets": toks[:, 1:].astype(np.int32),
         }
+
+
+@dataclasses.dataclass
+class ProviderStage:
+    """The data provider's morphing stage (the trust boundary)."""
+
+    token_morpher: TokenMorpher | None = None
+
+    @classmethod
+    def for_model(cls, cfg: ModelConfig) -> "ProviderStage":
+        if not cfg.mole.enabled:
+            return cls()
+        if cfg.mole.mode == "token":
+            return cls(token_morpher=TokenMorpher.create(cfg.mole.seed, cfg.vocab))
+        if cfg.mole.mode == "embedding":
+            raise NotImplementedError(
+                "embedding-mode MoLe morphs a frontend's features; frontend "
+                "models are not ported yet"
+            )
+        raise ValueError(cfg.mole.mode)
+
+    def __call__(self, batch: dict) -> dict:
+        out = dict(batch)
+        if self.token_morpher is not None:
+            for k in ("tokens", "targets"):
+                if k in out:
+                    out[k] = self.token_morpher.perm[out[k]]
+        return out
+
+
+class Pipeline:
+    """Seekable iterator: SyntheticLM -> provider stage."""
+
+    def __init__(self, dcfg: DataConfig, model_cfg: ModelConfig | None = None,
+                 start_index: int = 0):
+        if model_cfg is not None:
+            check_supported(model_cfg)
+        self.source = SyntheticLM(dcfg)
+        self.model_cfg = model_cfg
+        self.provider = (
+            ProviderStage.for_model(model_cfg) if model_cfg else ProviderStage()
+        )
+        self.index = start_index
+
+    def seek(self, index: int) -> None:
+        self.index = index
+
+    def state(self) -> dict:
+        return {"index": self.index}
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        b = self.provider(self.source.batch(self.index))
+        self.index += 1
+        return b

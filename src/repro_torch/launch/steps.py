@@ -1,12 +1,18 @@
-"""Serving step builders on PyTorch: prefill / decode, per tenant and
-batched across tenants.
+"""Step builders on PyTorch: the train step (microbatch gradient
+accumulation, remat, AdamW) and the serving steps, prefill / decode, per
+tenant and batched across tenants.
 
-Ported from ``repro.launch.steps`` (the serving half; the train step comes
-with the training slice).  The reference returns pure functions for
-``jax.jit``; these are the same functions run eagerly.  Caches are written
-in place (see :mod:`repro_torch.models.blocks`) and returned.
+Ported from ``repro.launch.steps``.  The reference returns pure functions
+for ``jax.jit``; these are the same functions run eagerly.  Caches are
+written in place (see :mod:`repro_torch.models.blocks`) and returned; the
+train step updates the parameters and optimizer state in place and returns
+them.  The serving steps run under ``torch.no_grad()``, so they record no
+autograd graph whatever the parameters' ``requires_grad``.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
 
 import torch
 
@@ -15,16 +21,104 @@ from ..models import blocks as B
 from ..models import layers as L
 from ..models import stack as S
 from ..models.api import Model
+from ..optim import adamw
 
 __all__ = [
+    "TrainHParams", "make_train_step",
     "make_prefill_step", "make_decode_step", "make_row_prefill_step",
     "make_batched_decode_logits", "make_batched_decode_step",
 ]
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    optimizer: adamw.AdamWConfig = dataclasses.field(
+        default_factory=adamw.AdamWConfig
+    )
+    microbatch: int | None = None   # microbatch count: None = one shot
+    remat: bool = True
+
+
+def _split_micro(batch: dict, n_micro: int) -> dict:
+    def rs(x):
+        b = x.shape[0]
+        assert b % n_micro == 0, (b, n_micro)
+        return x.reshape(n_micro, b // n_micro, *x.shape[1:])
+    return {k: rs(v) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def _grad_on(leaves):
+    """Leaves require grad inside the block and go back to what they were
+    however it ends, so a tree built for serving (``requires_grad=False``)
+    leaves a train step without recording a graph on later calls."""
+    before = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        yield
+    finally:
+        for p, r in zip(leaves, before):
+            p.requires_grad_(r)
+
+
+def make_train_step(model: Model, hp: TrainHParams):
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``, with
+    ``metrics = {loss, grad_norm, lr}`` (0-dim fp32 tensors).
+
+    ``params`` is the tree :meth:`Model.init` returns and ``opt_state``
+    :func:`adamw.init_state`'s; both are updated in place.  With
+    ``hp.microbatch`` = n > 1 the batch is cut into n microbatches along
+    its first axis; each one's gradients (``torch.autograd.grad``) are
+    summed in fp32 and divided by n, and the loss is the mean of theirs, as
+    the reference's scan does (``.grad`` accumulation would sum in the
+    parameters' type).  With one microbatch the gradients stay in the
+    parameters' type; AdamW casts them to fp32.
+
+    RWKV-6 stacks are refused: K6 has no backward yet.
+    """
+    if model.cfg.rwkv is not None:
+        raise NotImplementedError(
+            f"{model.cfg.name}: training RWKV-6 needs a backward for the "
+            f"wkv6 scan (K6), which is not written yet"
+        )
+
+    def loss_fn(params, mb):
+        return model.loss(params, mb, remat=hp.remat)
+
+    def train_step(params, opt_state, batch):
+        names, leaves = zip(*adamw.named_leaves(params))
+        n_micro = hp.microbatch or 1
+        with torch.enable_grad(), _grad_on(leaves):
+            if n_micro > 1:
+                micro = _split_micro(batch, n_micro)
+                gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device) for p in leaves]
+                lsum = torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+                for i in range(n_micro):
+                    loss = loss_fn(params, {k: v[i] for k, v in micro.items()})
+                    for a, g in zip(gsum, torch.autograd.grad(loss, leaves)):
+                        a.add_(g)           # fp32 + the gradient's type
+                    lsum = lsum + loss.detach()
+                grads = [g.div_(n_micro) for g in gsum]
+                loss = lsum / n_micro
+            else:
+                loss = loss_fn(params, batch)
+                grads = torch.autograd.grad(loss, leaves)
+                loss = loss.detach()
+        params, opt_state, metrics = adamw.apply(
+            hp.optimizer, params, dict(zip(names, grads)), opt_state
+        )
+        return params, opt_state, dict(metrics, loss=loss)
+
+    return train_step
+
+
 def make_prefill_step(model: Model):
     """(params, batch, caches) -> (last-token logits, caches)."""
 
+    @torch.no_grad()
     def prefill_step(params, batch, caches):
         return model.prefill_with_cache(params, batch, caches)
 
@@ -34,6 +128,7 @@ def make_prefill_step(model: Model):
 def make_decode_step(model: Model):
     """(params, token (B,1), t, caches) -> (logits (B,1,V), caches)."""
 
+    @torch.no_grad()
     def decode_step(params, token, t, caches):
         return model.decode(params, token, t, caches)
 
@@ -70,6 +165,7 @@ def make_row_prefill_step(model: Model):
     _check_plain_lm(model, "make_row_prefill_step")
     cfg = model.cfg
 
+    @torch.no_grad()
     def row_prefill_step(params, aug_embed, aug_head, tokens, caches):
         rs = B.RunState(mode="full", write_cache=True)
         h = _embed_scale(aug_embed[tokens.long()].to(cfg.adtype), cfg)
@@ -89,6 +185,7 @@ def make_batched_decode_logits(model: Model):
     _check_plain_lm(model, "make_batched_decode_logits")
     cfg = model.cfg
 
+    @torch.no_grad()
     def batched_decode_logits(params, aug_embeds, aug_heads, sidx, tokens, t,
                               caches):
         h0 = aug_embed_rows_grouped(tokens, sidx, aug_embeds)
@@ -118,6 +215,7 @@ def make_batched_decode_step(model: Model):
     """
     logits_fn = make_batched_decode_logits(model)
 
+    @torch.no_grad()
     def batched_decode_step(params, aug_embeds, aug_heads, sidx, tokens, t,
                             caches):
         logits, caches = logits_fn(params, aug_embeds, aug_heads, sidx,

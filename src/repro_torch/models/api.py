@@ -4,26 +4,47 @@ Ported from ``repro.models.api`` for plain token LMs (dense global
 attention and RWKV-6 stacks).  ``Model(cfg,
 device)`` exposes:
 
-  schema() / init(generator)          — parameters as a :class:`ParamTree`
+  schema() / init(generator) / param_count()
+                                      — parameters as a :class:`ParamTree`
+  loss(params, batch, remat)          — next-token CE (mean over tokens)
+  logits(params, batch, remat)        — full-sequence logits
   cache_schema(batch, max_len) / init_cache(batch, max_len)
   prefill(params, batch, max_len)     — (last-position logits, caches)
   prefill_with_cache(params, batch, caches)
   decode(params, token, t, caches)    — one-token step
 
-``logits``/``loss`` (training) arrive with a later slice.
-:func:`params_from_jax` carries a reference parameter tree (as numpy
-arrays) over into the port, so both packages compute with the same weights.
+Batches are dicts of ``{"tokens": (B, S), "targets": (B, S)}`` integer
+tensors; the reference's frontend inputs (``patches``, ``frames``) belong to
+a later slice.  :func:`params_from_jax` carries a reference parameter tree
+(as numpy arrays) over into the port, so both packages compute with the
+same weights.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from .base import ModelConfig, ParamTree, check_supported, init_params
+from .base import ModelConfig, ParamDef, ParamTree, check_supported, init_params
 from . import stack as S
 
-__all__ = ["Model", "params_from_jax"]
+__all__ = ["Model", "cross_entropy", "params_from_jax"]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token CE; logits fp32 (B, S, V), targets (B, S) int."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - picked)
+
+
+def _schema_size(schema) -> int:
+    if isinstance(schema, ParamDef):
+        return math.prod(schema.shape)
+    values = schema.values() if isinstance(schema, dict) else schema
+    return sum(_schema_size(v) for v in values)
 
 
 class Model:
@@ -50,6 +71,10 @@ class Model:
             self.schema(), self.cfg.pdtype, generator, self.device
         ))
 
+    def param_count(self) -> int:
+        """Parameters in the schema, counted without allocating any."""
+        return _schema_size(self.schema())
+
     # -- caches ------------------------------------------------------------
     def cache_schema(self, batch: int, max_len: int) -> dict:
         return S.model_cache_schema(self.cfg, batch, max_len)
@@ -61,6 +86,31 @@ class Model:
         )
 
     # -- compute -----------------------------------------------------------
+    @staticmethod
+    def _tokens_only(batch: dict) -> None:
+        extra = sorted({"patches", "frames"} & set(batch))
+        if extra:
+            raise NotImplementedError(
+                f"batch inputs {extra}: frontend and audio models are not "
+                f"ported yet"
+            )
+
+    def logits(self, params, batch: dict, remat: bool = False) -> torch.Tensor:
+        self._tokens_only(batch)
+        lg, _ = S.forward(params, self.cfg, batch["tokens"], remat=remat)
+        return lg
+
+    def loss(self, params, batch: dict, remat: bool = False) -> torch.Tensor:
+        """Mean next-token cross-entropy: the chunked
+        :func:`~repro_torch.models.stack.fused_ce` when ``cfg.fused_ce``,
+        else :func:`cross_entropy` of the full logits."""
+        self._tokens_only(batch)
+        if self.cfg.fused_ce:
+            h = S.hidden_states(params, self.cfg, batch["tokens"], remat=remat)
+            return S.fused_ce(params, self.cfg, h, batch["targets"])
+        return cross_entropy(self.logits(params, batch, remat=remat),
+                             batch["targets"])
+
     def prefill(self, params, batch: dict, max_len: int):
         caches = self.init_cache(batch["tokens"].shape[0], max_len)
         return self.prefill_with_cache(params, batch, caches)

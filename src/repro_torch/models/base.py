@@ -257,10 +257,13 @@ def init_params(schema, dtype: torch.dtype, generator: torch.Generator | None,
 class ParamTree(nn.Module):
     """A nested parameter tree as an ``nn.Module``.
 
-    Built from nested dicts / lists of tensors; indexed by name (or position
-    for lists) like the reference's parameter pytrees, so the functional
-    blocks read ``p["mix"]["wq"]`` in both packages.  Parameters do not
-    require gradients: this slice serves; training comes later.
+    Built from nested dicts / lists of tensors (or subtrees already built);
+    indexed by name (or position for lists) like the reference's parameter
+    pytrees, so the functional blocks read ``p["mix"]["wq"]`` in both
+    packages, and ``dict(tree)`` gives its top level.  Leaves are built
+    with ``requires_grad=False``, so serving records no autograd graph; a
+    trainer turns grad on for the leaves it trains for the span of its step
+    (:func:`repro_torch.launch.steps.make_train_step`).
     """
 
     def __init__(self, tree: dict):
@@ -269,6 +272,8 @@ class ParamTree(nn.Module):
         for k, v in tree.items():
             if isinstance(v, torch.Tensor):
                 self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            elif isinstance(v, nn.Module):
+                self.add_module(k, v)
             elif isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             elif isinstance(v, (list, tuple)):
@@ -280,3 +285,6 @@ class ParamTree(nn.Module):
         if key not in self._keys:
             raise KeyError(key)
         return getattr(self, key)
+
+    def keys(self) -> tuple[str, ...]:
+        return self._keys

@@ -6,10 +6,13 @@ is: token embedding -> ``n_groups`` blocks -> final norm -> LM head.  The
 reference scans over stacked ``(n_groups, ...)`` block parameters; here
 ``params["blocks"]`` and ``caches["blocks"]`` are per-layer lists and
 :func:`apply_stack` loops over them, each block dispatched on its kind.
+Training reads :func:`hidden_states` and :func:`fused_ce`, the chunked
+cross-entropy that never holds ``(B, S, V)`` logits.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .base import ModelConfig, ParamDef, check_supported
 from . import blocks as B
@@ -18,8 +21,8 @@ from . import layers as L
 __all__ = [
     "block_schema", "block_cache_schema", "model_schema",
     "model_cache_schema", "apply_block",
-    "apply_stack", "embed_tokens", "head_matrix", "lm_head", "forward",
-    "decode_step",
+    "apply_stack", "embed_tokens", "hidden_states", "head_matrix",
+    "fused_ce", "lm_head", "forward", "decode_step",
 ]
 
 # ---------------------------------------------------------------------------
@@ -112,13 +115,32 @@ def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
     return h + fo, cache
 
 
+def _recomputed(fn, *args):
+    """``fn(*args)`` with its activations dropped after the forward and
+    recomputed in the backward (``jax.checkpoint`` in the reference).
+    Nothing in the model draws random numbers, so no RNG state is kept."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def apply_stack(params, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState,
-                caches: dict | None):
+                caches: dict | None, remat: bool = False):
     """Run every block in order.  Returns (h, caches|None); caches are
-    written in place (see :mod:`repro_torch.models.blocks`)."""
+    written in place (see :mod:`repro_torch.models.blocks`).
+
+    ``remat`` recomputes each block in the backward instead of keeping its
+    activations (the reference checkpoints each scanned group).  It applies
+    only without caches and with grad enabled: a block that writes a cache
+    in place must run once."""
     new = [] if caches is not None else None
     kinds = cfg.layer_kinds()
+    remat = remat and caches is None and torch.is_grad_enabled()
     for i, p in enumerate(params["blocks"]):
+        if remat:
+            h = _recomputed(
+                lambda x, p=p, k=kinds[i]: apply_block(p, x, cfg, rs, None, k)[0],
+                h,
+            )
+            continue
         c = caches["blocks"][i] if caches is not None else None
         h, nc = apply_block(p, h, cfg, rs, c, kinds[i])
         if new is not None:
@@ -138,8 +160,49 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return h
 
 
+def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  remat: bool = False) -> torch.Tensor:
+    """Final-norm'd hidden states (B, S, d): the input to the LM head."""
+    rs = B.RunState(mode="full")
+    h = embed_tokens(params, tokens, cfg)
+    h, _ = apply_stack(params, h, cfg, rs, None, remat=remat)
+    return L.norm(h, params["final_norm"], cfg.norm)
+
+
 def head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def fused_ce(params, cfg: ModelConfig, h: torch.Tensor,
+             targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Chunked softmax cross-entropy, the mean over the B x S tokens.
+
+    The sequence is cut into ``min(chunk, S)`` positions (one chunk when
+    that does not divide S); each chunk's logits are ``h @ w`` in
+    ``h.dtype``, then fp32 and the soft-cap, reduced to the sum of
+    logsumexp minus the target's logit, and recomputed in the backward, so
+    no (B, S, V) tensor outlives its chunk.  The chunks' sums add in order,
+    as the reference's scan does.
+    """
+    w = head_matrix(params, cfg)
+    B_, S, _ = h.shape
+    c = min(chunk, S)
+    if S % c:
+        c = S
+
+    def piece(hc, tc):
+        logits = torch.matmul(hc, w.to(hc.dtype))
+        logits = L.softcap(logits.float(), cfg.final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return torch.sum(lse - picked)
+
+    run = _recomputed if torch.is_grad_enabled() else (lambda fn, *a: fn(*a))
+    targets = targets.long()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, c):
+        total = total + run(piece, h[:, i : i + c], targets[:, i : i + c])
+    return total / (B_ * S)
 
 
 def lm_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -152,11 +215,12 @@ def lm_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-            caches: dict | None = None, write_cache: bool = False):
+            caches: dict | None = None, write_cache: bool = False,
+            remat: bool = False):
     """Full-sequence forward (prefill).  Returns (logits, caches)."""
     rs = B.RunState(mode="full", write_cache=write_cache)
     h = embed_tokens(params, tokens, cfg)
-    h, new_caches = apply_stack(params, h, cfg, rs, caches)
+    h, new_caches = apply_stack(params, h, cfg, rs, caches, remat=remat)
     return lm_head(params, h, cfg), new_caches
 
 

@@ -1,0 +1,106 @@
+"""AdamW with fp32 moments, global-norm clipping, warmup-cosine schedule.
+
+Ported from ``repro.optim.adamw``, on trees of tensors: a
+:class:`~repro_torch.models.base.ParamTree` (or nested dicts of tensors)
+for the parameters, and flat dicts keyed by each leaf's dotted
+name (``"blocks.0.mix.wq"``, as ``named_parameters`` gives it) for the
+gradients and the moments.  The arithmetic is the reference's, expression
+for expression, in fp32 whatever the parameter's type; only the storage
+differs: :func:`apply` writes the new parameters and moments in place
+instead of returning new arrays (a trainer holds one copy of each on the
+card).  ``torch.optim.AdamW`` is not this optimizer: it keeps its moments in
+the parameter's type and applies the weight decay as a separate multiply.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+__all__ = ["AdamWConfig", "apply", "global_norm", "init_state", "lr_at",
+           "named_leaves"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def named_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """``(dotted name, tensor)`` for every leaf of ``tree``: an
+    ``nn.Module`` (its ``named_parameters``), a dict, or a tensor."""
+    if isinstance(tree, nn.Module):
+        return [(prefix + n, p) for n, p in tree.named_parameters()]
+    if isinstance(tree, torch.Tensor):
+        return [(prefix.rstrip("."), tree)]
+    return [leaf for k, v in tree.items()
+            for leaf in named_leaves(v, f"{prefix}{k}.")]
+
+
+def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
+    """The learning rate at optimizer step ``step`` (an int or an integer
+    tensor), as a 0-dim fp32 tensor on ``step``'s device."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.lr * torch.clamp_max((step + 1) / max(cfg.warmup_steps, 1), 1.0)
+    frac = torch.clamp(
+        (step - cfg.warmup_steps) / max(cfg.decay_steps - cfg.warmup_steps, 1),
+        0, 1,
+    )
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * frac)
+    )
+    return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+def init_state(params) -> dict:
+    """Zero fp32 moments for every leaf, and ``count`` (int32, on the
+    parameters' device) at 0."""
+    leaves = named_leaves(params)
+    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in leaves}
+    return {
+        "m": zeros,
+        "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
+        "count": torch.zeros((), dtype=torch.int32, device=leaves[0][1].device),
+    }
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g^2), in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in grads.values()))
+
+
+@torch.no_grad()
+def apply(cfg: AdamWConfig, params, grads: dict, state: dict):
+    """One AdamW step.  ``grads`` maps each leaf's dotted name (see
+    :func:`named_leaves`) to its gradient.  Updates ``params`` and the
+    moments in place; returns ``(params, state, metrics)`` with ``state``'s
+    new ``count`` and ``metrics = {grad_norm, lr}`` (0-dim fp32 tensors)."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+    count = state["count"] + 1
+    lr = lr_at(cfg, count)
+    b1c = 1 - torch.pow(cfg.b1, count.float())
+    b2c = 1 - torch.pow(cfg.b2, count.float())
+    for name, p in named_leaves(params):
+        m, v = state["m"][name], state["v"][name]
+        g = grads[name].float() * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        del g
+        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        p32 = p.float()
+        step = step + cfg.weight_decay * p32
+        p.copy_(p32 - lr * step)
+    return params, dict(state, count=count), {"grad_norm": gnorm, "lr": lr}

@@ -254,6 +254,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.runtime.wire", "repro_torch.launch.server",
             "repro_torch.launch.client"} <= set(mods)
     assert "repro_torch.core.deploy" in mods
+    assert {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -584,6 +584,56 @@ def test_rwkv_smoke_model_on_card_equals_cpu(rng, cuda):
         close(lg, lc)
 
 
+def test_train_step_on_card_equals_cpu(rng, cuda):
+    """One train step of the deepseek_7b smoke model (fp32; 2 microbatches,
+    remat, the flash scan at 64 positions with blocks of 16) on the card
+    against the same step on the CPU: loss and grad_norm within 1e-5, both
+    moments within 1e-4 (2e-4 for v) of their max (the fp32 gradients'
+    rounding, as in tests/test_torch_train.py), count 1; the parameters
+    within 1e-6 of max|p| + lr where |m| >= 1e-2 max|m| (the gradient's sign
+    is decided there) and within 2 lr of that elsewhere; no kernel
+    launched, and no leaf left requiring grad."""
+    import dataclasses
+
+    from repro_torch.launch.steps import TrainHParams, make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek_7b"),
+                              dense_attn_max_seq=16, flash_block_kv=16)
+    hp = TrainHParams(optimizer=adamw.AdamWConfig(warmup_steps=2), microbatch=2)
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    params_c = copy.deepcopy(params).to(cuda)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)))
+             for k in ("tokens", "targets")}
+    kernels = (grouped_block_diag_matmul, grouped_aug_gemm, grouped_row_gemm,
+               block_diag_matmul, aug_gemm, wkv6_chunked)
+    before = [k.launches for k in kernels]
+    _, want_opt, want = make_train_step(cpu, hp)(
+        params, adamw.init_state(params), batch)
+    _, opt, got = make_train_step(Model(cfg, "cuda"), hp)(
+        params_c, adamw.init_state(params_c),
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    assert int(opt["count"]) == 1
+    for k in ("loss", "grad_norm", "lr"):
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-5), k
+    lr = float(want["lr"])
+    want_p = dict(adamw.named_leaves(params))
+    for name, p in adamw.named_leaves(params_c):
+        assert not p.requires_grad
+        for key, tol in (("m", 1e-4), ("v", 2e-4)):
+            w = want_opt[key][name]
+            err = float((opt[key][name].cpu() - w).abs().max())
+            assert err <= tol * float(w.abs().max()), (key, name, err)
+        m = want_opt["m"][name].abs()
+        diff = (p.cpu() - want_p[name]).abs()
+        slack = 1e-6 * (float(want_p[name].abs().max()) + lr)
+        assert float(diff[m >= 1e-2 * m.max()].max()) <= slack, name
+        assert float(diff.max()) <= 2 * lr + slack, name
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", ["identity", "out_of_order", "out_of_range"])
 def test_k3_at_the_phi3_shape(cuda, dtype, name):
