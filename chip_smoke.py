@@ -283,6 +283,30 @@ printing one JSON line; any failure raises and exits non-zero:
                 token, remat's recompute not counted, over 989 TFLOP/s),
                 the profiled step's top kernels and operations and its idle
                 share, and the phase's own time.
+ 10b. train_resume_path the training driver (``launch/train.py`` ``main``,
+                its ``ResilientLoop`` and checkpoints) at phi3_mini_3p8b's
+                published width (d 3072, 32 heads of 96, d_ff 8192, vocab
+                32064, bf16) cut to 2 layers (RESUME_LAYERS says why), run
+                through ``main(argv, cfg=...)`` with the reference's flags
+                (``--mole token --seq-len 2048 --batch 8 --microbatch 2
+                --warmup 4 --ckpt-every 3``; RESUME_FLAGS says why the
+                warmup is 4) and checkpoints under a temp
+                dir (its filesystem checked first for room): a clean run of
+                8 steps, a faulty one (``--inject-failures 5``: a restore
+                from step 3), a cut one (``--steps 4``, then ``--steps 8
+                --resume``), and a second clean run as a control.  Gated:
+                (1) loss and grad_norm finite at every step, restarts 0, 1,
+                0; (2) all six launch counters 0; (3) the faulty and resumed
+                runs' losses at steps 3-7 and their final params and
+                moments equal the clean run's bit for bit when the two
+                clean runs are bit-equal, else within twice the clean runs'
+                own largest departure; (4) just after the restore, every
+                leaf holds the step-3 state's bits in the storage it had
+                before the failure; (5) no leaf requires grad after the
+                runs.  Printed: step p50 and tokens/s, the time to save
+                one checkpoint (host copy, then write), the restore
+                seconds, the checkpoint bytes, the peak, which case of gate
+                3 held, and the phase's own time.
  11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
      ``fp32_tables``), the card's name and power limit, and the final
@@ -418,6 +442,23 @@ TRAIN_TWIN_LAYERS, TRAIN_TWIN_STEPS = 2, 3  # gate 3: raw against fused
 # on an NVIDIA H100 80GB HBM3 at 700.00 W.
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GATED_STEPS = {"float32": 2, "bfloat16": 1}
+# train_resume_path: launch/train.py at phi3_mini_3p8b's published width, cut
+# in depth.  A checkpoint holds 10 B a parameter (bf16 params, AdamW's two
+# fp32 moments): embed and head are 2 x 32064 x 3072 = 0.197 B parameters,
+# a layer 4 x 3072^2 + 3 x 3072 x 8192 = 0.113 B, so 2 layers are 0.423 B
+# and 4.2 GB a checkpoint.  launch/train.py keeps 3 and writes a 4th before it
+# drops the oldest (the cut run saves at 3, 4, 6 and 8), so a run's
+# directory needs room for 4.  --steps sets the cosine's decay_steps (as in
+# the reference), so the cut run (--steps 4) follows the 8-step runs'
+# learning rates only while the schedule does not read decay_steps: through
+# the warmup and at its last count.  A warmup of 4 covers the cut run's 4
+# steps; with 2 its steps 2-3 take another rate and the resumed run starts
+# from another state.
+RESUME_ARCH, RESUME_LAYERS = "phi3_mini_3p8b", 2
+RESUME_FLAGS = ["--mole", "token", "--seq-len", "2048", "--batch", "8",
+                "--microbatch", "2", "--warmup", "4", "--ckpt-every", "3"]
+RESUME_STEPS, RESUME_CUT, RESUME_FAIL, RESUME_EVERY = 8, 4, 5, 3
+RESUME_KEEP = 3                 # launch/train.py's CheckpointManager(keep=3)
 
 
 def bf16_ulp(x: float) -> float:
@@ -2802,6 +2843,221 @@ def train_path(dev, kernels) -> dict:
     return out
 
 
+def host_state(state) -> dict:
+    """A trainer state's leaves copied to the host: the params, the two
+    moments and the count."""
+    from repro_torch.checkpoint.manager import tree_leaves
+
+    opt = state["opt"]
+    return {"params": [p.detach().cpu() for p in tree_leaves(state["params"])],
+            "moments": [t.cpu() for t in tree_leaves([opt["m"], opt["v"]])],
+            "count": int(opt["count"])}
+
+
+def state_departure(state, host: dict) -> dict:
+    """The largest |state - host| over the params and over the moments, and
+    whether every leaf (the count too) holds the same bits."""
+    now = host_state(state)
+    out = {"same_bits": now["count"] == host["count"]}
+    for key in ("params", "moments"):
+        dep = 0.0
+        for a, b in zip(now[key], host[key]):
+            out["same_bits"] &= same_bits(a, b)
+            dep = max(dep, float((a.float() - b.float()).abs().max()))
+        out[key] = dep
+    return out
+
+
+def train_resume_path(dev, kernels) -> dict:
+    """``launch/train.py``'s ``main`` at phi3_mini_3p8b's published width,
+    ``RESUME_LAYERS`` layers, through a failure, a restore and a resume;
+    gates 1-5 of the module docstring; step time, save and restore times,
+    checkpoint bytes, the peak."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.runtime import ResilientLoop
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_config(RESUME_ARCH), n_groups=RESUME_LAYERS)
+    n_params = Model(cfg, dev).param_count()
+    ckpt_bytes = n_params * (cfg.pdtype.itemsize + 8) + 4
+    root = Path(tempfile.mkdtemp(prefix="train_resume_"))
+    free = shutil.disk_usage(root).free
+    check(free >= (RESUME_KEEP + 1) * ckpt_bytes,
+          f"train_resume_path: {free / 1e9:.1f} GB free under {root}, a run "
+          f"needs {(RESUME_KEEP + 1) * ckpt_bytes / 1e9:.1f} GB for "
+          f"{RESUME_KEEP + 1} checkpoints of {ckpt_bytes / 1e9:.2f} GB")
+    obs = {"loops": []}
+
+    def on_restore(state):
+        # Gate 4: the step-RESUME_EVERY state's bits, in the storage the
+        # leaves had when the step failed.
+        leaves = tree_leaves(state)
+        check([leaf.data_ptr() for leaf in leaves] == obs["ptrs"],
+              "gate 4: a restored leaf moved to other storage")
+        check(all(same_bits(leaf.detach().cpu(), want)
+                  for leaf, want in zip(leaves, obs["at_ckpt"])),
+              "gate 4: a restored leaf differs from the checkpointed state")
+        obs["restored"] = int(state["opt"]["count"])
+        return state
+
+    class Observed(ResilientLoop):
+        """``train.main``'s loop with its restore timed and watched:
+        the leaves' storage after each step, a host copy of the state it
+        checkpoints at RESUME_EVERY."""
+
+        def __init__(self, step_fn, ckpt, *args, **kw):
+            def observed(state, batch):
+                state, m = step_fn(state, batch)
+                leaves = tree_leaves(state)
+                obs["ptrs"] = [leaf.data_ptr() for leaf in leaves]
+                if obs.get("capture") == int(state["opt"]["count"]):
+                    obs["at_ckpt"] = [leaf.detach().cpu() for leaf in leaves]
+                return state, m
+
+            restore_into = ckpt.restore_into
+
+            def timed_restore(step, tree):
+                t0 = time.monotonic()
+                extra = restore_into(step, tree)
+                torch.cuda.synchronize()
+                obs["restore_s"] = time.monotonic() - t0
+                return extra
+
+            ckpt.restore_into = timed_restore
+            super().__init__(observed, ckpt, *args, on_restore=on_restore, **kw)
+            obs["loops"].append(self)
+
+    def run(name, *flags):
+        obs["loops"].clear()
+        state, hist = train.main(
+            ["--arch", RESUME_ARCH] + RESUME_FLAGS + [
+                "--device", str(dev), "--ckpt-dir",
+                            str(root / name), *flags], cfg=cfg)
+        losses = {h["step"]: float(h["loss"]) for h in hist if "loss" in h}
+        norms = [float(h["grad_norm"]) for h in hist if "loss" in h]
+        check(all(np.isfinite(list(losses.values()))) and all(np.isfinite(norms)),
+              f"gate 1: {name}: non-finite loss {losses} or grad_norm {norms}")
+        check(not any(p.requires_grad for p in state["params"].parameters()),
+              f"gate 5: {name}: a leaf requires grad after training")
+        return state, hist, losses, sum(loop.restarts for loop in obs["loops"])
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    saved = train.ResilientLoop
+    train.ResilientLoop = Observed
+    try:
+        state, hist, clean_losses, r_clean = run(
+            "clean", "--steps", str(RESUME_STEPS))
+        wall_ms = [h["wall_s"] * 1e3 for h in hist if "loss" in h]
+        clean = host_state(state)
+        step_dir = root / "clean" / cfg.name / f"step_{RESUME_STEPS:08d}"
+        disk_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        # One save of the final state, timed as the loop pays it: the host
+        # copy (save returns), then the writer's file writes (wait).
+        probe = CheckpointManager(root / "save_probe", keep=1)
+        t0 = time.monotonic()
+        probe.save(RESUME_STEPS, state, extra={"data": {"index": 0}})
+        save_host_s = time.monotonic() - t0
+        probe.wait()
+        save_s = time.monotonic() - t0
+        del state, probe
+        release()
+        for name in ("clean", "save_probe"):
+            shutil.rmtree(root / name)
+
+        obs["capture"] = RESUME_EVERY
+        state, hist, faulty_losses, r_faulty = run(
+            "faulty", "--steps", str(RESUME_STEPS), "--inject-failures",
+            str(RESUME_FAIL))
+        obs.pop("capture")
+        events = [h["event"] for h in hist if "event" in h]
+        faulty = state_departure(state, clean)
+        del state, obs["at_ckpt"]
+        release()
+        shutil.rmtree(root / "faulty")
+
+        _, _, cut_losses, r_cut = run("cut", "--steps", str(RESUME_CUT))
+        release()
+        state, _, resumed_losses, r_resumed = run(
+            "cut", "--steps", str(RESUME_STEPS), "--resume")
+        resumed = state_departure(state, clean)
+        del state
+        release()
+        shutil.rmtree(root / "cut")
+
+        state, _, control_losses, r_control = run(
+            "control", "--steps", str(RESUME_STEPS), "--ckpt-every", "100")
+        control = state_departure(state, clean)
+        del state
+        release()
+    finally:
+        train.ResilientLoop = saved
+        shutil.rmtree(root, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check((r_clean, r_faulty, r_cut + r_resumed, r_control) == (0, 1, 0, 0),
+          f"gate 1: restarts clean {r_clean}, faulty {r_faulty}, cut "
+          f"{r_cut} + {r_resumed}, control {r_control}")
+    check(events == [f"restored@{RESUME_EVERY}: injected failure at step "
+                     f"{RESUME_FAIL}"] and obs["restored"] == RESUME_EVERY,
+          f"gate 4: faulty run's events {events}")
+    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    check(not any(launches.values()),
+          f"gate 2: train_resume_path launched {launches}")
+
+    # Gate 3: against the clean run, bit for bit if the control is, else
+    # within twice the control's departure, losses and state alike.
+    def loss_dep(losses):
+        return max(abs(losses[s] - clean_losses[s])
+                   for s in range(RESUME_EVERY, RESUME_STEPS))
+
+    control["losses"] = max(abs(control_losses[s] - clean_losses[s])
+                            for s in range(RESUME_STEPS))
+    control["same_bits"] &= control_losses == clean_losses
+    faulty["losses"] = loss_dep(faulty_losses)
+    resumed["losses"] = loss_dep({**cut_losses, **resumed_losses})
+    bit_for_bit = control["same_bits"]
+    for name, dep in (("faulty", faulty), ("resumed", resumed)):
+        if bit_for_bit:
+            check(dep["same_bits"] and dep["losses"] == 0.0,
+                  f"gate 3: the clean runs are bit-equal, the {name} run "
+                  f"departs: {dep}")
+        else:
+            for key in ("losses", "params", "moments"):
+                check(dep[key] <= 2 * control[key],
+                      f"gate 3: the {name} run's {key} depart by "
+                      f"{dep[key]}, twice the control's is "
+                      f"{2 * control[key]}")
+
+    tokens = int(RESUME_FLAGS[RESUME_FLAGS.index("--batch") + 1]) * int(
+        RESUME_FLAGS[RESUME_FLAGS.index("--seq-len") + 1])
+    p50 = float(np.median(wall_ms[1:]))
+    out = {"phase": "train_resume_path", "arch": RESUME_ARCH,
+           "layers": cfg.n_layers, "params": n_params,
+           "flags": RESUME_FLAGS, "launches": launches,
+           "losses": {"clean": clean_losses, "faulty": faulty_losses,
+                      "cut": cut_losses, "resumed": resumed_losses,
+                      "control": control_losses},
+           "step_ms": wall_ms, "step_p50_ms": p50,
+           "tokens_per_s": tokens / (p50 / 1e3),
+           "ckpt_bytes": disk_bytes, "ckpt_state_bytes": ckpt_bytes,
+           "save_host_copy_s": save_host_s, "save_s": save_s,
+           "restore_s": obs["restore_s"], "disk_free_gb": free / 1e9,
+           "peak_gb": peak_gb,
+           "gate3": {"bit_for_bit": bit_for_bit, "control": control,
+                     "faulty": faulty, "resumed": resumed},
+           "phase_s": time.monotonic() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; needs a GPU")
@@ -2859,6 +3115,8 @@ def main() -> None:
                    prompt_len=RWKV_PROMPT)
     release()
     train_path(dev, kernels)
+    release()
+    train_resume_path(dev, kernels)
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
                     wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
     check(all(launches[n] > 0 for n in KERNEL_NAMES),

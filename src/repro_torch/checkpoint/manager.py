@@ -11,21 +11,28 @@ other:
         leaf_00000.npy ...          (one file per leaf, raw)
 
 A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or scalars.  Leaves are numbered and their paths spelled as JAX's
+arrays or scalars; a model's :class:`~repro_torch.models.base.ParamTree`
+walks as the dict it was built from and an ``nn.ModuleList`` as a list.
+Leaves are numbered and their paths spelled as JAX's
 ``tree_flatten_with_path`` does (dict keys sorted, ``['key']`` for a dict
 entry, ``[i]`` for a sequence element, ``/`` between levels; ``None`` is an
-empty subtree).  bfloat16, which ``.npy`` cannot hold, is stored as its
-uint16 bits under the dtype tag ``"bfloat16"`` and loads back as a
-``torch.bfloat16`` tensor.
+empty subtree), so a ParamTree's block weight is
+``['blocks']/[0]/['mix']/['wq']``.  bfloat16, which ``.npy`` cannot hold,
+is stored as its uint16 bits under the dtype tag ``"bfloat16"`` and loads
+back as a ``torch.bfloat16`` tensor.
 
 Atomicity = write-to-tmp + rename; a crash mid-save leaves a ``.tmp`` dir
 that is ignored and swept on construction and before every save.  Async
 mode hands the host copies to a writer thread so the caller continues;
-``wait()`` joins before the next save or exit.  ``save`` and ``wait`` may be
-called from several threads (the async delivery engine's flusher snapshots
-between rounds while ``snapshot_now`` saves from a caller): a lock orders
-them, where the reference's manager would join a writer another thread has
-not started yet.  Restore onto other shardings (the reference's
+``wait()`` joins before the next save or exit.  ``restore_into`` writes a
+checkpoint into a live tree's tensors in place, leaf by leaf, where
+``restore`` returns new ones: a trainer that updates its state in place
+keeps one copy of it on the card, and whoever holds its parameters sees the
+restored values.  ``save`` and ``wait`` may be called from several
+threads (the async delivery engine's flusher snapshots between rounds
+while ``snapshot_now`` saves from a caller): a lock orders them, where the
+reference's manager would join a writer another thread has not started
+yet.  Restore onto other shardings (the reference's
 ``shardings=``) is not ported.
 """
 from __future__ import annotations
@@ -38,17 +45,20 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["CheckpointManager"]
+from ..models.base import ParamTree
+
+__all__ = ["CheckpointManager", "tree_leaves"]
 
 
 def _flatten_with_paths(tree: Any, prefix: tuple = ()) -> list[tuple[str, Any]]:
     """``[(path, leaf)]`` in JAX's flattening order with its path spelling."""
     if tree is None:
         return []
-    if isinstance(tree, dict):
-        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
+    if isinstance(tree, (dict, ParamTree)):
+        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree.keys())]
+    elif isinstance(tree, (list, tuple, nn.ModuleList)):
         items = [(f"[{i}]", v) for i, v in enumerate(tree)]
     else:
         return [("/".join(prefix), tree)]
@@ -63,12 +73,20 @@ def _unflatten(like: Any, leaves) -> Any:
     :func:`_flatten_with_paths`'s order)."""
     if like is None:
         return None
-    if isinstance(like, dict):
-        rebuilt = {k: _unflatten(like[k], leaves) for k in sorted(like)}
-        return {k: rebuilt[k] for k in like}
+    if isinstance(like, (dict, ParamTree)):
+        rebuilt = {k: _unflatten(like[k], leaves) for k in sorted(like.keys())}
+        out = {k: rebuilt[k] for k in like.keys()}
+        return ParamTree(out) if isinstance(like, ParamTree) else out
+    if isinstance(like, nn.ModuleList):
+        return nn.ModuleList(_unflatten(v, leaves) for v in like)
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
     return next(leaves)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in the order a checkpoint numbers them."""
+    return [leaf for _, leaf in _flatten_with_paths(tree)]
 
 
 def _to_host(leaf: Any) -> tuple[np.ndarray, str]:
@@ -226,6 +244,32 @@ class CheckpointManager:
                 arr = arr.to(ref.device)
             out.append(arr)
         return _unflatten(like, iter(out)), manifest["extra"]
+
+    @torch.no_grad()
+    def restore_into(self, step: int, tree: Any) -> dict:
+        """Write ``step`` into ``tree``'s own tensors, in place, one leaf at
+        a time (disk -> host -> ``copy_`` into the leaf), and return the
+        ``extra`` dict.  Every leaf of ``tree`` must be a tensor of the
+        checkpoint leaf's shape and dtype; the tensors keep their storage
+        (``data_ptr``), so the card never holds a second copy of the tree
+        and every reference to a leaf sees the restored values."""
+        d = self.root / f"step_{step:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        by_path = {e["path"]: e for e in manifest["leaves"]}
+        for p, leaf in _flatten_with_paths(tree):
+            if not isinstance(leaf, torch.Tensor):
+                raise TypeError(f"leaf {p} is a {type(leaf).__name__}, not a "
+                                f"tensor: it cannot be restored in place")
+            e = by_path[p]
+            arr = _from_disk(d / e["file"], e["dtype"])
+            src = torch.from_numpy(arr) if isinstance(arr, np.ndarray) else arr
+            if src.shape != leaf.shape or src.dtype != leaf.dtype:
+                raise ValueError(
+                    f"checkpoint leaf {p} is {src.dtype} {list(src.shape)}, "
+                    f"the tree's {leaf.dtype} {list(leaf.shape)}"
+                )
+            leaf.copy_(src)
+        return manifest["extra"]
 
     # ------------------------------------------------------------ plumbing
     def _retain(self) -> None:

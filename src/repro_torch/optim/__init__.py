@@ -1,4 +1,5 @@
-"""Optimizers on PyTorch, ported from ``repro.optim``."""
-from . import adamw
+"""Optimizers on PyTorch, ported from ``repro.optim``: AdamW and the local
+half of gradient compression."""
+from . import adamw, compress
 
-__all__ = ["adamw"]
+__all__ = ["adamw", "compress"]

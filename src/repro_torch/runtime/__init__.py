@@ -12,7 +12,8 @@ codec, and the continuous-batched decode lane.
                 FairAdmissionQueue for decode admission)
   prefetch      per-tenant arrival prediction for slot prefetch
   resilience    failure injection (incl. network chaos), straggler watch,
-                engine snapshots
+                engine snapshots, ResilientLoop (the training loop's
+                checkpoint/restart)
   wire          length-prefixed frame codec for the network front door
                 (launch/server.py serves it, launch/client.py speaks it)
 """
@@ -26,7 +27,8 @@ from .queue import (
     QueuedRequest, RequestQueue, TokenQueue,
 )
 from .resilience import (
-    EngineSnapshot, FailureInjector, SimulatedFailure, StragglerMonitor,
+    EngineSnapshot, FailureInjector, ResilientLoop, SimulatedFailure,
+    StragglerMonitor,
 )
 from .wire import ProtocolError
 
@@ -50,6 +52,7 @@ __all__ = [
     "ProtocolError",
     "QueuedRequest",
     "RequestQueue",
+    "ResilientLoop",
     "SimulatedFailure",
     "StragglerMonitor",
     "TokenQueue",

@@ -1,31 +1,47 @@
-"""Fault-tolerance pieces of the delivery engine, ported from
-``repro.runtime.resilience``.
+"""Fault-tolerance runtime on PyTorch, ported from
+``repro.runtime.resilience``: failure injection, the training loop's
+checkpoint/restart, straggler watch, engine snapshots.
 
-``FailureInjector(at_phases={"device"})`` raises ``SimulatedFailure`` at a
-delivery-engine flush phase boundary (``"coalesce"`` | ``"device"`` |
+``ResilientLoop`` drives ``(state, batch) -> (state, metrics)`` steps with
+periodic and final checkpoints (async, atomic: see
+:mod:`repro_torch.checkpoint.manager`), a deterministic data seek (the
+pipeline's index rides in each checkpoint's extra) and a restore from the
+latest checkpoint when a step fails.  The state's tensors are restored in
+place (``CheckpointManager.restore_into``), so the caller's parameters stay
+live; a failure before the first checkpoint puts back the state the run
+started from, where the reference keeps what it trained so far (see
+:meth:`ResilientLoop.run`).  Restore onto another mesh is not ported.
+
+``FailureInjector(at_steps={...})`` raises ``SimulatedFailure`` from inside
+the loop at chosen steps; ``FailureInjector(at_phases={"device"})`` raises
+at a delivery-engine flush phase boundary (``"coalesce"`` | ``"device"`` |
 ``"publish"``) — once per phase, so recovery replay runs clean.  Its
-step-indexed and network-chaos modes are carried over unchanged for the
-front doors of later slices.
+network-chaos mode serves the front doors.
 
-``StragglerMonitor`` flags flushes whose device phase runs far above the
-running EMA.
+``StragglerMonitor`` flags steps (the loop's) and flushes (the engine's
+device phase) far above the running EMA.
 
 ``EngineSnapshot`` is the engine's crash image: the registry's secrets +
 in-flight request accounting as ``(arrays, meta)``, persisted through
 :class:`repro_torch.checkpoint.CheckpointManager` in the reference's
-layout.  ``ResilientLoop`` (the training loop's checkpoint/restart) arrives
-with the training slice.
+layout.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Any, Callable
 
 import numpy as np
+import torch
+
+from ..checkpoint.manager import tree_leaves
 
 __all__ = [
     "EngineSnapshot",
     "FailureInjector",
     "NETWORK_PHASES",
+    "ResilientLoop",
     "SimulatedFailure",
     "StragglerMonitor",
 ]
@@ -132,3 +148,101 @@ class EngineSnapshot:
         """Load the latest (or a specific) persisted snapshot."""
         arrays, meta = ckpt.load(step)
         return cls(arrays=arrays, meta=meta)
+
+
+def _synchronize(state: Any) -> None:
+    """Wait for the device the state lives on (nothing to wait for on the
+    CPU): the step's wall time then covers its device work."""
+    leaves = tree_leaves(state)
+    if leaves and isinstance(leaves[0], torch.Tensor) and leaves[0].is_cuda:
+        torch.cuda.synchronize(leaves[0].device)
+
+
+class ResilientLoop:
+    """Drives (state, batch) -> state steps with checkpoint/restart."""
+
+    def __init__(
+        self,
+        step_fn: Callable[..., Any],
+        ckpt,                       # CheckpointManager
+        pipeline,                   # repro_torch.data.pipeline.Pipeline
+        ckpt_every: int = 50,
+        injector: FailureInjector | None = None,
+        max_restarts: int = 8,
+        on_restore: Callable[[Any], Any] | None = None,
+    ):
+        self.step_fn = step_fn
+        self.ckpt = ckpt
+        self.pipeline = pipeline
+        self.ckpt_every = ckpt_every
+        self.injector = injector
+        self.max_restarts = max_restarts
+        self.on_restore = on_restore
+        self.straggler = StragglerMonitor()
+        self.restarts = 0
+
+    def _armed(self, start_step: int, n_steps: int) -> bool:
+        inj = self.injector
+        return inj is not None and any(
+            start_step <= s < n_steps for s in inj.at_steps - inj.fired)
+
+    def run(self, state: Any, n_steps: int, start_step: int = 0):
+        """Returns (state, metrics_history).  ``state`` is a tree of
+        tensors (dicts, lists, :class:`ParamTree`) the step_fn maps to the
+        next state given a batch; a history entry is the step's metrics
+        with ``step`` and ``wall_s``, or ``{step, event}`` for a restart.
+
+        A failure restores the latest checkpoint into the live state's
+        tensors and seeks the pipeline to the index saved with it; the
+        writer of a checkpoint still in flight is joined first, so a save
+        the loop already made counts.  A failure before any checkpoint
+        exists restarts from ``start_step`` with the state the run was
+        given, put back in place from a host copy taken at the start (only
+        when an injected failure can fire in this run).  The reference
+        keeps the state trained so far there and trains those batches
+        twice."""
+        history: list[dict] = []
+        step = start_step
+        initial = None
+        if self._armed(start_step, n_steps) and self.ckpt.latest_step() is None:
+            initial = [leaf.detach().to("cpu", copy=True)
+                       for leaf in tree_leaves(state)]
+        while step < n_steps:
+            try:
+                batch = next(self.pipeline)
+                if self.injector:
+                    self.injector.maybe_fail(step)
+                t0 = time.time()
+                state, metrics = self.step_fn(state, batch)
+                _synchronize(state)
+                dt = time.time() - t0
+                self.straggler.record(step, dt)
+                metrics = dict(metrics, step=step, wall_s=dt)
+                history.append(metrics)
+                step += 1
+                if step % self.ckpt_every == 0:
+                    self.ckpt.save(step, state, extra={"data": {"index": self.pipeline.index}})
+            except SimulatedFailure as e:
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    # nothing saved yet: restart from scratch deterministically
+                    with torch.no_grad():
+                        for leaf, saved in zip(tree_leaves(state), initial):
+                            leaf.copy_(saved)
+                    step = start_step
+                    self.pipeline.seek(start_step)
+                    history.append({"step": step, "event": f"restart-clean: {e}"})
+                    continue
+                extra = self.ckpt.restore_into(latest, state)
+                if self.on_restore:
+                    state = self.on_restore(state)
+                step = latest
+                self.pipeline.seek(extra["data"]["index"])
+                history.append({"step": step, "event": f"restored@{latest}: {e}"})
+        self.ckpt.save(n_steps, state, extra={"data": {"index": self.pipeline.index}})
+        self.ckpt.wait()
+        return state, history

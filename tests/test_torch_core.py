@@ -256,6 +256,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.core.deploy" in mods
     assert {"repro_torch.optim", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline"} <= set(mods)
+    assert {"repro_torch.launch.train", "repro_torch.optim.compress",
+            "repro_torch.runtime.resilience"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

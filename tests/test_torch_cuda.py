@@ -759,3 +759,72 @@ def test_k3_at_each_split_the_rule_picks(cuda, slices, t_dtype, N):
                 got = grouped_row_gemm(h, gidx, tables)
                 _hold(got, ref.lm_head_rows_grouped_ref(
                     h, gidx.clamp(0, 5), tables), h_dtype)
+
+
+def _same_bits(a, b):
+    if a.dtype.is_floating_point:
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
+    return torch.equal(a, b)
+
+
+def test_param_tree_restored_in_place_on_card(cuda, tmp_path):
+    """A bf16 ParamTree and its AdamW state on the card, saved, changed in
+    place, then ``restore_into``: every leaf holds the saved bits in the
+    storage it had."""
+    import dataclasses
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import tree_leaves
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_smoke_config("phi3_mini_3p8b"),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    params = Model(cfg, cuda).init(0)
+    state = {"params": params, "opt": adamw.init_state(params)}
+    with torch.no_grad():
+        for leaf in tree_leaves(state["opt"]):
+            leaf.add_(1)
+    ckpt = CheckpointManager(tmp_path)
+    ckpt.save(2, state, extra={"data": {"index": 2}})
+    saved = [leaf.detach().clone() for leaf in tree_leaves(state)]
+    ptrs = [leaf.data_ptr() for leaf in tree_leaves(state)]
+    with torch.no_grad():
+        for leaf in tree_leaves(state):
+            leaf.mul_(3).add_(1)
+    ckpt.wait()
+    assert ckpt.restore_into(2, state) == {"data": {"index": 2}}
+    leaves = tree_leaves(state)
+    assert [leaf.data_ptr() for leaf in leaves] == ptrs
+    assert all(leaf.is_cuda for leaf in leaves)
+    assert params["embed"].dtype == torch.bfloat16
+    assert all(_same_bits(a.detach(), b) for a, b in zip(leaves, saved))
+
+
+def test_resilient_loop_on_card_through_one_failure(cuda, tmp_path):
+    """The phi3_mini_3p8b smoke model in bf16 on the card through
+    ``launch/train.py``: a failure at step 5 restores step 4's checkpoint,
+    and the run ends with the clean run's losses, parameters and moments
+    bit for bit (the same ops on the same card)."""
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import tree_leaves
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_smoke_config("phi3_mini_3p8b"),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    argv = ["--arch", "phi3_mini_3p8b", "--mole", "token", "--seq-len", "64",
+            "--batch", "4", "--microbatch", "2", "--steps", "8",
+            "--ckpt-every", "4", "--device", "cuda"]
+    clean, clean_hist = train.main(
+        argv + ["--ckpt-dir", str(tmp_path / "clean")], cfg=cfg)
+    faulty, hist = train.main(argv + ["--ckpt-dir", str(tmp_path / "faulty"),
+                                      "--inject-failures", "5"], cfg=cfg)
+    assert [h["event"] for h in hist if "event" in h] == [
+        "restored@4: injected failure at step 5"]
+    losses = {h["step"]: float(h["loss"]) for h in hist if "loss" in h}
+    assert losses == {h["step"]: float(h["loss"])
+                      for h in clean_hist if "loss" in h}
+    assert all(leaf.is_cuda for leaf in tree_leaves(faulty))
+    assert all(_same_bits(a.detach(), b.detach()) for a, b in
+               zip(tree_leaves(faulty), tree_leaves(clean)))
