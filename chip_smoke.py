@@ -112,12 +112,20 @@ printing one JSON line; any failure raises and exits non-zero:
                 (``cuda_ms``), the plain version back to back, one library
                 call (torch.bmm of h[:, None, :] against the same tables, a
                 yardstick the port never calls) both ways, and the byte
-                bound of each table dtype.
+                bound of each table dtype.  ``row_command_r`` and
+                ``row_gemma2``: K3 at the vocab-256000 decode shapes, h (4,
+                8192) x (4, 8192, 256000) and h (4, 4608) x (4, 4608,
+                256000), on bf16 tables only (16.78 and 9.44 GB; fp32 would
+                need 33.5 GB), drawn slot by slot: against the plain version
+                (two bf16 ulps) with gidx in order and reversed, two calls
+                the same bits, the last slot's last 256 columns (entries
+                past 2^31 and 2^33) against a float64 product; timed as
+                the rows above.
   6. lm_path    ``serve --mode lm`` at deepseek_7b FULL width (30 layers,
                 d_model 4096, vocab 102400, bf16) with random weights from
                 a seeded generator on the card: 4 tenants at capacity 4
-                (the lane's Aug-head stack gated to be staged in the
-                model's bf16, its AugE tables in fp32; their bytes printed),
+                (the lane's Aug-head and AugE stacks gated to be staged in
+                the model's bf16; their bytes printed),
                 8 requests of 32 prompt tokens, 16 generated tokens each, so
                 rows retire and new ones are admitted mid-run.  Gated:
                 (1) the token lane's morphed prompts equal numpy's
@@ -173,6 +181,26 @@ printing one JSON line; any failure raises and exits non-zero:
                 generated; K3 at h (4, 3072) x tables (4, 3072, 32064).
                 Gated as lm_long_prompt (the flash scan 32 x 8 times in the
                 lane, twice in the twin's plain prefill).
+ 6d. gemma2_path lm_path at gemma2_27b's published width (d 4608, 32 heads
+                of 128 over 16 KV heads, d_ff 36864 GeGLU, vocab 256000,
+                local(4096)/global layers, soft-caps 50 and 30, post-norms,
+                scaled tied embeddings, bf16) cut to GEMMA2_GROUPS groups
+                (the peak held at PEAK_LIMIT_GB; the constants say why): 4
+                tenants, 8 requests of 6144 prompt tokens (past the window
+                and dense_attn_max_seq), 16 generated; local layers hold
+                rings of 4096 slots.  K3 at h (4, 4608) x (4, 4608, 256000)
+                on AugE^T.  Gated as phi3_path (checks 3-4 before the final
+                soft-cap, the sampled token the argmax after it; the twin
+                is one group, a local and a global layer), plus the
+                window-live gate: the twin's logits with the window taken
+                away differ from its own by more than the tie margin.
+                Printed: host_peak_rss_gb and host_secret_and_staging_s.
+ 6e. command_r_path lm_path at command_r_35b's published width (d 8192, 64
+                heads over 8 KV heads, d_ff 22528, parallel blocks on one
+                LayerNorm, vocab 256000, tied embeddings, bf16) cut to
+                COMMAND_R_LAYERS layers: 4 tenants, 8 requests of 512, 16
+                generated; K3 at h (4, 8192) x (4, 8192, 256000).  Gated as
+                lm_path, its twin 2 layers.
   7. kernels_k45 the single-tenant / per-group morph (``block_diag_matmul``,
                 K4) and Aug-Conv (``aug_gemm``, K5) against their plain
                 versions in fp32 and bf16: K4 at (R, kappa, q) = (256, 1,
@@ -307,6 +335,13 @@ printing one JSON line; any failure raises and exits non-zero:
                 one checkpoint (host copy, then write), the restore
                 seconds, the checkpoint bytes, the peak, which case of gate
                 3 held, and the phase's own time.
+ 10c. gemma2_train train_path at gemma2_27b's published width, 1 group (a
+                local and a global layer, 2.31 B parameters), 2 sequences
+                of 6144 in 2 microbatches, remat, bf16, ``--mole token``:
+                gates 1-4 (the twins are that group, in fp32 and bf16), the
+                peak held at PEAK_LIMIT_GB.  MFU counts a local layer's
+                attention over its mean attended context (min(p + 1,
+                4096) over the positions) and a tied head's product once.
  11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
      ``fp32_tables``), the card's name and power limit, and the final
@@ -459,6 +494,31 @@ RESUME_FLAGS = ["--mole", "token", "--seq-len", "2048", "--batch", "8",
                 "--microbatch", "2", "--warmup", "4", "--ckpt-every", "3"]
 RESUME_STEPS, RESUME_CUT, RESUME_FAIL, RESUME_EVERY = 8, 4, 5, 3
 RESUME_KEEP = 3                 # launch/train.py's CheckpointManager(keep=3)
+# gemma2_27b and command_r_35b at their published widths,
+# vocab 256000, tied embeddings (the decode lane's head stack is AugE^T).
+# Serving phases hold their peak device memory at PEAK_LIMIT_GB, which sets
+# their depth.  gemma2_path: a group (local + global) is 2.265 GB of bf16
+# weights plus 0.336 GB of KV cache (4 rows; 4096 ring slots local, 6161
+# positions global); fixed, 2.36 GB of tied embedding and two 4-slot stacks
+# of 9.44 GB (AugE and Aug-head, both bf16): 21.2 GB, so 23 groups need
+# about 81 GB.  Prompts of 6144 are past the 4096 window, past
+# dense_attn_max_seq, and a multiple of both flash blocks.  17 groups
+# peaked at 67.28 GB (NVIDIA H100 80GB HBM3, 700.00 W), so 18 (69.9
+# predicted) is the most under the limit.
+# command_r_path: a layer is 1.409 GB; fixed, 4.19 GB of embedding and two
+# 16.78 GB stacks: 37.75 GB, so 40 layers need about 94 GB.  22 layers
+# peaked at 69.25 GB (same card), so 23 (70.7 predicted) is the most.
+PEAK_LIMIT_GB = 72.0
+GEMMA2_ARCH, GEMMA2_PROMPT, GEMMA2_GROUPS = "gemma2_27b", 6144, 18
+COMMAND_R_ARCH, COMMAND_R_PROMPT, COMMAND_R_LAYERS = "command_r_35b", 512, 23
+# K3 at their decode shapes on bf16 tables (the lane's stacks; fp32 tables
+# would need 33.5 GB at command_r's and gain nothing): 16.78 and 9.44 GB.
+K3_COMMAND_R = (4, 8192, 256000)
+K3_GEMMA2 = (4, 4608, 256000)
+# gemma2_train: the train step at gemma2 widths, 1 group (a local and a
+# global layer), 2 sequences of 6144 (every local layer's window slides) in
+# 2 microbatches: 2.31 B parameters, 37 GB of state at 16 B a parameter.
+GEMMA2_TRAIN = dict(groups=1, seq=6144, global_batch=2, micro=2)
 
 
 def bf16_ulp(x: float) -> float:
@@ -482,6 +542,44 @@ def release() -> None:
     collector frees, and otherwise stay live into a later phase's peak."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def host_peak_reset() -> bool:
+    """Reset this process's peak resident set (VmHWM) by writing 5 to
+    /proc/self/clear_refs; False where that is refused or VmHWM is not
+    kept (the peak read after is then the process's own since it
+    started)."""
+    try:
+        Path("/proc/self/clear_refs").write_text("5")
+        return "VmHWM:" in Path("/proc/self/status").read_text()
+    except OSError:
+        return False
+
+
+def host_peak_gb() -> float:
+    """This process's peak resident set in GB: VmHWM where /proc keeps it,
+    else ``getrusage``'s ru_maxrss (the peak since the process started)."""
+    import resource
+
+    try:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def host_rss_gb() -> float | None:
+    """This process's resident set now in GB (/proc/self/statm), or None
+    where /proc does not give it."""
+    import os
+
+    try:
+        pages = int(Path("/proc/self/statm").read_text().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
 
 
 def reset_launches(kernels) -> None:
@@ -859,6 +957,75 @@ def k3_timed(gemm, kernels, ref, gen, R: int, K: int, N: int) -> dict:
     return out
 
 
+def k3_vocab_row(kernels, ref, gen, R: int, K: int, N: int) -> dict:
+    """K3 at a vocab-256000 decode shape on R slots of bf16 tables (the
+    lane's head stacks; drawn in bf16, slot by slot) with bf16 h: against
+    its plain version, gidx = arange(R) and reversed, within two bf16 ulps
+    of max|plain|; two calls the same bits; the last slot's last strip of
+    256 columns (its offsets past 2^31, and at (4, 8192, 256000) past 2^33)
+    also against a float64 product of the same entries, two ulps.  Timed
+    as ``k3_timed`` does on bf16 tables: graph_ms, cuda_ms, the plain
+    version, torch.bmm both ways, the byte bound."""
+    from repro_torch.kernels import gemm
+
+    dev = gen.device
+    tables = torch.empty((R, K, N), dtype=torch.bfloat16, device=dev)
+    for slot in range(R):
+        tables[slot] = torch.randn((K, N), generator=gen, device=dev,
+                                   dtype=torch.bfloat16) * K ** -0.5
+    h = torch.randn((R, K), generator=gen, device=dev).to(torch.bfloat16)
+    err, checks = 0.0, []
+    for order in ("identity", "reversed"):
+        idx = list(range(R)) if order == "identity" else list(range(R))[::-1]
+        gidx = torch.tensor(idx, dtype=torch.int32, device=dev)
+        got = kernels.grouped_row_gemm(h, gidx, tables)
+        again = kernels.grouped_row_gemm(h, gidx, tables)
+        want = ref.lm_head_rows_grouped_ref(h, gidx, tables)
+        torch.cuda.synchronize()
+        check(got.shape == (R, N) and bool(torch.isfinite(got).all()),
+              f"K3 ({R}, {K}, {N}) {order}: {tuple(got.shape)}, non-finite?")
+        check(same_bits(got, again), f"K3 ({R}, {K}, {N}) {order}: two calls differ")
+        e = float((got.float() - want.float()).abs().max())
+        lim = 2 * bf16_ulp(float(want.float().abs().max()))
+        check(e <= lim, f"K3 ({R}, {K}, {N}) {order}: |kernel - plain| {e} > {lim}")
+        checks.append({"case": order, "max_abs_err": e, "limit": lim})
+        err = max(err, e)
+        row = idx.index(R - 1)          # the row on the last slot
+        cols = slice(N - 256, N)
+        exact = (h[row].double() @ tables[R - 1][:, cols].double())
+        e = float((got[row, cols].double() - exact).abs().max())
+        lim = 2 * bf16_ulp(float(exact.abs().max()))
+        check(e <= lim, f"K3 ({R}, {K}, {N}) {order}: last slot's last strip "
+                        f"|kernel - fp64| {e} > {lim}")
+        checks.append({"case": f"{order}/last_slot_last_strip_vs_fp64",
+                       "max_abs_err": e, "limit": lim,
+                       "first_entry": (R - 1) * K * N + N - 256})
+        del got, again, want
+    ident = torch.arange(R, dtype=torch.int32, device=dev)
+    run = lambda: kernels.grouped_row_gemm(h, ident, tables)  # noqa: E731
+    bmm = lambda: torch.bmm(h[:, None, :], tables)  # noqa: E731
+    g = [graph_ms(run, 5, 10), graph_ms(run, 5, 10)]
+    b, by = k3_bound(R, K, N, h.dtype, tables.dtype)
+    strips, kslice = gemm.row_splits(R, K, N, tables.element_size())
+    out = {
+        "ms": float(np.mean(g)), "graph_ms": g,
+        "cuda_ms": [cuda_ms(run, 10), cuda_ms(run, 10)],
+        "plain_ms": cuda_ms(lambda: ref.lm_head_rows_grouped_ref(
+            h, ident, tables), 10),
+        "library_ms": graph_ms(bmm, 5, 10), "library_cuda_ms": cuda_ms(bmm, 10),
+        "bound_ms": b, "bound_by": by, "ms_over_bound": float(np.mean(g)) / b,
+        "table_bytes": tables.element_size() * R * K * N,
+        "grid": [strips, R], "warp_kslice": kslice, "max_abs_err": err,
+        "checks": checks,
+        "timed_shape": f"h({R},{K}) bf16, tables({R},{K},{N}) bfloat16, "
+                       f"gidx=arange({R})",
+        "library": "torch.bmm, bfloat16 h against the same bfloat16 tables",
+    }
+    del tables
+    torch.cuda.empty_cache()
+    return out
+
+
 def k3_checks(dev, kernels, ref) -> dict:
     """K3 vs its plain version at the LM paths' shapes (deepseek_7b, then
     phi3_mini_3p8b as ``row_phi3``) and ragged shapes, every slot pattern,
@@ -881,9 +1048,12 @@ def k3_checks(dev, kernels, ref) -> dict:
     phi3 = k3_timed(gemm, kernels, ref, gen, R, K, N)
     row = dict(timed["bfloat16"], max_abs_err=max(err, err_phi3),
                fp32_tables=timed["float32"])
+    command_r = k3_vocab_row(kernels, ref, gen, *K3_COMMAND_R)
+    gemma2 = k3_vocab_row(kernels, ref, gen, *K3_GEMMA2)
     emit({"phase": "kernels_k3", "checks": len(checks),
           "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
-          "row": row, "row_phi3": dict(phi3, max_abs_err=err_phi3)})
+          "row": row, "row_phi3": dict(phi3, max_abs_err=err_phi3),
+          "row_command_r": command_r, "row_gemma2": gemma2})
     return row
 
 
@@ -1085,7 +1255,7 @@ def gaps_in_ulps(pos_logits: torch.Tensor, tokens: np.ndarray):
     return gap, exact
 
 
-def lane_head_checks(records, registry, head_raw) -> dict:
+def lane_head_checks(records, registry, head_raw, cap=None) -> dict:
     """Checks 3 and 4 on the lane's own hidden states, step by step.
 
     3. K3 against the plain head: ``ref.lm_head_rows_grouped_ref`` (a
@@ -1093,7 +1263,9 @@ def lane_head_checks(records, registry, head_raw) -> dict:
        no K3) on the same ``h``, slot indices and stacked heads, within two
        bf16 ulps of max|plain|; and every token the step sampled is K3's
        argmax and lies within ``TIE_MARGIN_ULPS`` bf16 ulps of the row's
-       max|plain| below the plain-head maximum.
+       max|plain| below the plain-head maximum.  Both on the logits before
+       the final soft-cap ``cap`` (the lane applies it to K3's output in
+       fp32 and samples after it: the token is checked as the argmax there).
     4. Unmorph against the raw weights: each served row's morphed-order
        logits, permuted back with its tenant's permutation
        (``plain[v] = morphed[perm[v]]``), against ``h @ head`` on the
@@ -1102,6 +1274,7 @@ def lane_head_checks(records, registry, head_raw) -> dict:
        conjugation and K3 without K3's own plain version.
     """
     from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
 
     worst3 = worst4 = worst_gap = 0.0
     n_rows = exact = 0
@@ -1118,7 +1291,7 @@ def lane_head_checks(records, registry, head_raw) -> dict:
         raw = torch.matmul(h, head_raw)
         for i, row, n in rec["rows"]:
             tok = row.generated[n]
-            check(tok == int(torch.argmax(got[i].float())),
+            check(tok == int(torch.argmax(L.softcap(got[i].float(), cap))),
                   f"step {step} row {i}: sampled {tok}, not K3's argmax")
             p = plain[i].float()
             gap = float(p.max() - p[tok]) / bf16_ulp(float(p.abs().max()))
@@ -1330,7 +1503,8 @@ def k6_against_recurrence(captured) -> dict:
 
 def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
             requests: int = LM_REQUESTS, gen: int = LM_GEN,
-            ctx: dict | None = None, flash_shape: bool = False) -> dict:
+            ctx: dict | None = None, flash_shape: bool = False,
+            groups: int | None = None) -> dict:
     """``serve --mode lm`` at ``arch`` FULL, ``requests`` prompts of
     ``prompt_len`` tokens, ``gen`` generated each: the token lane, then the
     continuous-batched decode lane; gated checks and a time breakdown.
@@ -1341,7 +1515,12 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     prefill when the prompt exceeds ``dense_attn_max_seq``, never
     otherwise, in the twin's plain reference too (:func:`plain_gaps`).  ``flash_shape`` adds
     :func:`flash_checks`.  ``ctx``, if given, receives the weights, prompts
-    and the lane's generations for a later phase."""
+    and the lane's generations for a later phase.  ``groups`` cuts the
+    depth to that many scanned groups.  With tied embeddings the lane's
+    head stack is AugE^T and the raw head of check 4 is embed^T.  With a
+    sliding window the twin also runs the window-live gate
+    (:func:`window_live`).  The peak device memory is held at
+    PEAK_LIMIT_GB."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1356,8 +1535,11 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     )
 
     cfg = get_config(arch)
+    if groups is not None:
+        cfg = dataclasses.replace(cfg, n_groups=groups)
     rwkv = cfg.rwkv is not None
     torch.cuda.reset_peak_memory_stats()
+    host_reset = host_peak_reset()
     max_len = prompt_len + gen + 1
     model = Model(cfg, dev)
     t0 = time.monotonic()
@@ -1365,8 +1547,11 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     t0 = time.monotonic()
-    embed = params["embed"].float().cpu().numpy()
-    head = params["head"].float().cpu().numpy()
+    # one fp32 host array for every tenant (register copies nothing), cast
+    # on the host: no fp32 transient on the card
+    embed = params["embed"].cpu().float().numpy()
+    head = (None if cfg.tie_embeddings
+            else params["head"].cpu().float().numpy())
     registry = LMSessionRegistry(cfg.vocab, cfg.d_model, capacity=LM_TENANTS)
     for i in range(LM_TENANTS):
         registry.register(f"lm-{i}", embed, seed=i, head=head)
@@ -1386,12 +1571,12 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     stacks = lane._refresh_plan().arrays   # stage (S, V, d) / (S, d, V)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
-    # The lane holds its Aug-heads in the model's activation type (bf16
-    # here: K3 reads half an fp32 stack's bytes), its AugE tables in fp32.
-    check(stacks["aug_heads"].dtype == cfg.adtype
-          and stacks["aug_embeds"].dtype == torch.float32,
-          f"the lane staged aug_heads {stacks['aug_heads'].dtype} (model "
-          f"{cfg.adtype}), aug_embeds {stacks['aug_embeds'].dtype}")
+    host_gb, host_now_gb = host_peak_gb(), host_rss_gb()
+    # The lane holds its Aug-heads and AugE tables in the model's activation
+    # type (bf16 here: K3 reads half an fp32 stack's bytes).
+    check(stacks["aug_heads"].dtype == cfg.adtype == stacks["aug_embeds"].dtype,
+          f"the lane staged aug_heads {stacks['aug_heads'].dtype}, aug_embeds "
+          f"{stacks['aug_embeds'].dtype} (model {cfg.adtype})")
     stack_bytes = {n: a.numel() * a.element_size() for n, a in stacks.items()}
     del stacks
 
@@ -1443,7 +1628,8 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     # Checks 3 and 4: K3 in the lane against the plain head and the raw
     # weights, on the lane's own hidden states.
     with torch.no_grad():
-        heads = lane_head_checks(tap.records, registry, params["head"])
+        heads = lane_head_checks(tap.records, registry,
+                                 S.head_matrix(params, cfg), cfg.final_softcap)
     del tap
     # Check 5 (RWKV; the twin below is then check 6): K6 on one layer's
     # operands, as the first admission prefill handed them over, against
@@ -1459,7 +1645,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     plan = lane._plan
     sidx = torch.arange(rows, dtype=torch.int32, device=dev)
     tpos = torch.full((rows,), prompt_len + gen - 1, device=dev)
-    caches = model.init_cache(rows, max_len)
+    caches = lane._caches       # the lane has finished: its rows are free
     h0 = torch.zeros((rows, 1, cfg.d_model), dtype=cfg.adtype, device=dev)
     hN = torch.randn((rows, cfg.d_model), device=dev).to(cfg.adtype)
     lg = torch.randn((rows, cfg.vocab), device=dev)
@@ -1488,20 +1674,26 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
             torch.zeros(rows, dtype=torch.int32, device=dev), tpos, caches,
         )[0], dim=-1).cpu(), step_p50)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del lane, plan, caches, one, scan
+    check(peak_gb <= PEAK_LIMIT_GB,
+          f"peak device memory {peak_gb:.2f} GB > {PEAK_LIMIT_GB} GB")
+    del lane, caches, one, scan
     torch.cuda.empty_cache()
 
     # The twin: the same serving path on a depth-cut twin (2 layers, full
-    # width), held against an independent teacher-forced plain forward on
-    # the raw weights (for RWKV through the token recurrence, not K6).  At
-    # full depth random bf16 layers amplify rounding past the tie margin,
-    # so that comparison is made at 2.
-    cfg2 = dataclasses.replace(cfg, n_groups=2)
+    # width: one group of a 2-kind pattern), held against an independent
+    # teacher-forced plain forward on the raw weights (for RWKV through the
+    # token recurrence, not K6).  At full depth random bf16 layers amplify
+    # rounding past the tie margin, so that comparison is made at 2.  The
+    # twin's lane serves from the main lane's staged stacks (same registry
+    # version: nothing is staged again).
+    cfg2 = dataclasses.replace(
+        cfg, n_groups=max(1, 2 // len(cfg.block_pattern)))
     model2 = Model(cfg2, dev)
-    params2 = {"embed": params["embed"], "final_norm": params["final_norm"],
-               "head": params["head"], "blocks": list(params["blocks"])[:2]}
+    params2 = {k: params[k] for k in params.keys() if k != "blocks"}
+    params2["blocks"] = list(params["blocks"])[:cfg2.n_layers]
     lane2 = ContinuousDecodeLane(model2, params2, registry, rows=LM_TENANTS,
                                  max_len=max_len, device=dev)
+    lane2._plan = plan
     with torch.no_grad():
         run2 = run_lane(lane2, served, tenant_of, gen)
         with PlainScan(), FlashTap() as flash2:
@@ -1514,7 +1706,9 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
           f"generated token is "
           f"{gap2.max():.2f} bf16 ulps below the plain max "
           f"(margin {TIE_MARGIN_ULPS})")
-    del lane2
+    del lane2, plan
+    live = (window_live(cfg2, params2, prompts, dev)
+            if cfg.sliding_window and prompt_len > cfg.sliding_window else None)
     torch.cuda.empty_cache()
     flash_gate = flash_checks(dev) if flash_shape else None
 
@@ -1524,6 +1718,10 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     tokens = requests * gen
     out = {
         "phase": phase, "arch": arch, "layers": cfg.n_layers,
+        "published_layers": get_config(arch).n_layers,
+        "block_pattern": list(cfg.block_pattern),
+        "sliding_window": cfg.sliding_window,
+        "tie_embeddings": cfg.tie_embeddings,
         "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
         "tenants": LM_TENANTS, "capacity": LM_TENANTS, "rows": rows,
         "requests": requests, "prompt_len": prompt_len, "gen": gen,
@@ -1551,13 +1749,19 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
                           "forward_flash_scan_calls": flash2.calls,
                           "forward_exact_argmax_share": float(exact2.mean())},
         "weights_init_s": init_s, "host_secret_and_staging_s": setup_s,
+        "host_peak_rss_gb": host_gb,
+        "host_peak_rss_since": "phase start" if host_reset else "process start",
+        "host_rss_after_staging_gb": host_now_gb,
         "aug_heads_dtype": str(cfg.adtype).split(".")[-1],
+        "aug_embeds_dtype": str(cfg.adtype).split(".")[-1],
         "stack_bytes": stack_bytes,
-        "peak_mem_gb": peak_gb,
+        "peak_mem_gb": peak_gb, "peak_limit_gb": PEAK_LIMIT_GB,
         "first_generation": final[0][:12].tolist(),
     }
     if flash_gate is not None:
         out["flash_vs_dense"] = flash_gate
+    if live is not None:
+        out["window_live"] = live
     if rwkv:
         out.update(
             k6_vs_recurrence=k6_gate, k6_ms_per_launch=k6_ms,
@@ -1570,6 +1774,35 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         )
     emit(out)
     return out
+
+
+def window_live(cfg, params, prompts, dev) -> dict:
+    """The window-live gate: the twin's last-position logits on the first
+    two prompts, with its local layers in ``cfg.sliding_window`` and with
+    the window taken away (``sliding_window=None``: every layer global),
+    must differ by more than the tie margin (TIE_MARGIN_ULPS bf16 ulps of
+    max|logit|); otherwise the prompts never reached past the window."""
+    import dataclasses
+
+    from repro_torch.models import blocks as B, stack as S
+
+    def last_logits(c):
+        toks = torch.from_numpy(prompts[:2]).long().to(dev)
+        h = S.embed_tokens(params, toks, c)
+        h, _ = S.apply_stack(params, h, c, B.RunState(mode="full"), None)
+        return S.lm_head(params, h[:, -1:], c)[:, 0]
+
+    with torch.no_grad():
+        win = last_logits(cfg)
+        glob = last_logits(dataclasses.replace(cfg, sliding_window=None))
+    diff = float((win - glob).abs().max())
+    margin = TIE_MARGIN_ULPS * bf16_ulp(float(win.abs().max()))
+    check(diff > margin, f"window-live gate: the twin's logits with and "
+                         f"without the window differ by {diff} <= {margin}")
+    return {"window": cfg.sliding_window, "prompt_len": prompts.shape[1],
+            "max_abs_diff": diff, "tie_margin": margin,
+            "argmax_differs_share": float(
+                (win.argmax(-1) != glob.argmax(-1)).float().mean())}
 
 
 def flash_checks(dev) -> dict:
@@ -2657,11 +2890,18 @@ def vgg_path(dev, core, kernels) -> dict:
 
 # -- phase 12 -------------------------------------------------------------------
 
-def train_path(dev, kernels) -> dict:
-    """The train step of ``launch/steps.py`` at deepseek_7b's published
-    width, ``TRAIN_LAYERS`` layers, on ``Pipeline``'s morphed stream
-    (``--mole token``); gates 1-4 of the module docstring; step time,
-    tokens/s, MFU, the peak and a profiled step."""
+def train_path(dev, kernels, *, phase: str = "train_path",
+               arch: str = TRAIN_ARCH, groups: int = TRAIN_LAYERS,
+               seq: int = TRAIN_SEQ, global_batch: int = TRAIN_BATCH,
+               micro: int = TRAIN_MICRO,
+               peak_limit_gb: float | None = None) -> dict:
+    """The train step of ``launch/steps.py`` at ``arch``'s published width
+    (deepseek_7b by default), ``groups`` scanned groups, ``global_batch``
+    sequences of ``seq`` in ``micro`` microbatches, on ``Pipeline``'s
+    morphed stream (``--mole token``); gates 1-4 of the module docstring
+    (the twins of gate 3 are 2 layers: one group of a 2-kind pattern);
+    step time, tokens/s, MFU, the peak (held at ``peak_limit_gb`` where
+    given) and a profiled step."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -2673,18 +2913,18 @@ def train_path(dev, kernels) -> dict:
         TrainHParams, make_batched_decode_logits, make_row_prefill_step,
         make_train_step,
     )
-    from repro_torch.models import Model, ParamTree, layers as L
+    from repro_torch.models import Model, ParamTree, layers as L, stack as S
     from repro_torch.models.base import MoLeCfg
     from repro_torch.optim import adamw
 
     t_phase = time.monotonic()
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_groups=TRAIN_LAYERS,
+    cfg = dataclasses.replace(get_config(arch), n_groups=groups,
                               mole=MoLeCfg(enabled=True, mode="token",
                                            seed=SEED))
     hp = TrainHParams(optimizer=adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP),
-                      microbatch=TRAIN_MICRO, remat=True)
-    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, seed=SEED)
+                      microbatch=micro, remat=True)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=global_batch,
+                      seed=SEED)
 
     def on_card(batch):
         return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -2715,6 +2955,9 @@ def train_path(dev, kernels) -> dict:
 
     prof = step_profile(profiled, p50)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_limit_gb is not None:
+        check(peak_gb <= peak_limit_gb,
+              f"peak device memory {peak_gb:.2f} GB > {peak_limit_gb} GB")
     # Gate 1: finite loss and grad_norm at every step; count = steps run.
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
@@ -2729,8 +2972,10 @@ def train_path(dev, kernels) -> dict:
     # the morphed stream, from one init, on a 2-layer twin at full width
     # (both runs do not fit beside each other at TRAIN_LAYERS), in fp32 and
     # in bf16, beside the raw run in one microbatch.
+    twin_groups = max(1, TRAIN_TWIN_LAYERS // len(cfg.block_pattern))
+
     def twin_losses(dtype):
-        twin = dataclasses.replace(cfg, n_groups=TRAIN_TWIN_LAYERS,
+        twin = dataclasses.replace(cfg, n_groups=twin_groups,
                                    dtype=dtype, param_dtype=dtype)
         model = Model(twin, dev)
         raw_cfg = dataclasses.replace(twin, mole=MoLeCfg())
@@ -2745,14 +2990,14 @@ def train_path(dev, kernels) -> dict:
                 out.append(float(m["loss"]))
             return params, out
 
-        _, raw = run(model.init(SEED), raw_cfg, TRAIN_MICRO)
+        _, raw = run(model.init(SEED), raw_cfg, micro)
         release()
         _, control = run(model.init(SEED), raw_cfg, 1)
         release()
         fused = ParamTree(fuse_lm_params(
             model.init(SEED), twin,
             token_morpher=ProviderStage.for_model(twin).token_morpher))
-        fused, morphed = run(fused, twin, TRAIN_MICRO)
+        fused, morphed = run(fused, twin, micro)
         out = {"raw": raw, "fused": morphed, "one_microbatch": control,
                "fused_rel": [abs(a - b) / abs(a) for a, b in zip(raw, morphed)],
                "one_microbatch_rel": [abs(a - b) / abs(a)
@@ -2778,7 +3023,8 @@ def train_path(dev, kernels) -> dict:
     prompt = torch.from_numpy(
         next(Pipeline(data, model_cfg=twin_model.cfg))["tokens"][:1, :32]).to(dev)
     caches = twin_model.init_cache(1, 40)
-    embed, head = fused["embed"], fused["head"]
+    embed = fused["embed"]
+    head = S.head_matrix(fused, twin_model.cfg).contiguous()   # K3's layout
     first, caches = make_row_prefill_step(twin_model)(fused, embed, head,
                                                       prompt, caches)
     logits, caches = make_batched_decode_logits(twin_model)(
@@ -2792,51 +3038,76 @@ def train_path(dev, kernels) -> dict:
     del fused, caches, logits, outs
     release()
 
-    # Not gated: the flash scan at one layer's shape of the step, forward
-    # and forward + backward, beside SDPA's (a yardstick the port never
-    # calls); a step runs TRAIN_MICRO x layers x (forward + forward and
-    # backward: remat runs each block's forward twice).
+    # Not gated: the flash scan at one layer's shape of the step (GQA's
+    # K/V heads, and in the window for local layers), forward and forward +
+    # backward, beside SDPA's (a yardstick the port never calls; without a
+    # window); a step runs micro x layers x (forward + forward and backward:
+    # remat runs each block's forward twice).
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    B_, H, hd = TRAIN_BATCH // TRAIN_MICRO, cfg.n_heads, cfg.head_dim
-    qkv = [torch.randn(B_, TRAIN_SEQ, H, hd, generator=gen, device=dev)
-           .to(cfg.adtype).requires_grad_() for _ in range(3)]
-    go = torch.randn(B_, TRAIN_SEQ, H, hd, generator=gen, device=dev).to(cfg.adtype)
+    B_, H, Hkv, hd = global_batch // micro, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qkv = [torch.randn(B_, seq, h_, hd, generator=gen, device=dev)
+           .to(cfg.adtype).requires_grad_() for h_ in (H, Hkv, Hkv)]
+    go = torch.randn(B_, seq, H, hd, generator=gen, device=dev).to(cfg.adtype)
+    kinds = cfg.layer_kinds()
 
-    def flash(backward):
+    def flash(backward, window):
         with torch.enable_grad():
-            o = L.flash_attention(*qkv, block_kv=cfg.flash_block_kv)
+            o = L.flash_attention(*qkv, window=window,
+                                  block_kv=cfg.flash_block_kv,
+                                  logit_cap=cfg.attn_softcap,
+                                  scale=cfg.attn_scale)
             if backward:
                 torch.autograd.grad(o, qkv, go)
 
     def sdpa():
         q, k, v = (a.transpose(1, 2) for a in qkv)
-        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=H != Hkv)
         torch.autograd.grad(o, qkv, go.transpose(1, 2))
 
-    flash_ms = {"shape": [B_, TRAIN_SEQ, H, hd],
-                "forward": cuda_ms(lambda: flash(False), 3),
-                "forward_backward": cuda_ms(lambda: flash(True), 3),
+    flash_ms = {"shape": [B_, seq, H, hd], "kv_heads": Hkv,
                 "sdpa_forward_backward": cuda_ms(sdpa, 3)}
-    flash_ms["share_of_step"] = (TRAIN_MICRO * cfg.n_layers * (
-        flash_ms["forward"] + flash_ms["forward_backward"]) / p50)
+    share = 0.0
+    for kind in sorted(set(kinds)):
+        window = cfg.sliding_window if kind == "local" else None
+        fw = cuda_ms(lambda: flash(False, window), 3)
+        fb = cuda_ms(lambda: flash(True, window), 3)
+        tag = "" if window is None else "_window"
+        flash_ms[f"forward{tag}"], flash_ms[f"forward_backward{tag}"] = fw, fb
+        share += micro * kinds.count(kind) * (fw + fb) / p50
+    flash_ms["share_of_step"] = share
     del qkv, go
     release()
 
-    tokens, d = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
-    flops = tokens * (6 * (n_params - cfg.vocab * d)
-                      + 6 * cfg.n_layers * TRAIN_SEQ * d)
-    out = {"phase": "train_path", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
-           "params": n_params, "seq_len": TRAIN_SEQ,
-           "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+    # Model flops a step (remat's recompute not counted): 6 N a token for
+    # the weights (less the embedding lookup's V d where the head is a
+    # matrix of its own; a tied head's product is the embedding's V d), and
+    # for attention 12 H hd a token and layer per attended position, the
+    # mean attended context being (S + 1) / 2 causal and, in a window W,
+    # its mean over the S positions of min(p + 1, W).
+    tokens, d = global_batch * seq, cfg.d_model
+    pos = np.arange(1, seq + 1)
+    ctx_sum = sum(float(np.minimum(pos, cfg.sliding_window).mean())
+                  if k == "local" else (seq + 1) / 2 for k in kinds)
+    flops = tokens * (6 * (n_params - (0 if cfg.tie_embeddings
+                                       else cfg.vocab * d))
+                      + 12 * H * hd * ctx_sum)
+    out = {"phase": phase, "arch": arch, "layers": cfg.n_layers,
+           "published_layers": get_config(arch).n_layers,
+           "block_pattern": list(cfg.block_pattern),
+           "sliding_window": cfg.sliding_window,
+           "params": n_params, "seq_len": seq,
+           "global_batch": global_batch, "microbatches": micro,
            "remat": True, "mole": "token", "launches": launches,
            "losses": losses, "grad_norms": norms,
            "step_ms": step_ms, "train_step_ms": p50,
            "train_tokens_per_s": tokens / (p50 / 1e3),
-           "train_peak_gb": peak_gb,
+           "train_peak_gb": peak_gb, "peak_limit_gb": peak_limit_gb,
            "train_mfu": flops / (p50 / 1e3) / BF16_FLOP_PER_S,
-           "flops_per_step": flops,
+           "flops_per_step": flops, "attended_context_per_token": ctx_sum,
            "train_step_profile": prof, "flash_ms": flash_ms,
-           "mole_twin": {"layers": TRAIN_TWIN_LAYERS, "fp32": twin_fp32,
+           "mole_twin": {"layers": twin_groups * len(cfg.block_pattern),
+                         "fp32": twin_fp32,
                          "bf16": twin_bf16, "limit_rel": TRAIN_LOSS_RTOL},
            "phase_s": time.monotonic() - t_phase}
     emit(out)
@@ -3105,6 +3376,14 @@ def main() -> None:
     lm_path(dev, kernels, phase="phi3_path", arch=PHI3_ARCH,
             prompt_len=PHI3_PROMPT)
     release()
+    for phase, arch, prompt, depth in (
+            ("gemma2_path", GEMMA2_ARCH, GEMMA2_PROMPT, GEMMA2_GROUPS),
+            ("command_r_path", COMMAND_R_ARCH, COMMAND_R_PROMPT,
+             COMMAND_R_LAYERS)):
+        out = lm_path(dev, kernels, phase=phase, arch=arch, prompt_len=prompt,
+                      groups=depth)
+        check(out["k3_launches"] > 0, f"{phase}: K3 was not launched")
+        release()
     rows.update(k45_checks(dev, kernels, ref))
     release()
     vgg = vgg_path(dev, core, kernels)
@@ -3117,6 +3396,9 @@ def main() -> None:
     train_path(dev, kernels)
     release()
     train_resume_path(dev, kernels)
+    release()
+    train_path(dev, kernels, phase="gemma2_train", arch=GEMMA2_ARCH,
+               peak_limit_gb=PEAK_LIMIT_GB, **GEMMA2_TRAIN)
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
                     wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
     check(all(launches[n] > 0 for n in KERNEL_NAMES),

@@ -2,8 +2,9 @@
 
 ``get_config(name)`` / ``get_smoke_config(name)``.  The reference's
 registry (``repro.configs``) names ten architectures; the port runs them
-as their slices land (dense global attention: deepseek_7b and
-phi3_mini_3p8b; RWKV-6: rwkv6_3b).  Every other name raises
+as their slices land (dense attention: deepseek_7b, phi3_mini_3p8b,
+command_r_35b and gemma2_27b, whose local layers attend in a sliding
+window; RWKV-6: rwkv6_3b).  Every other name raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -12,7 +13,10 @@ import importlib
 
 from ..models.base import ModelConfig
 
-ARCHS: tuple[str, ...] = ("deepseek_7b", "phi3_mini_3p8b", "rwkv6_3b")
+ARCHS: tuple[str, ...] = (
+    "command_r_35b", "gemma2_27b", "deepseek_7b", "phi3_mini_3p8b",
+    "rwkv6_3b",
+)
 
 
 def _module(name: str):

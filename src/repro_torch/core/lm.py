@@ -84,11 +84,16 @@ def fuse_aug_embedding(embedding, morpher: TokenMorpher):
 
     ``AugE[morph(tokens)] == E[tokens]`` — exact equivalence, the discrete
     analogue of paper eq. (5).  ``embedding``: a (V, d) numpy array or
-    tensor; the result is of the same kind.
+    tensor; the result is of the same kind (a numpy table is gathered by
+    torch's ``index_select``, on every core: a copy, as numpy's would be).
     """
-    if not isinstance(embedding, torch.Tensor):
-        embedding = np.asarray(embedding)
-    return embedding[morpher.inv_perm]
+    if isinstance(embedding, torch.Tensor):
+        return embedding[morpher.inv_perm]
+    embedding = np.asarray(embedding)
+    if not embedding.flags.writeable:   # e.g. restored from a snapshot
+        return embedding[morpher.inv_perm]
+    return torch.from_numpy(embedding).index_select(
+        0, torch.from_numpy(morpher.inv_perm)).numpy()
 
 
 def fuse_aug_head(head, morpher: TokenMorpher):
@@ -99,8 +104,12 @@ def fuse_aug_head(head, morpher: TokenMorpher):
     """
     if isinstance(head, torch.Tensor):
         return head[:, morpher.inv_perm]
-    # np.take keeps the result C-contiguous (head[:, idx] would not).
-    return np.take(np.asarray(head), morpher.inv_perm, axis=1)
+    head = np.asarray(head)
+    if not head.flags.writeable:        # e.g. restored from a snapshot
+        return np.take(head, morpher.inv_perm, axis=1)
+    # index_select keeps the result C-contiguous (head[:, idx] would not)
+    return torch.from_numpy(head).index_select(
+        1, torch.from_numpy(morpher.inv_perm)).numpy()
 
 
 @dataclasses.dataclass
@@ -199,13 +208,14 @@ class LMSession:
         """(d_model, V) fused LM head emitting *morphed-order* logits.
 
         Untied checkpoints fuse their ``head`` through the vocab morph; tied
-        ones reuse the AugE table transposed.
+        ones reuse the AugE table transposed, as a view (no second (V, d)
+        array on the host: the device plan copies it slot by slot).
         """
         if self._aug_head is None:
             if self.head is not None:
                 self._aug_head = fuse_aug_head(self.head, self.morpher)
             else:
-                self._aug_head = np.ascontiguousarray(self.aug_embedding.T)
+                self._aug_head = self.aug_embedding.T
         return self._aug_head
 
     def morph_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -431,6 +441,13 @@ class LMSessionRegistry(SlotRegistry):
         if t is None:
             return np.zeros((self.vocab, self.d_model), np.float32)
         return self._sessions[t].aug_embedding
+
+    def slot_head_tied(self, slot: int) -> bool:
+        """Whether ``slot``'s Aug-head is its AugE table transposed: its
+        tenant registered no ``head`` (tied embeddings), or the slot is
+        free (both zeros)."""
+        t = self._slot_tenant[slot]
+        return t is None or self._sessions[t].head is None
 
     def slot_aug_head(self, slot: int) -> np.ndarray:
         """(d_model, V) fused LM head in ``slot`` (zeros when free)."""

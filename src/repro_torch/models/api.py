@@ -1,7 +1,7 @@
 """Model API on PyTorch — what the serving steps and the decode lane use.
 
-Ported from ``repro.models.api`` for plain token LMs (dense global
-attention and RWKV-6 stacks).  ``Model(cfg,
+Ported from ``repro.models.api`` for plain token LMs (dense attention
+stacks, global and sliding-window, and RWKV-6 stacks).  ``Model(cfg,
 device)`` exposes:
 
   schema() / init(generator) / param_count()
@@ -28,6 +28,7 @@ import torch
 
 from ..device import resolve_device
 from .base import ModelConfig, ParamDef, ParamTree, check_supported, init_params
+from . import blocks as B
 from . import stack as S
 
 __all__ = ["Model", "cross_entropy", "params_from_jax"]
@@ -116,11 +117,16 @@ class Model:
         return self.prefill_with_cache(params, batch, caches)
 
     def prefill_with_cache(self, params, batch: dict, caches):
-        """Prefill into caller-provided caches (written in place)."""
-        lg, caches = S.forward(
-            params, self.cfg, batch["tokens"], caches=caches, write_cache=True
-        )
-        return lg[:, -1:], caches
+        """Prefill into caller-provided caches (written in place); returns
+        the last position's logits (B, 1, V).  Only that position goes
+        through the LM head (the reference computes every position's logits
+        and keeps the last: (B, S, V) fp32 is 50 GB for 8 prompts of 6144
+        at vocab 256000)."""
+        self._tokens_only(batch)
+        rs = B.RunState(mode="full", write_cache=True)
+        h = S.embed_tokens(params, batch["tokens"], self.cfg)
+        h, caches = S.apply_stack(params, h, self.cfg, rs, caches)
+        return S.lm_head(params, h[:, -1:], self.cfg), caches
 
     def decode(self, params, token: torch.Tensor, t, caches):
         return S.decode_step(params, self.cfg, token, t, caches)
@@ -140,11 +146,15 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
     ``jax.tree.map(np.asarray, params)``) as the port's :class:`ParamTree`
     on ``device`` (no default: the caller says where the weights live).
 
-    The reference stacks the scanned block group's leaves on a leading
-    ``n_groups`` axis (``tree["blocks"]["b0"]``); the port keeps one dict
-    per layer, so layer ``i`` takes slice ``i`` of every stacked leaf (an
-    rwkv block's ``(5, d)`` / ``(5, rank, d)`` token-shift mixes and its
-    ``(H, hd)`` bonus ``u`` included).
+    The reference keeps its unscanned layers in ``tree["prefix"]`` /
+    ``tree["suffix"]`` (lists) and its scanned group as one dict per
+    position of the block pattern, ``tree["blocks"][f"b{i}"]``, each leaf
+    stacked on a leading ``n_groups`` axis.  The port keeps one dict per
+    layer in ``cfg.layer_kinds()`` order: the prefix layers, then layer
+    ``g * P + i`` of the scanned part (pattern of P kinds) takes slice ``g``
+    of every leaf of ``b{i}`` (an rwkv block's ``(5, d)`` / ``(5, rank,
+    d)`` token-shift mixes and its ``(H, hd)`` bonus ``u`` included), then
+    the suffix layers.
     """
     check_supported(cfg)
 
@@ -154,7 +164,13 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
         a = np.asarray(node)
         return _tensor(a if index is None else a[index], device)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [conv(tree["blocks"]["b0"], i)
-                     for i in range(cfg.n_groups)]
+    layers = ("prefix", "blocks", "suffix")
+    out = {k: conv(v) for k, v in tree.items() if k not in layers}
+    P = len(cfg.block_pattern)
+    out["blocks"] = (
+        [conv(p) for p in tree.get("prefix", [])]
+        + [conv(tree["blocks"][f"b{i}"], g)
+           for g in range(cfg.n_groups) for i in range(P)]
+        + [conv(p) for p in tree.get("suffix", [])]
+    )
     return ParamTree(out)

@@ -11,9 +11,10 @@ tests carry the reference's parameters over with
 ``nn.Module`` that holds a nested parameter tree and is indexed by name like
 the reference's parameter dicts (``params["blocks"][i]["mix"]["wq"]``).
 
-The port runs dense global-attention stacks and RWKV-6 stacks:
-:func:`check_supported` raises ``NotImplementedError`` for every config that
-needs a block kind, mixer or frontend of a later slice.
+The port runs dense attention stacks (global and sliding-window layers)
+and RWKV-6 stacks: :func:`check_supported` raises ``NotImplementedError``
+for every config that needs a block kind, mixer or frontend of a later
+slice.
 """
 from __future__ import annotations
 
@@ -170,11 +171,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+_ATTN_KINDS = ("attn", "global", "local")  # the dense self-attention kinds
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``: a dense
-    stack of global self-attention blocks (``("attn",)``), or an RWKV-6
-    stack (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set, layernorm); no
-    frontend.  Nothing else is computed in its place."""
+    stack whose layers (prefix, scanned pattern and suffix) are all
+    self-attention blocks of the kinds ``attn`` / ``global`` (global
+    attention) and ``local`` (attention in ``sliding_window``), or an
+    RWKV-6 stack (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set,
+    layernorm); no frontend.  Nothing else is computed in its place."""
     rwkv = tuple(cfg.block_pattern) == ("rwkv",)
     later = []
     if rwkv:
@@ -184,26 +190,28 @@ def check_supported(cfg: ModelConfig) -> None:
             later.append("rwkv blocks without an RwkvCfg")
         if cfg.norm != "layernorm":
             later.append(f"rwkv blocks with norm={cfg.norm!r}")
+        if cfg.prefix_pattern or cfg.suffix_pattern:
+            later.append("prefix/suffix layers beside rwkv blocks")
+        if cfg.sliding_window is not None:
+            later.append("sliding_window with rwkv blocks")
     else:
         if cfg.family != "dense":
             later.append(f"family={cfg.family!r}")
-        if tuple(cfg.block_pattern) != ("attn",):
-            later.append(f"block_pattern={cfg.block_pattern!r}")
+        kinds = sorted(set(cfg.layer_kinds()) - set(_ATTN_KINDS))
+        if kinds:
+            later.append(f"layer kinds {kinds}")
         if cfg.rwkv is not None:
             later.append("rwkv")
     for name in ("moe", "mla", "rnn", "frontend"):
         if getattr(cfg, name) is not None:
             later.append(name)
-    if cfg.prefix_pattern or cfg.suffix_pattern:
-        later.append("prefix/suffix layers")
-    if cfg.sliding_window is not None:
-        later.append("sliding_window")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet (the port runs "
-            f"dense global-attention stacks and RWKV-6 stacks; MoE, MLA, "
-            f"recurrent, local attention and frontends arrive with later "
-            f"slices of the port)"
+            f"dense stacks of global and sliding-window attention blocks "
+            f"and RWKV-6 stacks; MoE, MLA, recurrent, cross-attention, "
+            f"encoder-decoder and frontends arrive with later slices of "
+            f"the port)"
         )
 
 

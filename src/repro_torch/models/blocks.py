@@ -1,5 +1,6 @@
-"""Per-layer blocks on PyTorch: the dense global self-attention block and
-the RWKV-6 block (time-mix + channel-mix).
+"""Per-layer blocks on PyTorch: the dense self-attention block (global, or
+in a sliding window with a ring-buffer cache) and the RWKV-6 block
+(time-mix + channel-mix).
 
 Ported from ``repro.models.blocks`` (``RunState``, ``mixer_of``/``ffn_of``,
 the dense FFN, the self-attention mixer and the RWKV-6 time-mix and
@@ -105,13 +106,18 @@ def schema_attn(cfg: ModelConfig) -> dict:
     return sch
 
 
-def cache_attn(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Global attention: one slot per position up to ``max_len``."""
+def cache_attn(cfg: ModelConfig, batch: int, max_len: int,
+               window: int | None = None) -> dict:
+    """One slot per position up to ``max_len`` for global attention; a
+    ring of ``min(max_len, window)`` slots for a sliding-window layer
+    (position ``p`` lives in slot ``p % slots``).  ``pos`` holds each
+    slot's absolute position, -1 = empty."""
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    slots = min(max_len, window) if window else max_len
     return {
-        "k": ParamDef((batch, max_len, Hkv, hd), init="zeros"),
-        "v": ParamDef((batch, max_len, Hkv, hd), init="zeros"),
-        "pos": ParamDef((batch, max_len), init="neg_ones", dtype=torch.int32),
+        "k": ParamDef((batch, slots, Hkv, hd), init="zeros"),
+        "v": ParamDef((batch, slots, Hkv, hd), init="zeros"),
+        "pos": ParamDef((batch, slots), init="neg_ones", dtype=torch.int32),
     }
 
 
@@ -132,8 +138,10 @@ def _row_positions(t, batch: int, device) -> torch.Tensor:
 
 def apply_attn(
     p, h: torch.Tensor, cfg: ModelConfig, rs: RunState,
-    cache: dict | None, *, causal: bool = True,
+    cache: dict | None, *, window: int | None = None, causal: bool = True,
 ) -> tuple[torch.Tensor, dict | None]:
+    """Self-attention, global (``window=None``) or in a sliding window of
+    ``window`` positions, whose cache is a ring (:func:`cache_attn`)."""
     B = h.shape[0]
     q, k, v = _qkv(p, h, cfg)
 
@@ -143,11 +151,15 @@ def apply_attn(
         k = L.rope(k, t[:, None], cfg.rope_theta)
         rows = torch.arange(B, device=h.device)
         kc, vc, pos = cache["k"], cache["v"], cache["pos"]
-        kc[rows, t] = k[:, 0].to(kc.dtype)
-        vc[rows, t] = v[:, 0].to(vc.dtype)
-        pos[rows, t] = t.to(pos.dtype)
-        # mask by recorded absolute positions, each row at its own t
+        slot = t % kc.shape[1] if window else t
+        kc[rows, slot] = k[:, 0].to(kc.dtype)
+        vc[rows, slot] = v[:, 0].to(vc.dtype)
+        pos[rows, slot] = t.to(pos.dtype)
+        # mask by recorded absolute positions, each row at its own t (a
+        # ring slot holds whichever position wrote it last)
         valid = (pos >= 0) & (pos <= t[:, None])
+        if window:
+            valid &= pos > t[:, None] - window
         qg = q.reshape(B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
                        cfg.head_dim)
         s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), kc.float())
@@ -165,23 +177,29 @@ def apply_attn(
         positions = torch.arange(S, device=h.device)
         q = L.rope(q, positions[None], cfg.rope_theta)
         k = L.rope(k, positions[None], cfg.rope_theta)
-        # dense up to dense_attn_max_seq, the flash scan above it; no
-        # window: check_supported refuses sliding-window configs
+        # dense up to dense_attn_max_seq, the flash scan above it
         o = L.attention(
-            q, k, v, causal=causal, logit_cap=cfg.attn_softcap,
+            q, k, v, causal=causal, window=window, logit_cap=cfg.attn_softcap,
             dense_max_seq=cfg.dense_attn_max_seq, block_kv=cfg.flash_block_kv,
             scale=cfg.attn_scale,
         )
         new_cache = None
         if cache is not None and rs.write_cache:
             slots = cache["k"].shape[1]
-            if S > slots:
+            if S > slots and not window:
                 raise ValueError(
                     f"prefill of {S} positions exceeds the cache's {slots}"
                 )
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
-            cache["pos"][:, :S] = positions.to(cache["pos"].dtype)
+            if S <= slots:
+                idx, ps = slice(0, S), positions
+            else:
+                # a window's ring keeps the last ``slots`` positions,
+                # position p in slot p % slots, as the decode writes go on
+                ps = positions[S - slots:]
+                idx = ps % slots
+            cache["k"][:, idx] = k[:, S - len(ps):].to(cache["k"].dtype)
+            cache["v"][:, idx] = v[:, S - len(ps):].to(cache["v"].dtype)
+            cache["pos"][:, idx] = ps.to(cache["pos"].dtype)
             new_cache = cache
 
     out = torch.einsum("bshk,hkd->bsd", o.to(h.dtype), p["wo"])

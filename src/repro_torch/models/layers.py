@@ -166,8 +166,9 @@ def flash_attention(
     round the scores and each block's ``p @ v`` to bf16); ``p`` is rounded
     to ``v.dtype`` before its product, as the reference's is.
 
-    A KV block that lies wholly in a causal Q block's future is skipped:
-    under the reference's mask it contributes exactly zero (``p = 0``, the
+    A KV block that lies wholly in a causal Q block's future, or wholly
+    before the window of the Q block's first position, is skipped: under
+    the reference's mask it contributes exactly zero (``p = 0``, the
     correction exactly 1, or 0 on a row still fully masked).  Nothing else
     departs from the reference's arithmetic.
     """
@@ -201,6 +202,8 @@ def flash_attention(
         for ki in range(nk):
             if causal and ki * block_kv > q0 + block_q - 1:
                 break                # this block and the rest: all future
+            if window is not None and (ki + 1) * block_kv <= q0 - window + 1:
+                continue             # all before every row's window
             kv = slice(ki * block_kv, (ki + 1) * block_kv)
             kv_pos = ki * block_kv + ar_kv
             s = torch.matmul(qblk, kh[:, :, :, kv].transpose(-1, -2)) * scale

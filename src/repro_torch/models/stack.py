@@ -1,11 +1,14 @@
 """Layer-stack assembly on PyTorch: schema and apply for a full model.
 
-Ported from ``repro.models.stack`` for dense global-attention stacks
-(``block_pattern=("attn",)``) and RWKV-6 stacks (``("rwkv",)``).  A model
-is: token embedding -> ``n_groups`` blocks -> final norm -> LM head.  The
-reference scans over stacked ``(n_groups, ...)`` block parameters; here
-``params["blocks"]`` and ``caches["blocks"]`` are per-layer lists and
-:func:`apply_stack` loops over them, each block dispatched on its kind.
+Ported from ``repro.models.stack`` for dense attention stacks (layer kinds
+``attn`` / ``global`` and ``local``, the sliding-window kind, in any
+prefix, block pattern and suffix) and RWKV-6 stacks (``("rwkv",)``).  A
+model is: token embedding -> its layers -> final norm -> LM head.  The
+reference runs prefix layers, a scan over ``n_groups`` stacked copies of
+the block pattern, then suffix layers; here ``params["blocks"]`` and
+``caches["blocks"]`` are per-layer lists in ``cfg.layer_kinds()`` order
+(prefix, pattern x n_groups, suffix) and :func:`apply_stack` loops over
+them, each block dispatched on its kind.
 Training reads :func:`hidden_states` and :func:`fused_ce`, the chunked
 cross-entropy that never holds ``(B, S, V)`` logits.
 """
@@ -20,7 +23,7 @@ from . import layers as L
 
 __all__ = [
     "block_schema", "block_cache_schema", "model_schema",
-    "model_cache_schema", "apply_block",
+    "model_cache_schema", "apply_mixer", "apply_block",
     "apply_stack", "embed_tokens", "hidden_states", "head_matrix",
     "fused_ce", "lm_head", "forward", "decode_step",
 ]
@@ -33,7 +36,7 @@ __all__ = [
 def block_schema(cfg: ModelConfig, kind: str = "attn") -> dict:
     mix = B.mixer_of(kind)
     sch = {"norm1": ParamDef((cfg.d_model,), init="zeros")}
-    if mix == "attn":
+    if mix in ("attn", "global", "local"):
         sch["mix"] = B.schema_attn(cfg)
     elif mix == "rwkv":
         rw = B.schema_rwkv(cfg)
@@ -56,8 +59,10 @@ def block_schema(cfg: ModelConfig, kind: str = "attn") -> dict:
 def block_cache_schema(cfg: ModelConfig, kind: str, batch: int,
                        max_len: int) -> dict:
     mix = B.mixer_of(kind)
-    if mix == "attn":
+    if mix in ("attn", "global"):
         return B.cache_attn(cfg, batch, max_len)
+    if mix == "local":
+        return B.cache_attn(cfg, batch, max_len, cfg.sliding_window)
     if mix == "rwkv":
         return B.cache_rwkv(cfg, batch)
     raise ValueError(f"unknown mixer kind {kind!r}")
@@ -85,6 +90,19 @@ def model_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
+                rs: B.RunState, cache):
+    """The attention mixer of layer kind ``kind``: ``attn`` / ``global``
+    attend to every earlier position, ``local`` to the last
+    ``cfg.sliding_window``."""
+    mix = B.mixer_of(kind)
+    if mix in ("attn", "global"):
+        return B.apply_attn(p, h, cfg, rs, cache, window=None)
+    if mix == "local":
+        return B.apply_attn(p, h, cfg, rs, cache, window=cfg.sliding_window)
+    raise ValueError(f"unknown mixer kind {kind!r}")
+
+
 def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
                 kind: str = "attn"):
     """One block of layer kind ``kind`` (the reference passes it before
@@ -100,12 +118,12 @@ def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
 
     if cfg.parallel_block:  # command-r: shared input norm, attn + ffn in parallel
         n = L.norm(h, p["norm1"], cfg.norm)
-        a, cache = B.apply_attn(p["mix"], n, cfg, rs, cache)
+        a, cache = apply_mixer(p["mix"], n, cfg, kind, rs, cache)
         fo = B.apply_ffn(p["ffn"], n, cfg)
         return h + a + fo, cache
 
     n = L.norm(h, p["norm1"], cfg.norm)
-    a, cache = B.apply_attn(p["mix"], n, cfg, rs, cache)
+    a, cache = apply_mixer(p["mix"], n, cfg, kind, rs, cache)
     if cfg.post_norm:
         a = L.norm(a, p["post_norm1"], cfg.norm)
     h = h + a

@@ -19,12 +19,14 @@ over a fixed pool of **rows**:
     positions, masks and gathers), so garbage rows cannot perturb live ones.
 
 Secrets reach the step through the engine's ``_sync_plan``: stacked
-``(S, V, d)`` AugE tables (fp32, as the registry holds them) and
-``(S, d, V)`` Aug-heads staged on the device, patched per slot on tenant
-churn.  The Aug-heads are staged in the model's activation type
-(``cfg.adtype``): the head product rounds every entry to it anyway (K3 and
-the admission prefill's ``aug_head.to(h.dtype)``), and torch's cast rounds
-to nearest even as they do, so a bf16 stack gives the same logits from half
+``(S, V, d)`` AugE tables and ``(S, d, V)`` Aug-heads staged on the device,
+patched per slot on tenant churn (a tied slot's Aug-head is its staged AugE
+table transposed on the device, not a second table sent from the host).
+Both are staged in the model's activation type (``cfg.adtype``): the head
+product rounds every entry to it anyway (K3 and the admission prefill's
+``aug_head.to(h.dtype)``), and each gathered AugE row is cast to it before
+the trunk reads it (``.to(cfg.adtype)`` in the steps); torch's cast rounds
+to nearest even as those do, so bf16 stacks give the same logits from half
 the bytes and half the memory.  The registry and its snapshots stay fp32.
 Active tenants are LRU-touched before any admission (``_pin_active``), so
 registry eviction never reassigns a slot out from under a running sequence.
@@ -44,7 +46,7 @@ import torch
 
 from repro_torch.core.lm import LMSessionRegistry
 
-from .engine import _Plan, _sync_plan, resolve_device
+from .engine import _Plan, _host, _sync_plan, resolve_device
 from .queue import FairAdmissionQueue, FairScheduler
 from .resilience import EngineSnapshot
 
@@ -176,14 +178,32 @@ class ContinuousDecodeLane:
 
     # -- plan upkeep ---------------------------------------------------------
     def _refresh_plan(self) -> _Plan:
-        reg = self.registry
-        self._plan = _sync_plan(
-            self._plan, reg,
-            {"aug_embeds": reg.slot_aug_embedding,
-             "aug_heads": reg.slot_aug_head},
-            self.device, {"aug_heads": self.model.cfg.adtype},
-        )
-        return self._plan
+        """Bring the device stacks up to the registry's version: the AugE
+        tables through ``_sync_plan`` (changed slots staged from the host),
+        then each changed slot's Aug-head.  A tied slot's head is its AugE
+        table transposed on the device; an untied one is staged from the
+        registry's fused head."""
+        reg, dtype = self.registry, self.model.cfg.adtype
+        since = None if self._plan is None else self._plan.version
+        plan = _sync_plan(self._plan, reg,
+                          {"aug_embeds": reg.slot_aug_embedding},
+                          self.device, {"aug_embeds": dtype})
+        heads = plan.arrays.get("aug_heads")
+        if heads is None:           # a new plan: every slot
+            heads = torch.empty((reg.capacity, reg.d_model, reg.vocab),
+                                dtype=dtype, device=self.device)
+            slots = range(reg.capacity)
+        else:
+            slots = reg.updates_since(since)
+            if slots is None:
+                slots = range(reg.capacity)
+        embeds = plan.arrays["aug_embeds"]
+        for s in slots:
+            heads[s].copy_(embeds[s].T if reg.slot_head_tied(s)
+                           else _host(reg.slot_aug_head(s)))
+        plan.arrays["aug_heads"] = heads
+        self._plan = plan
+        return plan
 
     def _pin_active(self) -> None:
         """LRU-touch every active tenant, then verify no active row's slot

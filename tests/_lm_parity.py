@@ -68,3 +68,22 @@ def hold_lane(jparams, jcfg, prompts, got, want) -> int:
         slack = lg.max(-1) - lg[np.arange(len(g)), g]
         assert (slack <= GAP_MARGIN * np.abs(lg).max(-1)).all(), slack
     return held
+
+
+def ref_layers(tree, cfg) -> list:
+    """A reference tree of per-layer entries (parameters or caches) in the
+    port's layer order, ``cfg.layer_kinds()``: ``tree["prefix"]``, then
+    slice ``g`` of ``tree["blocks"][f"b{i}"]`` for layer ``g * P + i`` of
+    the scanned pattern (P kinds), then ``tree["suffix"]``; leaves as
+    numpy arrays."""
+    import jax
+
+    def take(node, g=None):
+        return jax.tree.map(
+            lambda a: np.asarray(a if g is None else a[g]), node)
+
+    P = len(cfg.block_pattern)
+    return ([take(c) for c in tree.get("prefix", [])]
+            + [take(tree["blocks"][f"b{i}"], g)
+               for g in range(cfg.n_groups) for i in range(P)]
+            + [take(c) for c in tree.get("suffix", [])])

@@ -250,6 +250,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.gemm", "repro_torch.models.cnn"} <= set(mods)
     assert {"repro_torch.kernels.wkv6", "repro_torch.configs.rwkv6_3b"} <= set(mods)
     assert "repro_torch.configs.phi3_mini_3p8b" in mods
+    assert {"repro_torch.configs.command_r_35b",
+            "repro_torch.configs.gemma2_27b"} <= set(mods)
     assert {"repro_torch.checkpoint.manager", "repro_torch.runtime.async_engine",
             "repro_torch.runtime.wire", "repro_torch.launch.server",
             "repro_torch.launch.client"} <= set(mods)

@@ -828,3 +828,89 @@ def test_resilient_loop_on_card_through_one_failure(cuda, tmp_path):
     assert all(leaf.is_cuda for leaf in tree_leaves(faulty))
     assert all(_same_bits(a.detach(), b.detach()) for a, b in
                zip(tree_leaves(faulty), tree_leaves(clean)))
+
+
+def test_k3_last_strip_of_a_command_r_stack(cuda):
+    """K3 at command_r_35b's decode shape on a 2-slot bf16 stack: h (4,
+    8192) bf16 against tables (2, 8192, 256000), 8.4 GB.  The second slot
+    starts 2,097,152,000 entries in and ends past 2^31, so its offsets need
+    64 bits.  The whole output within two bf16 ulps of max|plain|, and the
+    last strip of 256 columns of the rows on the last slot also against a
+    float64 product of the same entries."""
+    R, K, N = 4, 8192, 256000
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    tables = torch.randn((2, K, N), generator=gen, device=cuda,
+                         dtype=torch.bfloat16)
+    tables.mul_(K ** -0.5)
+    h = torch.randn((R, K), generator=gen, device=cuda).to(torch.bfloat16)
+    gidx = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=cuda)
+    want = ref.lm_head_rows_grouped_ref(h, gidx, tables)
+    before = grouped_row_gemm.launches
+    got = grouped_row_gemm(h, gidx, tables)
+    torch.cuda.synchronize()
+    assert grouped_row_gemm.launches == before + 1
+    _hold(got, want, torch.bfloat16)
+    cols = slice(N - 256, N)
+    rows = [0, 2, 3]
+    # slot 1, row k of the table, starts at entry (K + k) N: past 2^31
+    assert (K + K - 1) * N > 2 ** 31
+    exact = h[rows].double() @ tables[1][:, cols].double()
+    _hold(got[rows, cols].contiguous(), want[rows, cols].contiguous(),
+          torch.bfloat16)
+    err = float((got[rows, cols].double() - exact).abs().max())
+    scale = float(exact.abs().max())
+    assert err <= 2 * 2.0 ** (np.floor(np.log2(scale)) - 7), (err, scale)
+    del tables
+    torch.cuda.empty_cache()
+
+
+def test_gemma2_smoke_lane_on_card_equals_cpu(cuda, monkeypatch):
+    """The gemma2_27b smoke model (fp32, window 8) served by the decode lane
+    on the card and on the CPU with the same weights and tenants: 6
+    requests on 2 rows, prompts of 8 and up to 8 generated, so every local
+    layer's ring wraps and rows re-join.  K3 runs once a decode step on the
+    card.  Every step's logits agree within 1e-4 * max, and the
+    generations are equal, up to a step where the CPU's top-2 gap is
+    itself within that bound (a near-tie the two machines may break
+    apart)."""
+    import repro_torch.launch.steps as steps
+    from repro_torch.core.lm import LMSessionRegistry
+    from repro_torch.runtime import ContinuousDecodeLane
+
+    cfg = get_smoke_config("gemma2_27b")
+    params = Model(cfg, "cpu").init(0)
+    embed = params["embed"].numpy()
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, 8).astype(np.int32)
+               for _ in range(6)]
+    gens = [8, 3, 6, 8, 2, 5]
+
+    def serve(device, p):
+        reg = LMSessionRegistry(cfg.vocab, cfg.d_model, capacity=6)
+        for i in range(6):
+            reg.register(f"t{i}", embed, seed=20 + i)
+        lane = ContinuousDecodeLane(Model(cfg, device), p, reg, rows=2,
+                                    max_len=24, device=device)
+        seen, real = [], steps.lm_head_rows_grouped
+        monkeypatch.setattr(steps, "lm_head_rows_grouped",
+                            lambda *a: seen.append(real(*a)) or seen[-1])
+        sids = [lane.submit(f"t{i}", prompts[i], gens[i]) for i in range(6)]
+        before = grouped_row_gemm.launches
+        lane.run()
+        monkeypatch.undo()
+        return ([s.float().cpu() for s in seen],
+                [lane.take(s) for s in sids], grouped_row_gemm.launches - before)
+
+    want_lg, want, _ = serve("cpu", params)
+    got_lg, got, launches = serve(cuda, copy.deepcopy(params).to(cuda))
+    assert launches == len(got_lg) >= max(gens) - 1
+    for a, b in zip(got_lg, want_lg):
+        scale = float(b.abs().max())
+        top2 = b.topk(2, dim=-1).values
+        if not torch.equal(a.argmax(-1), b.argmax(-1)):
+            assert float((top2[:, 0] - top2[:, 1]).min()) <= 1e-4 * scale
+            break
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+    else:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

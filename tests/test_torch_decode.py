@@ -9,9 +9,9 @@ request's unmorphed generation must equal the reference
 crash-and-restore mid-decode — and the port's own per-tenant plain decode.
 One batched decode step's logits are held to the reference's per-tenant
 decode on fused parameters within rtol 1e-5 (fp32, sums in other orders).
-The lane's Aug-head stacks take the model's activation type: with the
-smoke config in bf16 they are bf16, and every step's logits are the bits
-that fp32 stacks give.
+The lane's Aug-head and AugE stacks take the model's activation type: with
+the smoke config in bf16 they are bf16, and every step's logits are the
+bits that fp32 stacks give.
 """
 
 import dataclasses
@@ -259,7 +259,7 @@ def test_lane_runs_on_the_card_unless_asked(lm, monkeypatch):
         )
 
 
-@pytest.mark.parametrize("argv", [["--arch", "gemma2_27b"]])
+@pytest.mark.parametrize("argv", [["--arch", "deepseek_moe_16b"]])
 def test_serve_lm_unported_options_raise(argv):
     """Architectures of later slices are refused, not served some other
     way."""
@@ -350,14 +350,29 @@ BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
 
 
 class _Fp32Heads(trt.ContinuousDecodeLane):
-    """The lane with its Aug-head stack held in the registry's fp32, as it
-    was staged before the stacks took the model's activation type."""
+    """The lane with its Aug-head and AugE stacks held in the registry's
+    fp32, as they were staged before the stacks took the model's activation
+    type."""
 
     def _refresh_plan(self):
         reg = self.registry
         self._plan = _sync_plan(
             self._plan, reg, {"aug_embeds": reg.slot_aug_embedding,
                               "aug_heads": reg.slot_aug_head}, self.device)
+        return self._plan
+
+
+class _Fp32Embeds(trt.ContinuousDecodeLane):
+    """The lane with its AugE stack held in the registry's fp32 and its
+    Aug-head stack in the model's activation type (the staging before the
+    AugE tables took it too)."""
+
+    def _refresh_plan(self):
+        reg = self.registry
+        self._plan = _sync_plan(
+            self._plan, reg, {"aug_embeds": reg.slot_aug_embedding,
+                              "aug_heads": reg.slot_aug_head}, self.device,
+            {"aug_heads": self.model.cfg.adtype})
         return self._plan
 
 
@@ -381,10 +396,10 @@ def lm16():
 
 
 def test_bf16_lane_stages_bf16_heads(lm16):
-    """A bf16 model's lane stages its Aug-heads in bf16, each slot the
-    registry's fp32 head rounded to bf16 (torch's cast, nearest even), and
-    keeps its AugE tables in fp32, as the registry holds them; also after
-    an eviction patches one slot of the stacks in place."""
+    """A bf16 model's lane stages its Aug-heads and its AugE tables in bf16,
+    each slot the registry's fp32 table rounded to bf16 (torch's cast,
+    nearest even), while the registry keeps fp32; also after an eviction
+    patches one slot of the stacks in place."""
     model, params, registry = lm16
     reg = registry(capacity=3)
     lane = trt.ContinuousDecodeLane(model, params, reg, rows=2,
@@ -392,11 +407,13 @@ def test_bf16_lane_stages_bf16_heads(lm16):
     for step in range(2):
         plan = lane._refresh_plan()
         heads, embeds = plan.arrays["aug_heads"], plan.arrays["aug_embeds"]
-        assert heads.dtype == torch.bfloat16 and embeds.dtype == torch.float32
+        assert heads.dtype == torch.bfloat16 == embeds.dtype
         want = torch.from_numpy(reg.stacked_aug_heads())
         assert torch.equal(heads, want.bfloat16())
-        assert torch.equal(embeds, torch.from_numpy(np.stack(
-            [reg.slot_aug_embedding(s) for s in range(reg.capacity)])))
+        fp32 = np.stack([reg.slot_aug_embedding(s)
+                         for s in range(reg.capacity)])
+        assert fp32.dtype == np.float32
+        assert torch.equal(embeds, torch.from_numpy(fp32).bfloat16())
         if step == 0:
             evictions = reg.evictions
             reg.slot_for("t0")      # not resident: evicts a slot, patched below
@@ -452,3 +469,30 @@ def test_fp32_model_keeps_fp32_heads(lm):
     assert heads.dtype == torch.float32 == lm.cfg.adtype
     assert torch.equal(heads, torch.from_numpy(
         lane.registry.stacked_aug_heads()))
+
+
+def test_bf16_aug_embeds_give_the_fp32_tables_tokens_and_logits(lm16,
+                                                                 monkeypatch):
+    """In a bf16 model every decode step's logits and every generation are
+    the same bits with bf16 AugE stacks as with fp32 ones (the heads bf16
+    in both): each gathered AugE row is cast to bf16 before the trunk reads
+    it, which is what the stack's cast does, row for row."""
+    model, params, registry = lm16
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, model.cfg.vocab, PROMPT_LEN).astype(np.int32)
+               for _ in range(5)]
+    gens = GENS[:5]
+    runs = []
+    for cls in (trt.ContinuousDecodeLane, _Fp32Embeds):
+        lane = cls(model, params, registry(), rows=2, max_len=MAX_LEN,
+                   device="cpu")
+        runs.append(_step_logits(monkeypatch, lane, prompts, gens))
+        assert lane._plan.arrays["aug_embeds"].dtype == (
+            torch.float32 if cls is _Fp32Embeds else torch.bfloat16)
+        assert lane._plan.arrays["aug_heads"].dtype == torch.bfloat16
+    (l16, g16), (l32, g32) = runs
+    assert len(l16) == len(l32) >= max(gens) - 1
+    for a, b in zip(l16, l32):
+        assert torch.equal(a, b)
+    for a, b in zip(g16, g32):
+        np.testing.assert_array_equal(a, b)

@@ -39,10 +39,11 @@ from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     Model, layers as tL, params_from_jax, stack as tS,
 )
+from _lm_parity import ref_layers  # noqa: E402
 
 RTOL = 1e-5
 LONG_RTOL = 1e-4
-ARCHS = ["deepseek_7b", "phi3_mini_3p8b"]
+ARCHS = ["deepseek_7b", "phi3_mini_3p8b", "command_r_35b", "gemma2_27b"]
 
 
 def _qkv(rng, B, Sq, Skv, Hq, Hkv, hd):
@@ -151,6 +152,29 @@ def test_flash_skips_only_future_blocks(rng, monkeypatch):
         _close(got.double().numpy(), want)
 
 
+def test_flash_skips_blocks_before_the_window(rng, monkeypatch):
+    """Causal with a window of 16, blocks of 16: Q block i reads KV blocks
+    i - 1 and i only (the earlier ones lie before every row's window, the
+    later ones in its future), and the values equal the reference's, which
+    computes every block."""
+    q, k, v = _qkv(rng, 1, 64, 64, 2, 2, 8)
+    shapes = []
+    real = torch.matmul
+
+    def counted(a, b):
+        shapes.append(tuple(b.shape[-2:]))
+        return real(a, b)
+
+    monkeypatch.setattr(torch, "matmul", counted)
+    got = tL.flash_attention(*map(torch.from_numpy, (q, k, v)), window=16,
+                             block_q=16, block_kv=16)
+    monkeypatch.setattr(torch, "matmul", real)
+    assert len(shapes) == 2 * (1 + 2 + 2 + 2)
+    want = jL.flash_attention(*map(jnp.asarray, (q, k, v)), window=16,
+                              block_q=16, block_kv=16)
+    _close(got.double().numpy(), want)
+
+
 @pytest.mark.parametrize("dense_max_seq,path", [(32, "dense"), (31, "flash")])
 def test_attention_dispatch_at_the_limit(rng, monkeypatch, dense_max_seq, path):
     """Just at ``dense_max_seq`` (32 x 32 score entries) the dispatch runs
@@ -246,14 +270,20 @@ def test_forward_and_prefill_through_flash_match_reference(rng, monkeypatch,
         tparams, {"tokens": torch.from_numpy(tokens)}, tm.init_cache(2, max_len))
     _close(tlog, jlog, LONG_RTOL)
     assert len(calls) == 2 * cfg.n_layers
-    for i, c in enumerate(tc["blocks"]):
-        jb = jax.tree.map(lambda a: np.asarray(a[i]), jc["blocks"]["b0"])
+    for c, jb, kind in zip(tc["blocks"], ref_layers(jc, jcfg),
+                           cfg.layer_kinds()):
         for name in ("k", "v"):
-            _close(c[name][:, :S_FLASH], jb[name][:, :S_FLASH], LONG_RTOL)
-        assert (c["pos"][:, :S_FLASH] == torch.arange(S_FLASH)).all()
-        assert (c["pos"][:, S_FLASH:] == -1).all()
-        np.testing.assert_array_equal(np.asarray(jb["pos"])[:S_FLASH],
-                                      np.arange(S_FLASH))
+            _close(c[name], jb[name], LONG_RTOL)
+        if kind == "local":
+            # the ring holds the last ``window`` positions, p in slot p % window
+            held = np.arange(S_FLASH - cfg.sliding_window, S_FLASH)
+            want_pos = np.empty(cfg.sliding_window, np.int64)
+            want_pos[held % cfg.sliding_window] = held
+        else:
+            want_pos = np.concatenate([np.arange(S_FLASH),
+                                       -np.ones(max_len - S_FLASH, np.int64)])
+        assert (c["pos"] == torch.from_numpy(want_pos)).all()
+        np.testing.assert_array_equal(jb["pos"], want_pos)
 
 
 @pytest.mark.parametrize("seq", [32, 2048])

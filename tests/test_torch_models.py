@@ -201,8 +201,8 @@ def test_model_init_draws_reference_shapes():
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "moe"}, {"block_pattern": ("local", "attn")},
-    {"sliding_window": 16}, {"prefix_pattern": ("attn",)},
+    {"family": "moe"}, {"block_pattern": ("attn_moe",)},
+    {"block_pattern": ("mla",)}, {"block_pattern": ("rec", "rec", "local")},
 ])
 def test_unported_configs_raise(change):
     cfg = dataclasses.replace(get_smoke_config("deepseek_7b"), **change)
@@ -222,6 +222,6 @@ def test_config_registry():
     assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
             full.vocab) == (32, 3072, 32, 96, 32064)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("gemma2_27b")
+        get_config("deepseek_moe_16b")
     with pytest.raises(NotImplementedError, match="unknown or not ported"):
         get_smoke_config("no_such_arch")

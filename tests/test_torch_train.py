@@ -68,8 +68,20 @@ from repro_torch.optim import adamw  # noqa: E402
 
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
+# The gemma2_27b smoke config is ill-conditioned in fp32 (post-norms over
+# small sublayer outputs, soft-caps, tied and scaled embeddings): against
+# the same model evaluated with float64 products (the port with
+# dtype="float64", norms, RoPE angles and attention scores in fp32 as in
+# both packages), the reference's own gradients depart by up to 6.0e-4 of
+# max|g| and its grad_norm by 2.8e-4 relative, the port's by 7.3e-4 and
+# 3.9e-4 (deepseek_7b: 4.6e-5 and 1.3e-5 for the reference, 6.0e-5 and
+# 1.1e-5 for the port; command_r_35b below 2e-5 and 4e-6).  Its gradients
+# and moments are held at GRAD_TOLS, its grad_norm at NORM_RTOLS, a few
+# times those departures; every other arch at GRAD_TOL and LOSS_RTOL.
+GRAD_TOLS = {"gemma2_27b": 2e-3}
+NORM_RTOLS = {"gemma2_27b": 2e-3}
 ADAM_RTOL = 1e-6
-ARCHS = ["deepseek_7b", "phi3_mini_3p8b"]
+ARCHS = ["deepseek_7b", "phi3_mini_3p8b", "command_r_35b", "gemma2_27b"]
 FLASH = dict(dense_attn_max_seq=16, flash_block_kv=16)
 ATTENTION = {"dense": {}, "flash": FLASH}
 S = 64
@@ -167,7 +179,7 @@ def test_loss_and_every_gradient_match_reference(rng, arch, attention, remat):
     assert sorted(grads) == sorted(want)
     for name, g in grads.items():
         assert torch.isfinite(g).all(), name
-        _close(g, want[name], GRAD_TOL, name)
+        _close(g, want[name], GRAD_TOLS.get(arch, GRAD_TOL), name)
     assert not any(p.requires_grad for p in params.parameters())
 
 
@@ -194,7 +206,8 @@ def test_unfused_loss_and_logits_match_reference(rng):
            jmodel.logits(jparams, _j(batch)), 1e-4)
 
 
-@pytest.mark.parametrize("arch", ["deepseek_7b", "phi3_mini_3p8b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["deepseek_7b", "phi3_mini_3p8b", "rwkv6_3b",
+                                  "command_r_35b", "gemma2_27b"])
 def test_param_count_matches_reference(arch):
     """Counted from the schema at the smoke and the FULL configs (nothing
     allocated: 6.91 B parameters at deepseek_7b)."""
@@ -291,21 +304,29 @@ def test_adamw_apply_matches_reference(rng, clip_norm):
 
 # -- the train step ---------------------------------------------------------------
 
-def _hold_update(name, got, want, before, grad, lr):
+def _hold_update(name, got, want, before, grad, lr, grad_tol=GRAD_TOL,
+                 scale=1.0):
     """One Adam step's parameters against the reference's.  At t = 1 the
     step is lr * (g s / (|g s| + eps) + wd p): ±lr wherever |g| >> eps.  A
     gradient entry near zero may take the other sign in the other package
     (the gradients agree to ``GRAD_TOL`` of their max), which moves that
     entry by up to 2 lr; where |g_ref| >= 1e-2 max|g_ref| the sign is
     decided and g/(|g| + eps) agrees to 1e-6, so the parameters agree to
-    1e-6 of max|p| + lr (fp32 rounding of p and of the step).  Everywhere
-    within 2 lr + that."""
+    1e-6 of max|p| + lr (fp32 rounding of p and of the step).  Gradients
+    held at a ``grad_tol`` above GRAD_TOL, d = grad_tol max|g| apart and
+    clipped by ``scale`` (s), move g s/(|g s| + eps) by up to
+    eps d / (s |g| (|g| - d)) more, which is added entry by entry.
+    Everywhere within 2 lr + that."""
     got, want, before, grad = (np.asarray(x, np.float64) for x in
                                (got, want, before, grad))
     diff = np.abs(got - want)
-    slack = 1e-6 * (np.abs(before).max() + lr)
+    slack = np.full(diff.shape, 1e-6 * (np.abs(before).max() + lr))
     decided = np.abs(grad) >= 1e-2 * np.abs(grad).max()
-    assert (diff[decided] <= slack).all(), (name, diff[decided].max())
+    if grad_tol > GRAD_TOL:
+        d, g = grad_tol * np.abs(grad).max(), np.abs(grad[decided])
+        slack[decided] += (lr * adamw.AdamWConfig().eps * d
+                           / (scale * g * (g - d)))
+    assert (diff[decided] <= slack[decided]).all(), (name, diff[decided].max())
     assert (diff <= 2 * lr + slack).all(), (name, diff.max())
 
 
@@ -332,18 +353,23 @@ def test_train_step_matches_reference(rng, arch, microbatch):
     out, opt_state, m = step(params, adamw.init_state(params), _t(batch))
     assert out is params
     assert int(opt_state["count"]) == int(want_opt["count"]) == 1
+    rtols = {"grad_norm": NORM_RTOLS.get(arch, LOSS_RTOL)}
     for k in ("loss", "grad_norm", "lr"):
-        assert float(m[k]) == pytest.approx(float(want_m[k]), rel=LOSS_RTOL), k
+        assert float(m[k]) == pytest.approx(float(want_m[k]),
+                                            rel=rtols.get(k, LOSS_RTOL)), k
     grads = _leaves(want_g, cfg)
-    for key, tol in (("m", GRAD_TOL), ("v", 2 * GRAD_TOL)):
+    grad_tol = GRAD_TOLS.get(arch, GRAD_TOL)
+    for key, tol in (("m", grad_tol), ("v", 2 * grad_tol)):
         want = _leaves(want_opt[key], cfg)
         for name, got in opt_state[key].items():
             _close(got, want[name], tol, f"{key} {name}")
     want = _leaves(want_p, cfg)
     lr = float(want_m["lr"])
+    clip = min(1.0, opt.clip_norm / float(want_m["grad_norm"]))
     for name, p in adamw.named_leaves(params):
         assert not p.requires_grad
-        _hold_update(name, p.detach(), want[name], before[name], grads[name], lr)
+        _hold_update(name, p.detach(), want[name], before[name], grads[name],
+                     lr, grad_tol, clip)
 
 
 def test_microbatch_gradients_sum_in_fp32(rng, monkeypatch):
@@ -440,7 +466,8 @@ def test_aug_head_losses_match(rng):
                             tm.morph_tokens(labels))), rel=LOSS_RTOL)
 
 
-@pytest.mark.parametrize("arch", ["deepseek_7b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["deepseek_7b", "rwkv6_3b", "command_r_35b",
+                                  "gemma2_27b"])
 def test_token_mole_loss_equivalence(rng, arch):
     """loss(params, raw) == loss(fused params, morphed) and both equal the
     reference's loss (no grad: the rwkv loss runs K6's plain version)."""
@@ -575,7 +602,8 @@ def test_pipeline_refuses_what_the_port_does_not_run():
         Pipeline(d, model_cfg=dataclasses.replace(
             cfg, mole=MoLeCfg(enabled=True, mode="embedding")))
     with pytest.raises(NotImplementedError):
-        Pipeline(d, model_cfg=dataclasses.replace(cfg, sliding_window=4))
+        Pipeline(d, model_cfg=dataclasses.replace(cfg,
+                                                  block_pattern=("attn_moe",)))
 
 
 def test_zipf_unigram_statistics():

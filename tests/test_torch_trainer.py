@@ -399,10 +399,35 @@ def test_train_main_prints_the_reference_format(tmp_path, capsys):
                              if line.startswith(("arch=", "  [FT]"))]
 
 
+def test_train_main_gemma2_runs_as_the_reference_driver(tmp_path, capsys):
+    """``launch/train.py --arch gemma2_27b --smoke`` (local/global layers,
+    window 8, sequences of 32 so every local layer's window slides) through
+    the reference's driver and the port's: the same header (the parameter
+    count included) word for word, the same lines with the numbers taken
+    out, and finite losses.  No failure is injected: whether the
+    reference's asynchronous checkpoint is written before the failure
+    depends on the machine's load (its fault-tolerance lines are held on
+    phi3 by ``test_train_main_prints_the_reference_format``)."""
+    argv = ["--arch", "gemma2_27b", "--smoke", "--mole", "token",
+            "--seq-len", "32", "--batch", "4", "--steps", "4",
+            "--ckpt-every", "2", "--log-every", "1"]
+    jtrain.main(argv + ["--ckpt-dir", str(tmp_path / "ref")])
+    want = capsys.readouterr().out
+    _, hist = train.main(argv + ["--ckpt-dir", str(tmp_path / "port"),
+                                 "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _shape_of(got) == _shape_of(want)
+    keep = [line for line in want.splitlines() if line.startswith("arch=")]
+    assert len(keep) == 1 and keep == [
+        line for line in got.splitlines() if line.startswith("arch=")]
+    assert sorted(_losses(hist)) == [0, 1, 2, 3]
+    assert all(np.isfinite(float(v)) for v in _losses(hist).values())
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--arch", "rwkv6_3b"], "wkv6"),
     (["--arch", ARCH, "--mole", "embedding"], "frontend"),
-    (["--arch", "gemma2_27b"], "not ported"),
+    (["--arch", "deepseek_moe_16b"], "not ported"),
 ], ids=["rwkv6_3b", "mole_embedding", "unported_arch"])
 def test_train_main_refuses_what_the_port_does_not_train(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -1,9 +1,12 @@
-"""Runs one of ``chip_smoke.py``'s training phases alone on one card: the
-kernels built (``train_path``'s gate 4 decode step launches K3), then the
-phase's gates and its JSON line, then the card's name and power limit.
+"""Runs one or more of ``chip_smoke.py``'s training and LM phases alone on
+one card: the kernels built (``train_path``'s gate 4 decode step launches
+K3), then each phase's gates and its JSON line, then the card's name and
+power limit.
 
     python3 tools/train_probe.py                      # train_path
     python3 tools/train_probe.py train_resume_path    # launch/train.py
+    python3 tools/train_probe.py kernels_k3 gemma2_path command_r_path \
+        gemma2_train                                  # vocab 256000
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -22,14 +25,28 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
-PHASES = {"train_path": cs.train_path,
-          "train_resume_path": cs.train_resume_path}
+PHASES = {
+    "train_path": cs.train_path,
+    "train_resume_path": cs.train_resume_path,
+    "kernels_k3": lambda dev, kernels: cs.k3_checks(
+        dev, kernels, kernels.ref),
+    "gemma2_path": lambda dev, kernels: cs.lm_path(
+        dev, kernels, phase="gemma2_path", arch=cs.GEMMA2_ARCH,
+        prompt_len=cs.GEMMA2_PROMPT, groups=cs.GEMMA2_GROUPS),
+    "command_r_path": lambda dev, kernels: cs.lm_path(
+        dev, kernels, phase="command_r_path", arch=cs.COMMAND_R_ARCH,
+        prompt_len=cs.COMMAND_R_PROMPT, groups=cs.COMMAND_R_LAYERS),
+    "gemma2_train": lambda dev, kernels: cs.train_path(
+        dev, kernels, phase="gemma2_train", arch=cs.GEMMA2_ARCH,
+        peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.GEMMA2_TRAIN),
+}
 
 
 def main() -> None:
-    phase = sys.argv[1] if len(sys.argv) > 1 else "train_path"
-    if phase not in PHASES:
-        sys.exit(f"train_probe: unknown phase {phase!r}; one of {sorted(PHASES)}")
+    phases = sys.argv[1:] or ["train_path"]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        sys.exit(f"train_probe: unknown phases {unknown}; one of {sorted(PHASES)}")
     if not torch.cuda.is_available():
         sys.exit("train_probe: needs a GPU")
     from repro_torch import kernels, runtime
@@ -37,7 +54,9 @@ def main() -> None:
 
     dev = runtime.resolve_device(None)
     build.build_all()
-    PHASES[phase](dev, kernels)
+    for phase in phases:
+        PHASES[phase](dev, kernels)
+        cs.release()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
