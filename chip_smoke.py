@@ -201,6 +201,29 @@ printing one JSON line; any failure raises and exits non-zero:
                 COMMAND_R_LAYERS layers: 4 tenants, 8 requests of 512, 16
                 generated; K3 at h (4, 8192) x (4, 8192, 256000).  Gated as
                 lm_path, its twin 2 layers.
+ 6f. moe_path   lm_path at deepseek_moe_16b FULL (28 layers: an attn
+                prefix layer with a dense FFN of 10944, then 27 attn_moe
+                layers of 2 shared + 64 routed experts of 1408, top-6; d
+                2048, 16 heads, vocab 102400, bf16): 4 tenants, 8 requests
+                of 512 (dense attention), 16 generated; K3 at h (4, 2048) x
+                (4, 2048, 102400).  Gated as lm_path, plus: one routing a
+                MoE layer per admission prefill and per decode step, and no
+                assignment dropped in a decode step (the lane routes each
+                row as a call of its own).  The twin is the prefix layer
+                and one MoE layer; its plain reference prefills each prompt
+                alone and decodes each sequence alone, as the lane routes
+                (``plain_gaps``).  Printed: the dropped assignments of each
+                admission prefill over the 27 MoE layers (capacity 64 a
+                layer against a mean load of 48 an expert), and the
+                smallest gap between a token's 6th and 7th router
+                probability in each MoE layer of the twin.
+ 6g. mla_path   the same at deepseek_v2_lite_16b FULL (27 layers: an mla
+                prefix layer, then 26 mla_moe layers; MLA's latent 512, q/k
+                of 128 + 64 roped, v 128), prompts of 2048: past
+                dense_attn_max_seq, so each admission prefill runs the
+                flash scan once a layer (27 x 8) at head_dim 192 with V
+                padded from 128; decode attends in MLA's absorbed form over
+                the latent cache.
   7. kernels_k45 the single-tenant / per-group morph (``block_diag_matmul``,
                 K4) and Aug-Conv (``aug_gemm``, K5) against their plain
                 versions in fp32 and bf16: K4 at (R, kappa, q) = (256, 1,
@@ -305,10 +328,14 @@ printing one JSON line; any failure raises and exits non-zero:
                 (4) after
                 training, no leaf requires grad, and the decode lane's
                 admission prefill and batched decode step on the trained
-                twin return tensors without ``grad_fn``.  Printed:
+                twin return tensors without ``grad_fn`` (the twins: 2
+                layers, a prefix layer and one group where there is one).
+                Printed:
                 train_step_ms (p50 of the timed steps), train_tokens_per_s,
-                train_peak_gb, train_mfu (6 (N - V d) + 6 L S d flops a
-                token, remat's recompute not counted, over 989 TFLOP/s),
+                train_peak_gb, train_mfu (6 (N - V d) flops a token for
+                the N active parameters, plus 6 H (d_qk + d_v) a layer and
+                token per attended position, remat's recompute not counted,
+                over 989 TFLOP/s),
                 the profiled step's top kernels and operations and its idle
                 share, and the phase's own time.
  10b. train_resume_path the training driver (``launch/train.py`` ``main``,
@@ -342,6 +369,15 @@ printing one JSON line; any failure raises and exits non-zero:
                 peak held at PEAK_LIMIT_GB.  MFU counts a local layer's
                 attention over its mean attended context (min(p + 1,
                 4096) over the positions) and a tied head's product once.
+ 10d. mla_train train_path at deepseek_v2_lite_16b's published width, its
+                prefix layer and 2 groups (3 layers, 1.67 B parameters), 4
+                sequences of 2048 in 2 microbatches (each one routing call,
+                capacity 480), remat, bf16, ``--mole token``: gates 1-4
+                (the twins are the prefix layer and one MLA-MoE layer in
+                fp32 and bf16), the peak held at PEAK_LIMIT_GB.  MFU counts
+                the active parameters (shared and top-6 routed experts)
+                and MLA's attention as 6 H (192 + 128) a token, layer and
+                attended position.
  11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
      ``fp32_tables``), the card's name and power limit, and the final
@@ -519,6 +555,24 @@ K3_GEMMA2 = (4, 4608, 256000)
 # global layer), 2 sequences of 6144 (every local layer's window slides) in
 # 2 microbatches: 2.31 B parameters, 37 GB of state at 16 B a parameter.
 GEMMA2_TRAIN = dict(groups=1, seq=6144, global_batch=2, micro=2)
+# deepseek_moe_16b and deepseek_v2_lite_16b at their published widths and
+# depths: 28 layers (an attn prefix layer with a dense FFN of 10944, then 27
+# attn_moe layers of 2 shared + 64 routed experts of 1408, top-6) and 27 (an
+# mla prefix layer, then 26 mla_moe layers; MLA's latent 512, q/k 128 + 64
+# roped, v 128), d 2048, 16 heads, vocab 102400, bf16: 32.75 and 31.41 GB of
+# weights beside two 4-slot stacks of 1.68 GB.  moe_path's prompts of 512
+# stay under dense_attn_max_seq (capacity 64 a prefill against a mean load
+# of 48 an expert); mla_path's of 2048 are past it and a multiple of both
+# flash blocks.
+MOE_ARCH, MOE_PROMPT = "deepseek_moe_16b", 512
+MLA_ARCH, MLA_PROMPT = "deepseek_v2_lite_16b", 2048
+K3_MOE = (4, 2048, 102400)      # K3 at their decode shape
+# mla_train: the train step at deepseek_v2_lite_16b's widths, its prefix
+# layer and 2 groups (3 layers): embed and head 419.4 M parameters, the
+# prefix layer 81 M, an MLA-MoE layer 584.8 M, 1.67 B in all and 26.7 GB at
+# 16 B a parameter; 4 sequences of 2048 in 2 microbatches (capacity 480
+# a microbatch).
+MLA_TRAIN = dict(groups=2, seq=2048, global_batch=4, micro=2)
 
 
 def bf16_ulp(x: float) -> float:
@@ -1028,7 +1082,8 @@ def k3_vocab_row(kernels, ref, gen, R: int, K: int, N: int) -> dict:
 
 def k3_checks(dev, kernels, ref) -> dict:
     """K3 vs its plain version at the LM paths' shapes (deepseek_7b, then
-    phi3_mini_3p8b as ``row_phi3``) and ragged shapes, every slot pattern,
+    phi3_mini_3p8b as ``row_phi3``, the MoE archs' (4, 2048, 102400) as
+    ``row_moe``) and ragged shapes, every slot pattern,
     both table dtypes and both h dtypes, two calls the same bits; the timing
     rows.  Returns the deepseek row on bf16 tables (the main path's stacks), its
     fp32-table figures beside it."""
@@ -1050,10 +1105,15 @@ def k3_checks(dev, kernels, ref) -> dict:
                fp32_tables=timed["float32"])
     command_r = k3_vocab_row(kernels, ref, gen, *K3_COMMAND_R)
     gemma2 = k3_vocab_row(kernels, ref, gen, *K3_GEMMA2)
+    R, K, N = K3_MOE
+    err_moe = k3_cases(kernels, ref, gen, f"moe_R{R}_K{K}_N{N}", R, K, N,
+                       checks)
+    moe = k3_timed(gemm, kernels, ref, gen, R, K, N)
     emit({"phase": "kernels_k3", "checks": len(checks),
           "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
           "row": row, "row_phi3": dict(phi3, max_abs_err=err_phi3),
-          "row_command_r": command_r, "row_gemma2": gemma2})
+          "row_command_r": command_r, "row_gemma2": gemma2,
+          "row_moe": dict(moe, max_abs_err=err_moe)})
     return row
 
 
@@ -1330,12 +1390,34 @@ def plain_gaps(model, params, prompts, final, dev):
     lane's token (decode attention, as the lane's steps).  A forward there
     would run the flash scan at the generated positions as well, whose
     rounding (``p`` rounded to bf16 before its product, one division at the
-    end) is not decode attention's."""
+    end) is not decode attention's.
+
+    An MoE model routes each call with the capacity of its own tokens, so
+    its plain reference makes the calls the lane makes: a prefill of each
+    prompt alone (the lane's admission prefill), then one decode step of
+    that sequence alone per generated token (the lane routes each row as
+    a call of its own).  One forward over all prompts and generations would
+    be one call of B (P + gen) tokens, with other drops."""
     from repro_torch.models import stack as S
 
     cfg = model.cfg
     P, gen = prompts.shape[1], final.shape[1]
-    if P + gen <= cfg.dense_attn_max_seq:
+    if cfg.moe is not None:
+        tokens = torch.from_numpy(final).long().to(dev)
+        rows = []
+        for r in range(len(prompts)):
+            caches = model.init_cache(1, P + gen + 1)
+            step, caches = model.prefill_with_cache(params, {
+                "tokens": torch.from_numpy(prompts[r : r + 1]).long().to(dev)},
+                caches)
+            steps = [step[:, 0]]
+            for i in range(gen - 1):
+                step, caches = model.decode(params, tokens[r : r + 1, i : i + 1],
+                                            P + i, caches)
+                steps.append(step[:, 0])
+            rows.append(torch.cat(steps))
+        logits = torch.stack(rows)
+    elif P + gen <= cfg.dense_attn_max_seq:
         seqs = torch.from_numpy(np.concatenate([prompts, final], axis=1)).to(dev)
         logits = S.forward(params, cfg, seqs)[0][:, P - 1 : P - 1 + gen]
     else:
@@ -1436,6 +1518,53 @@ class ScanTap:
         self.lane._prefill = self._prefill
 
 
+class RouteTap:
+    """Records every MoE routing while installed: the FFN calls
+    ``repro_torch.models.blocks.moe_route`` by that name, and the wrapper
+    calls the real function once.  Per call: its ``calls`` (1 for a whole
+    batch, the row count for the lane's decode step), its tokens, its
+    dropped assignments (a device tensor, read after the run), and the
+    smallest gap between a token's k-th and (k+1)-th router probability
+    (a near-tie there can flip an expert between two roundings)."""
+
+    def __init__(self):
+        from repro_torch.models import blocks
+
+        self.blocks, self.records = blocks, []
+        self._real = blocks.moe_route
+
+    def _route(self, p, xf, cfg, calls=1):
+        r = self._real(p, xf, cfg, calls)
+        top = torch.topk(r.probs, cfg.moe.top_k + 1, dim=-1).values
+        self.records.append(
+            (calls, xf.shape[0], (~r.keep).sum(),
+             (top[:, -2] - top[:, -1]).min()))
+        return r
+
+    def summary(self, moe_layers: int) -> dict:
+        """Dropped assignments per prefill (a call of one prompt, summed
+        over its ``moe_layers`` MoE layers), those of the decode steps (one
+        token a call), and the smallest router gap of each MoE layer."""
+        prefill = [int(d) for c, t, d, _ in self.records if t > c]
+        decode = [int(d) for c, t, d, _ in self.records if t == c]
+        gaps = [float(g) for *_, g in self.records]
+        return {
+            "drops_per_prefill": [sum(prefill[i : i + moe_layers])
+                                  for i in range(0, len(prefill), moe_layers)],
+            "prefill_calls": len(prefill), "decode_calls": len(decode),
+            "decode_drops": sum(decode),
+            "min_router_gap_per_layer": [
+                min(gaps[i::moe_layers]) for i in range(moe_layers)],
+        }
+
+    def __enter__(self):
+        self.blocks.moe_route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_route = self._real
+
+
 class FlashTap:
     """Counts the calls of the chunked flash scan while installed: the
     attention dispatch calls ``repro_torch.models.layers.flash_attention``
@@ -1530,10 +1659,12 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         make_batched_decode_logits, make_row_prefill_step,
     )
     from repro_torch.models import Model, blocks as B, stack as S
+    from repro_torch.models.blocks import moe_capacity
     from repro_torch.runtime import (
         ContinuousDecodeLane, DeliveryRequest, MoLeDeliveryEngine,
     )
 
+    t_phase = time.monotonic()
     cfg = get_config(arch)
     if groups is not None:
         cfg = dataclasses.replace(cfg, n_groups=groups)
@@ -1589,8 +1720,9 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     engine.flush()
     served = np.concatenate([engine.take(r) for r in rids])
     morph_s = time.monotonic() - t1
+    moe_layers = sum(k.endswith("_moe") for k in cfg.layer_kinds())
     with torch.no_grad(), HeadTap(lane) as tap, FlashTap() as flash, \
-            ScanTap(lane, layer=cfg.n_layers - 1) as scan:
+            ScanTap(lane, layer=cfg.n_layers - 1) as scan, RouteTap() as route:
         run = run_lane(lane, served, tenant_of, gen)
     launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
     admission_ms = scan.prefill_ms
@@ -1622,6 +1754,18 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     others = {n: c for n, c in launches.items()
               if n not in ("grouped_row_gemm", "wkv6_chunked") and c}
     check(not others, f"the LM path launched other kernels: {others}")
+    # MoE: one routing a layer per admission prefill and per decode step;
+    # the decode step routes each row alone, so it drops nothing.
+    routing = route.summary(moe_layers) if moe_layers else None
+    if routing is not None:
+        check(routing["prefill_calls"] == moe_layers * scan.prefills
+              and routing["decode_calls"] == moe_layers * run["steps"],
+              f"check 2: MoE routings {routing['prefill_calls']} in prefills, "
+              f"{routing['decode_calls']} in decode steps")
+        check(routing["decode_drops"] == 0,
+              f"check 2: the decode steps dropped {routing['decode_drops']} "
+              f"assignments")
+    del route
     final = run["final"]
     check(final.shape == (requests, gen), f"generations {final.shape}")
     check(final.min() >= 0 and final.max() < cfg.vocab, "token ids out of range")
@@ -1652,7 +1796,8 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     step_p50 = float(np.median(run["pure_ms"]))
     with torch.no_grad():
         trunk_ms = cuda_ms(lambda: S.apply_stack(
-            params, h0, cfg, B.RunState(mode="decode", t=tpos), caches), 5)
+            params, h0, cfg, B.RunState(mode="decode", t=tpos, row_calls=True),
+            caches), 5)
         k3_ms = cuda_ms(lambda: kernels.lm_head_rows_grouped(
             hN, sidx, plan.arrays["aug_heads"]), 10)
         sample_ms = cuda_ms(lambda: torch.argmax(lg, dim=-1).cpu(), 10)
@@ -1686,8 +1831,9 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     # rounding past the tie margin, so that comparison is made at 2.  The
     # twin's lane serves from the main lane's staged stacks (same registry
     # version: nothing is staged again).
+    fixed = len(cfg.prefix_pattern) + len(cfg.suffix_pattern)
     cfg2 = dataclasses.replace(
-        cfg, n_groups=max(1, 2 // len(cfg.block_pattern)))
+        cfg, n_groups=max(1, (2 - fixed) // len(cfg.block_pattern)))
     model2 = Model(cfg2, dev)
     params2 = {k: params[k] for k in params.keys() if k != "blocks"}
     params2["blocks"] = list(params["blocks"])[:cfg2.n_layers]
@@ -1695,12 +1841,20 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
                                  max_len=max_len, device=dev)
     lane2._plan = plan
     with torch.no_grad():
-        run2 = run_lane(lane2, served, tenant_of, gen)
-        with PlainScan(), FlashTap() as flash2:
+        with RouteTap() as route2:
+            run2 = run_lane(lane2, served, tenant_of, gen)
+        with PlainScan(), FlashTap() as flash2, RouteTap() as plain_route2:
             gap2, exact2 = plain_gaps(model2, params2, prompts, run2["final"],
                                       dev)
-    check(flash2.calls == (cfg2.n_layers if flash_want else 0),
+    # the plain reference prefills once (an MoE model: once a prompt)
+    prefills2 = requests if cfg.moe is not None else 1
+    check(flash2.calls == (cfg2.n_layers * prefills2 if flash_want else 0),
           f"the twin's plain reference ran the flash scan {flash2.calls} times")
+    moe_layers2 = sum(k.endswith("_moe") for k in cfg2.layer_kinds())
+    twin_routing = ({"lane": route2.summary(moe_layers2),
+                     "plain_reference": plain_route2.summary(moe_layers2)}
+                    if moe_layers2 else None)
+    del route2, plain_route2
     check(bool((gap2 <= TIE_MARGIN_ULPS).all()),
           f"check {6 if rwkv else 5}, twin (2 layers, plain reference): a "
           f"generated token is "
@@ -1741,11 +1895,16 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         "tie_margin_ulps": TIE_MARGIN_ULPS,
         "lane_head_checks": heads,
         "decode_step_profile": prof,
-        "twin_2_layers": {"decode_steps": run2["steps"],
+        "twin_2_layers": {"layers": cfg2.layer_kinds(),
+                          "decode_steps": run2["steps"],
                           "forward_worst_gap_ulps": float(gap2.max()),
-                          "plain_reference": ("forward" if prompt_len + gen
-                                              <= cfg.dense_attn_max_seq
-                                              else "prefill and decode"),
+                          "plain_reference": (
+                              "a prefill and decode steps per prompt"
+                              if cfg.moe is not None
+                              else "forward" if prompt_len + gen
+                              <= cfg.dense_attn_max_seq
+                              else "prefill and decode"),
+                          "routing": twin_routing,
                           "forward_flash_scan_calls": flash2.calls,
                           "forward_exact_argmax_share": float(exact2.mean())},
         "weights_init_s": init_s, "host_secret_and_staging_s": setup_s,
@@ -1757,7 +1916,12 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         "stack_bytes": stack_bytes,
         "peak_mem_gb": peak_gb, "peak_limit_gb": PEAK_LIMIT_GB,
         "first_generation": final[0][:12].tolist(),
+        "phase_s": time.monotonic() - t_phase,
     }
+    if routing is not None:
+        out["moe"] = dict(routing, moe_layers=moe_layers,
+                          capacity_per_prefill=moe_capacity(prompt_len, cfg),
+                          experts=cfg.moe.n_routed, top_k=cfg.moe.top_k)
     if flash_gate is not None:
         out["flash_vs_dense"] = flash_gate
     if live is not None:
@@ -2972,7 +3136,8 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     # the morphed stream, from one init, on a 2-layer twin at full width
     # (both runs do not fit beside each other at TRAIN_LAYERS), in fp32 and
     # in bf16, beside the raw run in one microbatch.
-    twin_groups = max(1, TRAIN_TWIN_LAYERS // len(cfg.block_pattern))
+    fixed = len(cfg.prefix_pattern) + len(cfg.suffix_pattern)
+    twin_groups = max(1, (TRAIN_TWIN_LAYERS - fixed) // len(cfg.block_pattern))
 
     def twin_losses(dtype):
         twin = dataclasses.replace(cfg, n_groups=twin_groups,
@@ -3031,7 +3196,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
         fused, embed[None], head[None], torch.zeros(1, dtype=torch.int32,
                                                     device=dev),
         first, torch.full((1,), 32, device=dev), caches)
-    outs = [first, logits] + [c[k] for c in caches["blocks"] for k in ("k", "v")]
+    outs = [first, logits] + [x for c in caches["blocks"] for x in c.values()]
     check(all(o.grad_fn is None and not o.requires_grad for o in outs),
           "gate 4: a serving output after training carries a graph")
     check(bool(torch.isfinite(logits).all()), "gate 4: non-finite logits")
@@ -3080,23 +3245,31 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     release()
 
     # Model flops a step (remat's recompute not counted): 6 N a token for
-    # the weights (less the embedding lookup's V d where the head is a
-    # matrix of its own; a tied head's product is the embedding's V d), and
-    # for attention 12 H hd a token and layer per attended position, the
-    # mean attended context being (S + 1) / 2 causal and, in a window W,
-    # its mean over the S positions of min(p + 1, W).
+    # the weights a token uses (N the active parameters: an MoE layer's
+    # shared and top-k routed experts, not the others), less the embedding
+    # lookup's V d where the head is a matrix of its own (a tied head's
+    # product is the embedding's V d); and for attention 6 H (d_qk + d_v)
+    # a token and layer per attended position (12 H hd where q, k and v are
+    # hd wide; MLA's q/k are qk_nope + qk_rope, its v v_head), the mean
+    # attended context being (S + 1) / 2 causal and, in a window W, its
+    # mean over the S positions of min(p + 1, W).
     tokens, d = global_batch * seq, cfg.d_model
+    n_active = cfg.active_param_count()
     pos = np.arange(1, seq + 1)
     ctx_sum = sum(float(np.minimum(pos, cfg.sliding_window).mean())
                   if k == "local" else (seq + 1) / 2 for k in kinds)
-    flops = tokens * (6 * (n_params - (0 if cfg.tie_embeddings
+    if cfg.mla is not None:
+        d_qk, d_v = cfg.mla.qk_nope + cfg.mla.qk_rope, cfg.mla.v_head
+    else:
+        d_qk = d_v = hd
+    flops = tokens * (6 * (n_active - (0 if cfg.tie_embeddings
                                        else cfg.vocab * d))
-                      + 12 * H * hd * ctx_sum)
+                      + 6 * H * (d_qk + d_v) * ctx_sum)
     out = {"phase": phase, "arch": arch, "layers": cfg.n_layers,
            "published_layers": get_config(arch).n_layers,
            "block_pattern": list(cfg.block_pattern),
            "sliding_window": cfg.sliding_window,
-           "params": n_params, "seq_len": seq,
+           "params": n_params, "active_params": n_active, "seq_len": seq,
            "global_batch": global_batch, "microbatches": micro,
            "remat": True, "mole": "token", "launches": launches,
            "losses": losses, "grad_norms": norms,
@@ -3106,7 +3279,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
            "train_mfu": flops / (p50 / 1e3) / BF16_FLOP_PER_S,
            "flops_per_step": flops, "attended_context_per_token": ctx_sum,
            "train_step_profile": prof, "flash_ms": flash_ms,
-           "mole_twin": {"layers": twin_groups * len(cfg.block_pattern),
+           "mole_twin": {"layers": twin_groups * len(cfg.block_pattern) + fixed,
                          "fp32": twin_fp32,
                          "bf16": twin_bf16, "limit_rel": TRAIN_LOSS_RTOL},
            "phase_s": time.monotonic() - t_phase}
@@ -3384,6 +3557,11 @@ def main() -> None:
                       groups=depth)
         check(out["k3_launches"] > 0, f"{phase}: K3 was not launched")
         release()
+    for phase, arch, prompt in (("moe_path", MOE_ARCH, MOE_PROMPT),
+                                ("mla_path", MLA_ARCH, MLA_PROMPT)):
+        out = lm_path(dev, kernels, phase=phase, arch=arch, prompt_len=prompt)
+        check(out["k3_launches"] > 0, f"{phase}: K3 was not launched")
+        release()
     rows.update(k45_checks(dev, kernels, ref))
     release()
     vgg = vgg_path(dev, core, kernels)
@@ -3399,6 +3577,9 @@ def main() -> None:
     release()
     train_path(dev, kernels, phase="gemma2_train", arch=GEMMA2_ARCH,
                peak_limit_gb=PEAK_LIMIT_GB, **GEMMA2_TRAIN)
+    release()
+    train_path(dev, kernels, phase="mla_train", arch=MLA_ARCH,
+               peak_limit_gb=PEAK_LIMIT_GB, **MLA_TRAIN)
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
                     wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
     check(all(launches[n] > 0 for n in KERNEL_NAMES),

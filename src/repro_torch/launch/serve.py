@@ -30,6 +30,8 @@ and a greedy decode for all requests together.
         --arch rwkv6_3b --smoke --requests 4 --prompt-len 13 --gen 6
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch deepseek_7b --smoke --requests 4 --prompt-len 16 --mole off
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch deepseek_v2_lite_16b --smoke --requests 4 --prompt-len 16
 
 ``--mode serve`` — the **network front door**
 (``repro_torch.launch.server``): the async delivery engine behind a TCP

@@ -190,7 +190,8 @@ def make_batched_decode_logits(model: Model):
                               caches):
         h0 = aug_embed_rows_grouped(tokens, sidx, aug_embeds)
         h = _embed_scale(h0.to(cfg.adtype), cfg)[:, None, :]
-        rs = B.RunState(mode="decode", t=t)
+        # each row routes through an MoE FFN as a call of its own
+        rs = B.RunState(mode="decode", t=t, row_calls=True)
         h, caches = S.apply_stack(params, h, cfg, rs, caches)
         h = L.norm(h, params["final_norm"], cfg.norm)[:, 0]
         logits = lm_head_rows_grouped(h, sidx, aug_heads)
@@ -209,7 +210,9 @@ def make_batched_decode_step(model: Model):
     ``sidx[r]``'s AugE table (a gather), the shared trunk runs over all rows
     as one batch with per-row positions ``t[r]`` (the reference vmaps a B=1
     step over rows; here the row axis is the batch axis of ``(R, ...)``
-    caches whose ``pos`` is per row), and the logits come from the
+    caches whose ``pos`` is per row, and an MoE FFN routes each row as a
+    call of one token, ``RunState.row_calls``, so no row is dropped
+    whatever R is), and the logits come from the
     ``(R, d)``-row grouped GEMM against the stacked per-slot Aug-heads —
     K3, :func:`~repro_torch.kernels.ops.lm_head_rows_grouped`.
     """

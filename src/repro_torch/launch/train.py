@@ -8,6 +8,8 @@ AdamW, periodic async checkpoints, auto-resume.  Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3_mini_3p8b \
         --smoke --steps 8 --ckpt-every 4 --inject-failures 5 --mole token \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek_moe_16b --smoke --steps 4 --device cpu
 
 The flags are the reference's, plus ``--device``.  The step is
 :func:`repro_torch.launch.steps.make_train_step`, run eagerly: it updates

@@ -1,8 +1,8 @@
 """Model API on PyTorch — what the serving steps and the decode lane use.
 
-Ported from ``repro.models.api`` for plain token LMs (dense attention
-stacks, global and sliding-window, and RWKV-6 stacks).  ``Model(cfg,
-device)`` exposes:
+Ported from ``repro.models.api`` for plain token LMs (attention stacks:
+global, sliding-window and MLA mixers with dense or MoE FFNs; and RWKV-6
+stacks).  ``Model(cfg, device)`` exposes:
 
   schema() / init(generator) / param_count()
                                       — parameters as a :class:`ParamTree`
@@ -21,13 +21,11 @@ same weights.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from .base import ModelConfig, ParamDef, ParamTree, check_supported, init_params
+from .base import ModelConfig, ParamTree, check_supported, init_params
 from . import blocks as B
 from . import stack as S
 
@@ -39,13 +37,6 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(lse - picked)
-
-
-def _schema_size(schema) -> int:
-    if isinstance(schema, ParamDef):
-        return math.prod(schema.shape)
-    values = schema.values() if isinstance(schema, dict) else schema
-    return sum(_schema_size(v) for v in values)
 
 
 class Model:
@@ -74,7 +65,7 @@ class Model:
 
     def param_count(self) -> int:
         """Parameters in the schema, counted without allocating any."""
-        return _schema_size(self.schema())
+        return self.cfg.param_count()
 
     # -- caches ------------------------------------------------------------
     def cache_schema(self, batch: int, max_len: int) -> dict:
@@ -154,7 +145,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
     ``g * P + i`` of the scanned part (pattern of P kinds) takes slice ``g``
     of every leaf of ``b{i}`` (an rwkv block's ``(5, d)`` / ``(5, rank,
     d)`` token-shift mixes and its ``(H, hd)`` bonus ``u`` included), then
-    the suffix layers.
+    the suffix layers.  Nested leaves carry over by name: an MoE FFN's
+    ``router`` / ``wg`` / ``wu`` / ``wd`` and its ``shared`` FFN, MLA's
+    seven weights.
     """
     check_supported(cfg)
 

@@ -11,10 +11,11 @@ tests carry the reference's parameters over with
 ``nn.Module`` that holds a nested parameter tree and is indexed by name like
 the reference's parameter dicts (``params["blocks"][i]["mix"]["wq"]``).
 
-The port runs dense attention stacks (global and sliding-window layers)
-and RWKV-6 stacks: :func:`check_supported` raises ``NotImplementedError``
-for every config that needs a block kind, mixer or frontend of a later
-slice.
+The port runs attention stacks (global and sliding-window layers,
+DeepSeek-V2's multi-head latent attention, dense or fine-grained MoE
+FFNs) and RWKV-6 stacks: :func:`check_supported` raises
+``NotImplementedError`` for every config that needs a block kind, mixer or
+frontend of a later slice.
 """
 from __future__ import annotations
 
@@ -161,6 +162,29 @@ class ModelConfig:
             + list(self.suffix_pattern)
         )
 
+    def param_count(self) -> int:
+        """Total parameter count (from the schema, exact)."""
+        from .stack import model_schema  # local import to avoid cycle
+
+        def size(node) -> int:
+            if isinstance(node, ParamDef):
+                return math.prod(node.shape)
+            values = node.values() if isinstance(node, dict) else node
+            return sum(size(v) for v in values)
+
+        return size(model_schema(self))
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: shared + top_k routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        total = self.param_count()
+        m = self.moe
+        n_moe_layers = sum(1 for k in self.layer_kinds() if k.endswith("_moe"))
+        per_expert = 3 * self.d_model * m.d_ff_expert
+        inactive = n_moe_layers * (m.n_routed - m.top_k) * per_expert
+        return total - inactive
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """``"bfloat16"`` -> ``torch.bfloat16`` (the configs name dtypes as JAX
@@ -172,15 +196,21 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 _ATTN_KINDS = ("attn", "global", "local")  # the dense self-attention kinds
+# the kinds of an MoE stack: global attention or MLA, each with a dense or
+# a fine-grained MoE FFN
+_MOE_KINDS = ("attn_moe", "mla", "mla_moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port runs ``cfg``: a dense
-    stack whose layers (prefix, scanned pattern and suffix) are all
-    self-attention blocks of the kinds ``attn`` / ``global`` (global
-    attention) and ``local`` (attention in ``sliding_window``), or an
-    RWKV-6 stack (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set,
-    layernorm); no frontend.  Nothing else is computed in its place."""
+    """Raise ``NotImplementedError`` unless the port runs ``cfg``: a stack
+    of ``family`` "dense" or "moe" whose layers (prefix, scanned pattern
+    and suffix) are all of the kinds ``attn`` / ``global`` (global
+    attention), ``local`` (attention in ``sliding_window``), ``mla``
+    (multi-head latent attention, with an ``MLACfg``) and ``attn_moe`` /
+    ``mla_moe`` (the same mixers with a fine-grained MoE FFN, with a
+    ``MoECfg``; a "moe" family has one); or an RWKV-6 stack
+    (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set, layernorm); no
+    frontend.  Nothing else is computed in its place."""
     rwkv = tuple(cfg.block_pattern) == ("rwkv",)
     later = []
     if rwkv:
@@ -194,24 +224,34 @@ def check_supported(cfg: ModelConfig) -> None:
             later.append("prefix/suffix layers beside rwkv blocks")
         if cfg.sliding_window is not None:
             later.append("sliding_window with rwkv blocks")
+        for name in ("moe", "mla"):
+            if getattr(cfg, name) is not None:
+                later.append(f"{name} with rwkv blocks")
     else:
-        if cfg.family != "dense":
+        kinds = set(cfg.layer_kinds())
+        if cfg.family not in ("dense", "moe"):
             later.append(f"family={cfg.family!r}")
-        kinds = sorted(set(cfg.layer_kinds()) - set(_ATTN_KINDS))
-        if kinds:
-            later.append(f"layer kinds {kinds}")
+        if cfg.family == "moe" and cfg.moe is None:
+            later.append("family='moe' without a MoECfg")
+        unknown = sorted(kinds - set(_ATTN_KINDS) - set(_MOE_KINDS))
+        if unknown:
+            later.append(f"layer kinds {unknown}")
+        if cfg.moe is None and any(k.endswith("_moe") for k in kinds):
+            later.append("_moe layers without a MoECfg")
+        if cfg.mla is None and kinds & {"mla", "mla_moe"}:
+            later.append("mla layers without an MLACfg")
         if cfg.rwkv is not None:
             later.append("rwkv")
-    for name in ("moe", "mla", "rnn", "frontend"):
+    for name in ("rnn", "frontend"):
         if getattr(cfg, name) is not None:
             later.append(name)
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet (the port runs "
-            f"dense stacks of global and sliding-window attention blocks "
-            f"and RWKV-6 stacks; MoE, MLA, recurrent, cross-attention, "
-            f"encoder-decoder and frontends arrive with later slices of "
-            f"the port)"
+            f"stacks of global and sliding-window attention, MLA and "
+            f"fine-grained MoE blocks, and RWKV-6 stacks; recurrent, "
+            f"cross-attention, encoder-decoder and frontends arrive with "
+            f"later slices of the port)"
         )
 
 

@@ -1,13 +1,16 @@
 """Per-layer blocks on PyTorch: the dense self-attention block (global, or
-in a sliding window with a ring-buffer cache) and the RWKV-6 block
-(time-mix + channel-mix).
+in a sliding window with a ring-buffer cache), DeepSeek-V2's multi-head
+latent attention (MLA), the dense and the fine-grained MoE FFN, and the
+RWKV-6 block (time-mix + channel-mix).
 
 Ported from ``repro.models.blocks`` (``RunState``, ``mixer_of``/``ffn_of``,
-the dense FFN, the self-attention mixer and the RWKV-6 time-mix and
-channel-mix).  The other layer kinds of the reference (MoE, MLA,
-cross-attention, RG-LRU, the whisper encoder/decoder layers) belong to
-later slices: :func:`repro_torch.models.base.check_supported` refuses their
-configs.  The RWKV-6 time-mix runs its prefill scan through K6
+the dense FFN, the MoE FFN in its capacity-buffer form, the self-attention
+and MLA mixers, and the RWKV-6 time-mix and channel-mix).  The other layer
+kinds of the reference (cross-attention, RG-LRU, the whisper
+encoder/decoder layers) and the expert-parallel MoE under a mesh
+(``_apply_moe_sharded``) belong to later slices:
+:func:`repro_torch.models.base.check_supported` refuses their configs.  The
+RWKV-6 time-mix runs its prefill scan through K6
 (:func:`repro_torch.kernels.wkv6.wkv6_chunked`); the reference's
 ``_wkv_intra_subchunked`` (an XLA form selected by ``subchunk > 0``) is not
 ported, since K6 replaces both of the reference's XLA forms on the card.
@@ -23,10 +26,18 @@ place where JAX returns new arrays:
     per batch row, ``(B, slots)``, so every row of a batched decode step
     masks by its own position ``t[r]``.  The reference keeps one ``(slots,)``
     vector per B-row cache and vmaps over rows to get the same effect.
+    MLA's cache (``ckv``, ``kr``) has no ``pos``: a row's positions up to
+    its own ``t[r]`` are valid.
+
+The reference's vmapped lane step also routes each row's token through an
+MoE FFN as a call of its own; :class:`RunState` ``row_calls`` says so here,
+where the rows run as one batch (:func:`moe_route`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +48,10 @@ from . import layers as L
 
 __all__ = [
     "RunState", "mixer_of", "ffn_of", "schema_ffn", "apply_ffn",
-    "schema_attn", "cache_attn", "apply_attn", "schema_rwkv", "cache_rwkv",
-    "apply_rwkv_tm", "apply_rwkv_cm",
+    "schema_moe", "moe_capacity", "Route", "moe_route", "apply_moe",
+    "schema_attn", "cache_attn", "apply_attn", "schema_mla", "cache_mla",
+    "apply_mla", "schema_rwkv", "cache_rwkv", "apply_rwkv_tm",
+    "apply_rwkv_cm",
 ]
 
 
@@ -49,6 +62,10 @@ class RunState:
     # (B,) tensor of per-row positions (the batched decode lane).
     t: int | torch.Tensor | None = None
     write_cache: bool = False       # prefill: write caches in full mode
+    # MoE routing: each batch row is a call of its own, with its own
+    # capacity (the decode lane's rows, which the reference vmaps); else
+    # the whole batch is one call.
+    row_calls: bool = False
 
 
 def mixer_of(kind: str) -> str:
@@ -84,6 +101,110 @@ def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = L.act_fn("gelu")(torch.matmul(x, p["wi_up"]))
         return torch.matmul(h, p["wo"])
     return L.gated_mlp(x, p["wi_gate"], p["wi_up"], p["wo"], cfg.act)
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN (fine-grained routed experts + shared experts)
+# ---------------------------------------------------------------------------
+
+
+def schema_moe(cfg: ModelConfig) -> dict:
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.n_routed
+    sch = {
+        "router": ParamDef((d, e), scale=0.02),
+        "wg": ParamDef((e, d, f)),
+        "wu": ParamDef((e, d, f)),
+        "wd": ParamDef((e, f, d)),
+    }
+    if m.n_shared:
+        sch["shared"] = schema_ffn(cfg, d_ff=m.n_shared * f)
+    return sch
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for one call of ``n_tokens`` tokens."""
+    m = cfg.moe
+    c = math.ceil(n_tokens * m.top_k * m.capacity_factor / m.n_routed)
+    return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
+
+
+class Route(NamedTuple):
+    """Where each of T tokens' top-k assignments goes (token-major: token,
+    then rank within its top-k)."""
+
+    probs: torch.Tensor     # (T, E) fp32 router softmax
+    top_p: torch.Tensor     # (T, k) fp32, descending
+    top_i: torch.Tensor     # (T, k) expert ids
+    keep: torch.Tensor      # (T*k,) bool: False = dropped (over capacity)
+    slot: torch.Tensor      # (T*k,) slot in the expert's buffer (C-1 if dropped)
+    capacity: int           # C: the buffer's slots per expert
+
+
+def moe_route(p, xf: torch.Tensor, cfg: ModelConfig, calls: int = 1) -> Route:
+    """Route ``xf`` (T, d), ``calls`` equal calls of T / calls tokens each.
+
+    The router product, softmax and top-k are fp32.  An assignment's rank
+    in its expert is its place in token-major order within its call; it is
+    dropped when that rank reaches ``moe_capacity`` of the call's tokens.
+    With one call the rank is its slot (``_apply_moe_dense``).  With more,
+    each call routes as if alone and the kept assignments of all calls
+    share one buffer, slotted in token-major order: no call's routing
+    depends on another's."""
+    m = cfg.moe
+    T = xf.shape[0]
+    logits = torch.matmul(xf.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, m.top_k, dim=-1)     # (T, k) descending
+    if m.norm_topk:
+        top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    e_flat = top_i.reshape(-1)
+    onehot = F.one_hot(e_flat, m.n_routed)                # (T*k, E)
+    per_call = T // calls
+    C = moe_capacity(per_call, cfg)
+    rank = torch.cumsum(onehot.reshape(calls, -1, m.n_routed), dim=1)
+    pos = torch.gather(rank.reshape(T * m.top_k, m.n_routed), 1,
+                       e_flat[:, None])[:, 0] - 1
+    keep = pos < C
+    if calls > 1:
+        kept = torch.cumsum(onehot * keep[:, None], dim=0)
+        pos = torch.gather(kept, 1, e_flat[:, None])[:, 0] - 1
+        C = min(T, calls * C)
+    slot = torch.where(keep, pos, C - 1)
+    return Route(probs, top_p, top_i, keep, slot, C)
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
+              row_calls: bool = False) -> torch.Tensor:
+    """Capacity-buffer MoE (GShard-style scatter dispatch): x (B, S, d).
+
+    The whole batch routes as one call of B*S tokens, or with
+    ``row_calls`` each row as a call of S tokens (:func:`moe_route`).
+    Kept assignments are scattered into an ``(E, C, d)`` buffer; dropped
+    ones are zeroed first and add nothing, to the output or its gradient.
+    The three expert products run over the buffer in ``x.dtype``; each
+    token's outputs are weighted by its top-k probabilities cast to that
+    type and summed over k, and the shared experts (one FFN of width
+    ``n_shared * d_ff_expert``) are added."""
+    m = cfg.moe
+    B_, S, d = x.shape
+    T = B_ * S
+    xf = x.reshape(T, d)
+    r = moe_route(p, xf, cfg, calls=B_ if row_calls else 1)
+    e_flat = r.top_i.reshape(-1)
+    keep = r.keep[:, None].to(xf.dtype)
+    tok = torch.arange(T, device=x.device).repeat_interleave(m.top_k)
+    buf = xf.new_zeros((m.n_routed, r.capacity, d)).index_put(
+        (e_flat, r.slot), xf[tok] * keep, accumulate=True)
+    g = L.act_fn(cfg.act)(torch.bmm(buf, p["wg"]))
+    u = torch.bmm(buf, p["wu"])
+    out_buf = torch.bmm(g * u, p["wd"])                    # (E, C, d)
+    picked = out_buf[e_flat, r.slot] * keep
+    w = r.top_p.reshape(-1).to(xf.dtype)
+    y = torch.sum((picked * w[:, None]).reshape(T, m.top_k, d), dim=1)
+    if m.n_shared:
+        y = y + apply_ffn(p["shared"], xf, cfg)
+    return y.reshape(B_, S, d)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +324,109 @@ def apply_attn(
             new_cache = cache
 
     out = torch.einsum("bshk,hkd->bsd", o.to(h.dtype), p["wo"])
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA mixer (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def schema_mla(cfg: ModelConfig) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    a = cfg.mla
+    return {
+        "wq": ParamDef((d, H, a.qk_nope + a.qk_rope)),
+        "w_dkv": ParamDef((d, a.kv_lora)),
+        "w_kr": ParamDef((d, a.qk_rope)),
+        "kv_norm": ParamDef((a.kv_lora,), init="zeros"),
+        "w_uk": ParamDef((a.kv_lora, H, a.qk_nope)),
+        "w_uv": ParamDef((a.kv_lora, H, a.v_head)),
+        "wo": ParamDef((H, a.v_head, d), scale=0.02),
+    }
+
+
+def cache_mla(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The compressed KV cache: the normed latent ``ckv`` and the roped key
+    ``kr`` of each position (no ``pos``, no ring)."""
+    a = cfg.mla
+    return {
+        "ckv": ParamDef((batch, max_len, a.kv_lora), init="zeros"),
+        "kr": ParamDef((batch, max_len, a.qk_rope), init="zeros"),
+    }
+
+
+def apply_mla(
+    p, h: torch.Tensor, cfg: ModelConfig, rs: RunState, cache: dict | None
+) -> tuple[torch.Tensor, dict | None]:
+    """MLA: the full (decompressed) form for training and prefill; the
+    *absorbed* form for decode, whose cache holds only ``(c_kv, k_rope)``
+    per position and folds ``W_uk`` / ``W_uv`` into the score and output
+    products (scores, softmax and the latent context in fp32).  Decode
+    positions may differ per row (``t`` of shape (B,))."""
+    a = cfg.mla
+    B_ = h.shape[0]
+    H = cfg.n_heads
+    scale = (a.qk_nope + a.qk_rope) ** -0.5
+
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    q_nope, q_rope = q[..., : a.qk_nope], q[..., a.qk_nope :]
+
+    if rs.mode == "decode":
+        t = _row_positions(rs.t, B_, h.device)
+        q_rope = L.rope(q_rope, t[:, None], cfg.rope_theta)
+        ckv_new = L.rms_norm(torch.matmul(h, p["w_dkv"]), p["kv_norm"])
+        kr_new = L.rope(torch.matmul(h, p["w_kr"])[:, :, None], t[:, None],
+                        cfg.rope_theta)[:, :, 0]
+        ckv, kr = cache["ckv"], cache["kr"]
+        rows = torch.arange(B_, device=h.device)
+        ckv[rows, t] = ckv_new[:, 0].to(ckv.dtype)
+        kr[rows, t] = kr_new[:, 0].to(kr.dtype)
+        # absorbed scores: q_eff = q_nope @ W_uk -> (B, H, lora)
+        q_eff = torch.einsum("bshk,lhk->bhl", q_nope, p["w_uk"])
+        ckv32 = ckv.float()
+        s = torch.einsum("bhl,btl->bht", q_eff.float(), ckv32)
+        s = s + torch.einsum("bshr,btr->bht", q_rope.float(), kr.float())
+        s = s * scale
+        valid = (torch.arange(ckv.shape[1], device=h.device)[None]
+                 <= t[:, None])
+        s = s.masked_fill(~valid[:, None, :], float("-inf"))
+        w = torch.softmax(s, dim=-1)
+        ctx_l = torch.einsum("bht,btl->bhl", w, ckv32)        # (B, H, lora)
+        # absorbed V up-projection, fp32 (the reference's product promotes)
+        o = torch.einsum("bhl,lhv->bhv", ctx_l, p["w_uv"].float())
+        o = o[:, None].to(h.dtype)                            # (B, 1, H, v)
+        new_cache = cache
+    else:
+        S = h.shape[1]
+        positions = torch.arange(S, device=h.device)[None]
+        q_rope = L.rope(q_rope, positions, cfg.rope_theta)
+        ckv = L.rms_norm(torch.matmul(h, p["w_dkv"]), p["kv_norm"])
+        kr = L.rope(torch.matmul(h, p["w_kr"])[:, :, None], positions,
+                    cfg.rope_theta)
+        k_nope = torch.einsum("bsl,lhk->bshk", ckv, p["w_uk"])
+        v = torch.einsum("bsl,lhv->bshv", ckv, p["w_uv"])
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        kf = torch.cat([k_nope, kr.expand(B_, S, H, a.qk_rope)], dim=-1)
+        pad = a.qk_nope + a.qk_rope - a.v_head
+        vp = F.pad(v, (0, pad)) if pad else v
+        o = L.attention(
+            qf, kf, vp, causal=True, logit_cap=None, scale=scale,
+            dense_max_seq=cfg.dense_attn_max_seq, block_kv=cfg.flash_block_kv,
+        )[..., : a.v_head]
+        new_cache = None
+        if cache is not None and rs.write_cache:
+            if S > cache["ckv"].shape[1]:
+                raise ValueError(f"prefill of {S} positions exceeds the "
+                                 f"cache's {cache['ckv'].shape[1]}")
+            # the reference writes zeros_like(cache) with the prompt's
+            # positions set: positions past S are emptied too
+            for name, x in (("ckv", ckv), ("kr", kr[:, :, 0])):
+                cache[name][:, :S] = x.to(cache[name].dtype)
+                cache[name][:, S:] = 0
+            new_cache = cache
+
+    out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
     return out, new_cache
 
 

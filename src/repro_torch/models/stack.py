@@ -1,8 +1,10 @@
 """Layer-stack assembly on PyTorch: schema and apply for a full model.
 
-Ported from ``repro.models.stack`` for dense attention stacks (layer kinds
-``attn`` / ``global`` and ``local``, the sliding-window kind, in any
-prefix, block pattern and suffix) and RWKV-6 stacks (``("rwkv",)``).  A
+Ported from ``repro.models.stack`` for attention stacks (layer kinds
+``attn`` / ``global`` and ``local``, the sliding-window kind, ``mla``,
+and ``attn_moe`` / ``mla_moe`` with an MoE FFN, in any prefix, block
+pattern and suffix; prefix layers of an MoE config take the dense FFN
+width ``moe.first_dense_ff``) and RWKV-6 stacks (``("rwkv",)``).  A
 model is: token embedding -> its layers -> final norm -> LM head.  The
 reference runs prefix layers, a scan over ``n_groups`` stacked copies of
 the block pattern, then suffix layers; here ``params["blocks"]`` and
@@ -33,11 +35,14 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
-def block_schema(cfg: ModelConfig, kind: str = "attn") -> dict:
+def block_schema(cfg: ModelConfig, kind: str = "attn",
+                 d_ff_override: int | None = None) -> dict:
     mix = B.mixer_of(kind)
     sch = {"norm1": ParamDef((cfg.d_model,), init="zeros")}
     if mix in ("attn", "global", "local"):
         sch["mix"] = B.schema_attn(cfg)
+    elif mix == "mla":
+        sch["mix"] = B.schema_mla(cfg)
     elif mix == "rwkv":
         rw = B.schema_rwkv(cfg)
         sch["mix"] = rw["tm"]
@@ -49,7 +54,10 @@ def block_schema(cfg: ModelConfig, kind: str = "attn") -> dict:
     else:
         if not cfg.parallel_block:
             sch["norm2"] = ParamDef((cfg.d_model,), init="zeros")
-        sch["ffn"] = B.schema_ffn(cfg)
+        if B.ffn_of(kind) == "moe":
+            sch["ffn"] = B.schema_moe(cfg)
+        else:
+            sch["ffn"] = B.schema_ffn(cfg, d_ff=d_ff_override)
     if cfg.post_norm:
         sch["post_norm1"] = ParamDef((cfg.d_model,), init="zeros")
         sch["post_norm2"] = ParamDef((cfg.d_model,), init="zeros")
@@ -63,9 +71,15 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int,
         return B.cache_attn(cfg, batch, max_len)
     if mix == "local":
         return B.cache_attn(cfg, batch, max_len, cfg.sliding_window)
+    if mix == "mla":
+        return B.cache_mla(cfg, batch, max_len)
     if mix == "rwkv":
         return B.cache_rwkv(cfg, batch)
     raise ValueError(f"unknown mixer kind {kind!r}")
+
+
+def _prefix_ff(cfg: ModelConfig) -> int | None:
+    return cfg.moe.first_dense_ff if (cfg.moe and cfg.moe.first_dense_ff) else None
 
 
 def model_schema(cfg: ModelConfig) -> dict:
@@ -75,7 +89,12 @@ def model_schema(cfg: ModelConfig) -> dict:
     sch["final_norm"] = ParamDef((cfg.d_model,), init="zeros")
     if not cfg.tie_embeddings:
         sch["head"] = ParamDef((cfg.d_model, cfg.vocab), scale=0.02)
-    sch["blocks"] = [block_schema(cfg, kind) for kind in cfg.layer_kinds()]
+    n_prefix = len(cfg.prefix_pattern)
+    sch["blocks"] = [
+        block_schema(cfg, kind,
+                     d_ff_override=_prefix_ff(cfg) if i < n_prefix else None)
+        for i, kind in enumerate(cfg.layer_kinds())
+    ]
     return sch
 
 
@@ -94,12 +113,14 @@ def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
                 rs: B.RunState, cache):
     """The attention mixer of layer kind ``kind``: ``attn`` / ``global``
     attend to every earlier position, ``local`` to the last
-    ``cfg.sliding_window``."""
+    ``cfg.sliding_window``, ``mla`` through its latent KV."""
     mix = B.mixer_of(kind)
     if mix in ("attn", "global"):
         return B.apply_attn(p, h, cfg, rs, cache, window=None)
     if mix == "local":
         return B.apply_attn(p, h, cfg, rs, cache, window=cfg.sliding_window)
+    if mix == "mla":
+        return B.apply_mla(p, h, cfg, rs, cache)
     raise ValueError(f"unknown mixer kind {kind!r}")
 
 
@@ -127,7 +148,11 @@ def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
     if cfg.post_norm:
         a = L.norm(a, p["post_norm1"], cfg.norm)
     h = h + a
-    fo = B.apply_ffn(p["ffn"], L.norm(h, p["norm2"], cfg.norm), cfg)
+    n2 = L.norm(h, p["norm2"], cfg.norm)
+    if B.ffn_of(kind) == "moe":
+        fo = B.apply_moe(p["ffn"], n2, cfg, row_calls=rs.row_calls)
+    else:
+        fo = B.apply_ffn(p["ffn"], n2, cfg)
     if cfg.post_norm:
         fo = L.norm(fo, p["post_norm2"], cfg.norm)
     return h + fo, cache

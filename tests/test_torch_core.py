@@ -252,6 +252,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.configs.phi3_mini_3p8b" in mods
     assert {"repro_torch.configs.command_r_35b",
             "repro_torch.configs.gemma2_27b"} <= set(mods)
+    assert {"repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.configs.deepseek_v2_lite_16b"} <= set(mods)
     assert {"repro_torch.checkpoint.manager", "repro_torch.runtime.async_engine",
             "repro_torch.runtime.wire", "repro_torch.launch.server",
             "repro_torch.launch.client"} <= set(mods)

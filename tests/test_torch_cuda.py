@@ -584,6 +584,41 @@ def test_rwkv_smoke_model_on_card_equals_cpu(rng, cuda):
         close(lg, lc)
 
 
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_lite_16b"])
+def test_moe_smoke_model_on_card_equals_cpu(rng, cuda, arch):
+    """The MoE smoke models (fp32; fine-grained MoE FFNs, and MLA for
+    deepseek_v2_lite_16b) on the card against the same weights on the
+    CPU: forward logits within 1e-4 * max, then a prefill and three decode
+    steps of 3 rows, both sides fed the CPU's greedy tokens, logits within
+    1e-4 * max at every step; no kernel launched (K3 belongs to the decode
+    lane)."""
+    cfg = get_smoke_config(arch)
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    card = Model(cfg, "cuda")
+    params_c = copy.deepcopy(params).to(cuda)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 12)))
+
+    def close(got, want):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+    before = grouped_row_gemm.launches
+    with torch.no_grad():
+        close(stack.forward(params_c, cfg, tokens.to(cuda))[0],
+              stack.forward(params, cfg, tokens)[0])
+        lc, cc = cpu.prefill(params, {"tokens": tokens}, 16)
+        lg, cg = card.prefill(params_c, {"tokens": tokens.to(cuda)}, 16)
+        close(lg, lc)
+        for t in range(12, 15):
+            tok = torch.argmax(lc[:, 0], -1)[:, None]
+            lc, cc = cpu.decode(params, tok, t, cc)
+            lg, cg = card.decode(params_c, tok.to(cuda), t, cg)
+            close(lg, lc)
+    torch.cuda.synchronize()
+    assert grouped_row_gemm.launches == before
+
+
 def test_train_step_on_card_equals_cpu(rng, cuda):
     """One train step of the deepseek_7b smoke model (fp32; 2 microbatches,
     remat, the flash scan at 64 positions with blocks of 16) on the card
@@ -684,7 +719,8 @@ def test_flash_attention_on_card_at_the_long_prompt_shape(cuda):
 
 K3_SHAPES = {"deepseek_7b": (4096, 102400), "phi3_mini_3p8b": (3072, 32064),
              "ragged_n999": (3000, 999), "ragged_n1000": (3000, 1000),
-             "ragged_k": (129, 131)}
+             "ragged_k": (129, 131), "deepseek_moe_16b": (2048, 102400),
+             "moe_ragged_n": (2048, 1001)}
 
 
 @pytest.mark.parametrize("h_dtype", [torch.bfloat16, torch.float32])

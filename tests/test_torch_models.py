@@ -201,7 +201,7 @@ def test_model_init_draws_reference_shapes():
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "moe"}, {"block_pattern": ("attn_moe",)},
+    {"block_pattern": ("cross",)}, {"block_pattern": ("attn_moe",)},
     {"block_pattern": ("mla",)}, {"block_pattern": ("rec", "rec", "local")},
 ])
 def test_unported_configs_raise(change):
@@ -212,16 +212,21 @@ def test_unported_configs_raise(change):
 
 def test_config_registry():
     assert get_config("deepseek_7b").d_model == 4096
-    # phi3_mini_3p8b is the reference's config, FULL and smoke
-    for port, ref in ((get_config, j_config), (get_smoke_config, j_smoke)):
-        tc, jc = port("phi3_mini_3p8b"), ref("phi3_mini_3p8b")
-        for f in dataclasses.fields(tc):
-            if f.name != "mole":
-                assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+    # phi3_mini_3p8b and the two MoE archs are the reference's configs,
+    # FULL and smoke (their MoECfg / MLACfg compared as dataclass fields)
+    for arch in ("phi3_mini_3p8b", "deepseek_moe_16b", "deepseek_v2_lite_16b"):
+        for port, ref in ((get_config, j_config), (get_smoke_config, j_smoke)):
+            tc, jc = port(arch), ref(arch)
+            for f in dataclasses.fields(tc):
+                if f.name in ("moe", "mla") and getattr(jc, f.name) is not None:
+                    assert (dataclasses.asdict(getattr(tc, f.name))
+                            == dataclasses.asdict(getattr(jc, f.name))), f.name
+                elif f.name != "mole":
+                    assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     full = get_config("phi3_mini_3p8b")
     assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
             full.vocab) == (32, 3072, 32, 96, 32064)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("deepseek_moe_16b")
+        get_config("recurrentgemma_2b")
     with pytest.raises(NotImplementedError, match="unknown or not ported"):
         get_smoke_config("no_such_arch")

@@ -380,10 +380,22 @@ def _shape_of(out: str) -> list[str]:
     return [re.sub(r"-?\d+(\.\d+)?", "#", line) for line in out.splitlines()]
 
 
-def test_train_main_prints_the_reference_format(tmp_path, capsys):
+def test_train_main_prints_the_reference_format(tmp_path, capsys,
+                                                monkeypatch):
     """The same flags through the reference's driver and the port's: the
     same lines with the numbers taken out, and the same header and
-    fault-tolerance lines word for word."""
+    fault-tolerance lines word for word.  The reference's loop reads the
+    latest checkpoint at a failure without joining its asynchronous writer,
+    so on a loaded machine it can restart clean where the step-2
+    checkpoint is still being written (``ROADMAP.md``, Queue 3); its saves
+    are joined here, so that both packages restore that checkpoint."""
+    save = JManager.save
+
+    def joined(self, *args, **kwargs):
+        save(self, *args, **kwargs)
+        self.wait()
+
+    monkeypatch.setattr(JManager, "save", joined)
     argv = ["--arch", ARCH, "--smoke", "--mole", "token", "--seq-len", "32",
             "--batch", "4", "--steps", "6", "--ckpt-every", "2",
             "--inject-failures", "3", "--log-every", "2"]
@@ -427,7 +439,7 @@ def test_train_main_gemma2_runs_as_the_reference_driver(tmp_path, capsys):
 @pytest.mark.parametrize("extra,match", [
     (["--arch", "rwkv6_3b"], "wkv6"),
     (["--arch", ARCH, "--mole", "embedding"], "frontend"),
-    (["--arch", "deepseek_moe_16b"], "not ported"),
+    (["--arch", "whisper_tiny"], "not ported"),
 ], ids=["rwkv6_3b", "mole_embedding", "unported_arch"])
 def test_train_main_refuses_what_the_port_does_not_train(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):

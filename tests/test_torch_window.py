@@ -11,7 +11,7 @@ floor of 1e-5 times the array's largest magnitude (as in
 ``test_torch_models.py``).  A whole model's logits over a run of 12 and
 more decode steps are held within 1e-5, or within four times the
 reference's own departure from a float64 evaluation of the same model where
-that is larger (:func:`_hold_model`): at the gemma2 smoke config the
+that is larger (:func:`_lm_parity.hold_model`): at the gemma2 smoke config the
 reference departs from it by up to 1.0e-5 of max|logit| (3.2e-5 through the
 flash scan), and the port as far, so two fp32 summation orders cannot be
 held to 1e-5 at every step; at command_r's the bound stays 1e-5.  The gemma2 smoke window is 8 positions, so prompts
@@ -35,13 +35,10 @@ from repro.models.api import Model as JModel  # noqa: E402
 import repro_torch.core.lm as tlm  # noqa: E402
 import repro_torch.runtime as trt  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.launch.steps import (  # noqa: E402
-    make_decode_step, make_prefill_step,
-)
 from repro_torch.models import (  # noqa: E402
     Model, blocks as tB, params_from_jax, stack as tS,
 )
-from _lm_parity import ref_layers  # noqa: E402
+from _lm_parity import hold_model  # noqa: E402
 
 RTOL = 1e-5
 ARCHS = ["gemma2_27b", "command_r_35b"]
@@ -192,81 +189,11 @@ def test_global_prefill_past_the_cache_raises():
         (1, 8), (1, 10)] * cfg.n_groups
 
 
-def _logit_runs(model, params, tokens, jtokens, max_len):
-    """The logits of ``forward``, ``prefill`` and one teacher-forced decode
-    step per entry of ``jtokens`` through the per-tenant serving steps, and
-    the caches after the last step."""
-    S = tokens.shape[1]
-    prefill, decode = make_prefill_step(model), make_decode_step(model)
-    out = [tS.forward(params, model.cfg, _t(tokens))[0]]
-    lg, caches = prefill(params, {"tokens": _t(tokens)},
-                         model.init_cache(tokens.shape[0], max_len))
-    out.append(lg)
-    for i, tok in enumerate(jtokens):
-        lg, caches = decode(params, _t(tok), S + i, caches)
-        out.append(lg)
-    return [o.double().numpy() for o in out], caches
-
-
-def _hold_model(cfg, jcfg, tokens, n_decode: int, seed: int = 0,
-                tol: float | None = None):
-    """``forward``, ``prefill`` and ``n_decode`` decode steps of the port's
-    per-tenant serving steps, teacher forced with the reference's greedy
-    tokens, against the reference's: the logits of every call within
-    ``tol`` of max|logit|, and the caches (K/V and the position each slot
-    holds) after the last step.
-
-    ``tol``, unless given, is RTOL, or four times the reference's own largest departure in
-    the run from the same model evaluated with float64 products (the port
-    with ``dtype="float64"``; its norms, RoPE angles and attention scores
-    stay in fp32, as the reference's do) where that is larger: two fp32
-    summation orders agree no closer than each of them is to that
-    evaluation, and a port held so departs from it at most five times as
-    far as the reference.  It is returned, and must stay under 2e-4."""
-    jm = JModel(jcfg)
-    jparams = jm.init(jax.random.key(seed))
-    np_params = jax.tree.map(np.asarray, jparams)
-    B, S = tokens.shape
-    max_len = S + n_decode + 1
-    want = [jS.forward(jparams, jcfg, jnp.asarray(tokens))[0]]
-    jlog, jc = jm.prefill(jparams, {"tokens": jnp.asarray(tokens)}, max_len)
-    want.append(jlog)
-    jtokens = []
-    for i in range(n_decode):
-        jtokens.append(np.asarray(jnp.argmax(jlog[:, 0], -1), np.int32)[:, None])
-        jlog, jc = jm.decode(jparams, jnp.asarray(jtokens[-1]),
-                             jnp.asarray(S + i), jc)
-        want.append(jlog)
-    want = [np.asarray(w, np.float64) for w in want]
-
-    if tol is None:
-        c64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
-        exact, _ = _logit_runs(
-            Model(c64, "cpu"),
-            params_from_jax(jax.tree.map(lambda a: a.astype(np.float64),
-                                         np_params), c64, "cpu"),
-            tokens, jtokens, max_len)
-        tol = max([RTOL] + [4 * np.abs(w - e).max() / np.abs(e).max()
-                            for w, e in zip(want, exact)])
-    assert tol < 2e-4, tol
-    tparams = params_from_jax(np_params, cfg, "cpu")
-    assert len(tparams["blocks"]) == cfg.n_layers
-    got, tc = _logit_runs(Model(cfg, "cpu"), tparams, tokens, jtokens,
-                          max_len)
-    for g, w in zip(got, want):
-        _close(g, w, tol)
-    for c, jb in zip(tc["blocks"], ref_layers(jc, jcfg)):
-        for name in ("k", "v"):
-            _close(c[name], jb[name], tol)
-        assert (c["pos"] == _t(jb["pos"])[None]).all()
-    return tc, tol
-
-
 @pytest.mark.parametrize("attention", ["dense", "flash"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_prefill_and_decode_match_reference(rng, arch, attention):
     """Forward, prefill and 13 decode steps of the whole smoke model against
-    ``repro.models.stack`` / ``repro.models.api.Model`` (:func:`_hold_model`):
+    ``repro.models.stack`` / ``repro.models.api.Model`` (:func:`_lm_parity.hold_model`):
     a 12-token prompt (dense attention), or 32 tokens with
     ``dense_attn_max_seq`` 16 and KV blocks of 16 (the flash scan); both
     past gemma2's window of 8, so every local layer's ring wraps in the
@@ -275,7 +202,7 @@ def test_model_prefill_and_decode_match_reference(rng, arch, attention):
     cfg, jcfg = _both(arch, **change)
     S = 32 if attention == "flash" else 12
     tokens = rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)
-    tc, _ = _hold_model(cfg, jcfg, tokens, n_decode=13,
+    tc, _ = hold_model(cfg, jcfg, tokens, n_decode=13,
                         tol=RTOL if arch == "command_r_35b" else None)
     for c, kind in zip(tc["blocks"], cfg.layer_kinds()):
         if kind == "local":
@@ -293,7 +220,7 @@ def test_prefix_and_suffix_layers_match_reference(rng):
     assert cfg.layer_kinds() == ["attn", "attn", "attn", "local"]
     assert Model(cfg, "cpu").param_count() == JModel(jcfg).param_count()
     tokens = rng.integers(0, cfg.vocab, (2, 10)).astype(np.int32)
-    tc, _ = _hold_model(cfg, jcfg, tokens, n_decode=12, seed=3)
+    tc, _ = hold_model(cfg, jcfg, tokens, n_decode=12, seed=3)
     assert tuple(tc["blocks"][-1]["k"].shape[:2]) == (2, 8)
 
 

@@ -7,6 +7,7 @@ power limit.
     python3 tools/train_probe.py train_resume_path    # launch/train.py
     python3 tools/train_probe.py kernels_k3 gemma2_path command_r_path \
         gemma2_train                                  # vocab 256000
+    python3 tools/train_probe.py moe_path mla_path mla_train   # MoE, MLA
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -39,6 +40,15 @@ PHASES = {
     "gemma2_train": lambda dev, kernels: cs.train_path(
         dev, kernels, phase="gemma2_train", arch=cs.GEMMA2_ARCH,
         peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.GEMMA2_TRAIN),
+    "moe_path": lambda dev, kernels: cs.lm_path(
+        dev, kernels, phase="moe_path", arch=cs.MOE_ARCH,
+        prompt_len=cs.MOE_PROMPT),
+    "mla_path": lambda dev, kernels: cs.lm_path(
+        dev, kernels, phase="mla_path", arch=cs.MLA_ARCH,
+        prompt_len=cs.MLA_PROMPT),
+    "mla_train": lambda dev, kernels: cs.train_path(
+        dev, kernels, phase="mla_train", arch=cs.MLA_ARCH,
+        peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.MLA_TRAIN),
 }
 
 
