@@ -573,6 +573,20 @@ K3_MOE = (4, 2048, 102400)      # K3 at their decode shape
 # 16 B a parameter; 4 sequences of 2048 in 2 microbatches (capacity 480
 # a microbatch).
 MLA_TRAIN = dict(groups=2, seq=2048, global_batch=4, micro=2)
+# recurrentgemma_path: recurrentgemma_2b at its published width and depth,
+# 26 layers (8 groups of rec, rec, local and a rec, rec suffix), d 2560, 10
+# query heads of 256 over one KV head, RG-LRU width 2560 (16 gate blocks,
+# conv width 4), d_ff 7680 GeGLU, vocab 256000, tied and scaled
+# embeddings, bf16: 2.673 B parameters, 5.35 GB, beside two 4-slot stacks
+# of 5.24 GB (AugE and its transpose) and 67 MB of rings (8 local layers x
+# 4 rows x 2048 slots x 256 x K and V x 2 B): about 16 GB before
+# activations.  Prompts of 4096 are past the 2048 window (every local ring
+# wraps in the prefill) and past dense_attn_max_seq (the flash scan runs
+# with its window: 8 Q blocks of 512 by 4 KV blocks of 1024, those wholly
+# before a block's window skipped); the model was trained at 8192.  The
+# twin is 2 groups and the suffix (8 layers).
+RG_ARCH, RG_PROMPT, RG_TWIN_GROUPS = "recurrentgemma_2b", 4096, 2
+K3_RG = (4, 2560, 256000)       # K3 at its decode shape: 5.24 GB of tables
 
 
 def bf16_ulp(x: float) -> float:
@@ -1083,7 +1097,9 @@ def k3_vocab_row(kernels, ref, gen, R: int, K: int, N: int) -> dict:
 def k3_checks(dev, kernels, ref) -> dict:
     """K3 vs its plain version at the LM paths' shapes (deepseek_7b, then
     phi3_mini_3p8b as ``row_phi3``, the MoE archs' (4, 2048, 102400) as
-    ``row_moe``) and ragged shapes, every slot pattern,
+    ``row_moe``, the vocab-256000 shapes of command_r, gemma2 and
+    recurrentgemma as ``row_command_r`` / ``row_gemma2`` /
+    ``row_recurrentgemma``) and ragged shapes, every slot pattern,
     both table dtypes and both h dtypes, two calls the same bits; the timing
     rows.  Returns the deepseek row on bf16 tables (the main path's stacks), its
     fp32-table figures beside it."""
@@ -1109,11 +1125,13 @@ def k3_checks(dev, kernels, ref) -> dict:
     err_moe = k3_cases(kernels, ref, gen, f"moe_R{R}_K{K}_N{N}", R, K, N,
                        checks)
     moe = k3_timed(gemm, kernels, ref, gen, R, K, N)
+    recurrentgemma = k3_vocab_row(kernels, ref, gen, *K3_RG)
     emit({"phase": "kernels_k3", "checks": len(checks),
           "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
           "row": row, "row_phi3": dict(phi3, max_abs_err=err_phi3),
           "row_command_r": command_r, "row_gemma2": gemma2,
-          "row_moe": dict(moe, max_abs_err=err_moe)})
+          "row_moe": dict(moe, max_abs_err=err_moe),
+          "row_recurrentgemma": recurrentgemma})
     return row
 
 
@@ -1633,19 +1651,23 @@ def k6_against_recurrence(captured) -> dict:
 def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
             requests: int = LM_REQUESTS, gen: int = LM_GEN,
             ctx: dict | None = None, flash_shape: bool = False,
-            groups: int | None = None) -> dict:
+            groups: int | None = None,
+            twin_groups: int | None = None) -> dict:
     """``serve --mode lm`` at ``arch`` FULL, ``requests`` prompts of
     ``prompt_len`` tokens, ``gen`` generated each: the token lane, then the
     continuous-batched decode lane; gated checks and a time breakdown.
     For an RWKV stack also: K6 launched once per layer per admission
     prefill, K6 on one layer's captured operands against the token
     recurrence, and the twin's plain forward through that recurrence.  For
-    an attention stack: the flash scan called once per layer per admission
-    prefill when the prompt exceeds ``dense_attn_max_seq``, never
-    otherwise, in the twin's plain reference too (:func:`plain_gaps`).  ``flash_shape`` adds
+    a stack with attention layers (a hybrid's RG-LRU layers run no
+    attention): the flash scan called once per attention layer per
+    admission prefill when the prompt exceeds ``dense_attn_max_seq``,
+    never otherwise, in the twin's plain reference too
+    (:func:`plain_gaps`).  ``flash_shape`` adds
     :func:`flash_checks`.  ``ctx``, if given, receives the weights, prompts
     and the lane's generations for a later phase.  ``groups`` cuts the
-    depth to that many scanned groups.  With tied embeddings the lane's
+    depth to that many scanned groups; ``twin_groups`` sets the twin's
+    (its prefix and suffix layers kept).  With tied embeddings the lane's
     head stack is AugE^T and the raw head of check 4 is embed^T.  With a
     sliding window the twin also runs the window-live gate
     (:func:`window_live`).  The peak device memory is held at
@@ -1738,14 +1760,16 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
           f"{run['steps']} decode steps ({len(tap.records)} recorded)")
     check(scan.prefills == requests,
           f"{scan.prefills} admission prefills for {requests} requests")
-    # The chunked flash scan: once per layer per admission prefill above
-    # dense_attn_max_seq (the decode steps attend one position), else never.
-    flash_want = (cfg.n_layers * scan.prefills
-                  if not rwkv and prompt_len > cfg.dense_attn_max_seq else 0)
+    # The chunked flash scan: once per attention layer per admission prefill
+    # above dense_attn_max_seq (the decode steps attend one position), else
+    # never.
+    attn_layers = attention_layers(cfg)
+    long_prompt = prompt_len > cfg.dense_attn_max_seq
+    flash_want = attn_layers * scan.prefills if long_prompt else 0
     check(flash.calls == flash_want,
           f"check 2: the flash scan ran {flash.calls} times, expected "
-          f"{flash_want} ({cfg.n_layers} layers x {scan.prefills} prefills "
-          f"of {prompt_len} tokens, dense_attn_max_seq "
+          f"{flash_want} ({attn_layers} attention layers x {scan.prefills} "
+          f"prefills of {prompt_len} tokens, dense_attn_max_seq "
           f"{cfg.dense_attn_max_seq})")
     k6_want = cfg.n_layers * scan.prefills if rwkv else 0
     check(launches["wkv6_chunked"] == k6_want,
@@ -1825,18 +1849,22 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
     torch.cuda.empty_cache()
 
     # The twin: the same serving path on a depth-cut twin (2 layers, full
-    # width: one group of a 2-kind pattern), held against an independent
+    # width: one group of a 2-kind pattern, or ``twin_groups`` groups and
+    # the prefix and suffix layers), held against an independent
     # teacher-forced plain forward on the raw weights (for RWKV through the
     # token recurrence, not K6).  At full depth random bf16 layers amplify
     # rounding past the tie margin, so that comparison is made at 2.  The
     # twin's lane serves from the main lane's staged stacks (same registry
     # version: nothing is staged again).
-    fixed = len(cfg.prefix_pattern) + len(cfg.suffix_pattern)
-    cfg2 = dataclasses.replace(
-        cfg, n_groups=max(1, (2 - fixed) // len(cfg.block_pattern)))
+    n_pre, n_suf = len(cfg.prefix_pattern), len(cfg.suffix_pattern)
+    cfg2 = dataclasses.replace(cfg, n_groups=twin_groups or max(
+        1, (2 - n_pre - n_suf) // len(cfg.block_pattern)))
     model2 = Model(cfg2, dev)
     params2 = {k: params[k] for k in params.keys() if k != "blocks"}
-    params2["blocks"] = list(params["blocks"])[:cfg2.n_layers]
+    blocks = list(params["blocks"])
+    params2["blocks"] = (
+        blocks[:n_pre + cfg2.n_groups * len(cfg.block_pattern)]
+        + blocks[len(blocks) - n_suf:])
     lane2 = ContinuousDecodeLane(model2, params2, registry, rows=LM_TENANTS,
                                  max_len=max_len, device=dev)
     lane2._plan = plan
@@ -1848,7 +1876,8 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
                                       dev)
     # the plain reference prefills once (an MoE model: once a prompt)
     prefills2 = requests if cfg.moe is not None else 1
-    check(flash2.calls == (cfg2.n_layers * prefills2 if flash_want else 0),
+    check(flash2.calls == (attention_layers(cfg2) * prefills2
+                           if long_prompt else 0),
           f"the twin's plain reference ran the flash scan {flash2.calls} times")
     moe_layers2 = sum(k.endswith("_moe") for k in cfg2.layer_kinds())
     twin_routing = ({"lane": route2.summary(moe_layers2),
@@ -1856,7 +1885,8 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
                     if moe_layers2 else None)
     del route2, plain_route2
     check(bool((gap2 <= TIE_MARGIN_ULPS).all()),
-          f"check {6 if rwkv else 5}, twin (2 layers, plain reference): a "
+          f"check {6 if rwkv else 5}, twin ({cfg2.n_layers} layers, plain "
+          f"reference): a "
           f"generated token is "
           f"{gap2.max():.2f} bf16 ulps below the plain max "
           f"(margin {TIE_MARGIN_ULPS})")
@@ -1884,6 +1914,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         "k6_launches": launches["wkv6_chunked"],
         "dense_attn_max_seq": cfg.dense_attn_max_seq,
         "flash_block_kv": cfg.flash_block_kv,
+        "attention_layers": attn_layers,
         "flash_scan_calls": flash.calls,
         "lane_admission_prefill_ms": admission_ms,
         "lane_admission_prefill_p50_ms": float(np.median(admission_ms)),
@@ -1895,7 +1926,7 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         "tie_margin_ulps": TIE_MARGIN_ULPS,
         "lane_head_checks": heads,
         "decode_step_profile": prof,
-        "twin_2_layers": {"layers": cfg2.layer_kinds(),
+        "twin": {"layers": cfg2.layer_kinds(),
                           "decode_steps": run2["steps"],
                           "forward_worst_gap_ulps": float(gap2.max()),
                           "plain_reference": (
@@ -1938,6 +1969,14 @@ def lm_path(dev, kernels, *, phase: str, arch: str, prompt_len: int,
         )
     emit(out)
     return out
+
+
+def attention_layers(cfg) -> int:
+    """The layers whose mixer is attention (global, local or MLA)."""
+    from repro_torch.models import blocks as B
+
+    return sum(B.mixer_of(k) in ("attn", "global", "local", "mla")
+               for k in cfg.layer_kinds())
 
 
 def window_live(cfg, params, prompts, dev) -> dict:
@@ -3562,6 +3601,10 @@ def main() -> None:
         out = lm_path(dev, kernels, phase=phase, arch=arch, prompt_len=prompt)
         check(out["k3_launches"] > 0, f"{phase}: K3 was not launched")
         release()
+    out = lm_path(dev, kernels, phase="recurrentgemma_path", arch=RG_ARCH,
+                  prompt_len=RG_PROMPT, twin_groups=RG_TWIN_GROUPS)
+    check(out["k3_launches"] > 0, "recurrentgemma_path: K3 was not launched")
+    release()
     rows.update(k45_checks(dev, kernels, ref))
     release()
     vgg = vgg_path(dev, core, kernels)

@@ -1,8 +1,8 @@
 """Model API on PyTorch — what the serving steps and the decode lane use.
 
 Ported from ``repro.models.api`` for plain token LMs (attention stacks:
-global, sliding-window and MLA mixers with dense or MoE FFNs; and RWKV-6
-stacks).  ``Model(cfg, device)`` exposes:
+global, sliding-window and MLA mixers with dense or MoE FFNs;
+RecurrentGemma's RG-LRU / local-attention hybrid; and RWKV-6 stacks).  ``Model(cfg, device)`` exposes:
 
   schema() / init(generator) / param_count()
                                       — parameters as a :class:`ParamTree`
@@ -147,7 +147,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
     d)`` token-shift mixes and its ``(H, hd)`` bonus ``u`` included), then
     the suffix layers.  Nested leaves carry over by name: an MoE FFN's
     ``router`` / ``wg`` / ``wu`` / ``wd`` and its ``shared`` FFN, MLA's
-    seven weights.
+    seven weights, an RG-LRU mixer's ten (``w_y``, ``w_x``, ``conv_w``,
+    ``conv_b``, the block-diagonal gates ``gate_a`` / ``gate_x`` and their
+    biases, ``lam``, ``w_out``).
     """
     check_supported(cfg)
 

@@ -13,7 +13,8 @@ the reference's parameter dicts (``params["blocks"][i]["mix"]["wq"]``).
 
 The port runs attention stacks (global and sliding-window layers,
 DeepSeek-V2's multi-head latent attention, dense or fine-grained MoE
-FFNs) and RWKV-6 stacks: :func:`check_supported` raises
+FFNs), RecurrentGemma's hybrid of RG-LRU and local-attention layers, and
+RWKV-6 stacks: :func:`check_supported` raises
 ``NotImplementedError`` for every config that needs a block kind, mixer or
 frontend of a later slice.
 """
@@ -199,6 +200,7 @@ _ATTN_KINDS = ("attn", "global", "local")  # the dense self-attention kinds
 # the kinds of an MoE stack: global attention or MLA, each with a dense or
 # a fine-grained MoE FFN
 _MOE_KINDS = ("attn_moe", "mla", "mla_moe")
+_REC_KINDS = ("rec",)   # the RG-LRU mixer of a hybrid stack
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -208,9 +210,10 @@ def check_supported(cfg: ModelConfig) -> None:
     attention), ``local`` (attention in ``sliding_window``), ``mla``
     (multi-head latent attention, with an ``MLACfg``) and ``attn_moe`` /
     ``mla_moe`` (the same mixers with a fine-grained MoE FFN, with a
-    ``MoECfg``; a "moe" family has one); or an RWKV-6 stack
-    (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set, layernorm); no
-    frontend.  Nothing else is computed in its place."""
+    ``MoECfg``; a "moe" family has one); a ``family="hybrid"`` stack of
+    ``rec`` (RG-LRU, with an ``RnnCfg``) and the dense attention kinds; or
+    an RWKV-6 stack (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set,
+    layernorm); no frontend.  Nothing else is computed in its place."""
     rwkv = tuple(cfg.block_pattern) == ("rwkv",)
     later = []
     if rwkv:
@@ -224,32 +227,37 @@ def check_supported(cfg: ModelConfig) -> None:
             later.append("prefix/suffix layers beside rwkv blocks")
         if cfg.sliding_window is not None:
             later.append("sliding_window with rwkv blocks")
-        for name in ("moe", "mla"):
+        for name in ("moe", "mla", "rnn"):
             if getattr(cfg, name) is not None:
                 later.append(f"{name} with rwkv blocks")
     else:
         kinds = set(cfg.layer_kinds())
-        if cfg.family not in ("dense", "moe"):
+        hybrid = cfg.family == "hybrid"
+        if cfg.family not in ("dense", "moe", "hybrid"):
             later.append(f"family={cfg.family!r}")
         if cfg.family == "moe" and cfg.moe is None:
             later.append("family='moe' without a MoECfg")
-        unknown = sorted(kinds - set(_ATTN_KINDS) - set(_MOE_KINDS))
+        ported = _ATTN_KINDS + (_REC_KINDS if hybrid else _MOE_KINDS)
+        unknown = sorted(kinds - set(ported))
         if unknown:
             later.append(f"layer kinds {unknown}")
         if cfg.moe is None and any(k.endswith("_moe") for k in kinds):
             later.append("_moe layers without a MoECfg")
         if cfg.mla is None and kinds & {"mla", "mla_moe"}:
             later.append("mla layers without an MLACfg")
+        if cfg.rnn is None and "rec" in kinds:
+            later.append("rec layers without an RnnCfg")
+        if cfg.rnn is not None and not hybrid:
+            later.append("rnn")
         if cfg.rwkv is not None:
             later.append("rwkv")
-    for name in ("rnn", "frontend"):
-        if getattr(cfg, name) is not None:
-            later.append(name)
+    if cfg.frontend is not None:
+        later.append("frontend")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet (the port runs "
             f"stacks of global and sliding-window attention, MLA and "
-            f"fine-grained MoE blocks, and RWKV-6 stacks; recurrent, "
+            f"fine-grained MoE blocks, RG-LRU hybrids and RWKV-6 stacks; "
             f"cross-attention, encoder-decoder and frontends arrive with "
             f"later slices of the port)"
         )

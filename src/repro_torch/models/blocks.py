@@ -1,12 +1,13 @@
 """Per-layer blocks on PyTorch: the dense self-attention block (global, or
 in a sliding window with a ring-buffer cache), DeepSeek-V2's multi-head
-latent attention (MLA), the dense and the fine-grained MoE FFN, and the
-RWKV-6 block (time-mix + channel-mix).
+latent attention (MLA), the dense and the fine-grained MoE FFN, the
+RG-LRU recurrent mixer of RecurrentGemma (temporal conv + gated linear
+recurrence), and the RWKV-6 block (time-mix + channel-mix).
 
 Ported from ``repro.models.blocks`` (``RunState``, ``mixer_of``/``ffn_of``,
-the dense FFN, the MoE FFN in its capacity-buffer form, the self-attention
-and MLA mixers, and the RWKV-6 time-mix and channel-mix).  The other layer
-kinds of the reference (cross-attention, RG-LRU, the whisper
+the dense FFN, the MoE FFN in its capacity-buffer form, the self-attention,
+MLA and RG-LRU mixers, and the RWKV-6 time-mix and channel-mix).  The
+other layer kinds of the reference (cross-attention, the whisper
 encoder/decoder layers) and the expert-parallel MoE under a mesh
 (``_apply_moe_sharded``) belong to later slices:
 :func:`repro_torch.models.base.check_supported` refuses their configs.  The
@@ -27,7 +28,8 @@ place where JAX returns new arrays:
     masks by its own position ``t[r]``.  The reference keeps one ``(slots,)``
     vector per B-row cache and vmaps over rows to get the same effect.
     MLA's cache (``ckv``, ``kr``) has no ``pos``: a row's positions up to
-    its own ``t[r]`` are valid.
+    its own ``t[r]`` are valid.  An RG-LRU cache (``h``, ``conv``) is each
+    row's own recurrence and reads no position.
 
 The reference's vmapped lane step also routes each row's token through an
 MoE FFN as a call of its own; :class:`RunState` ``row_calls`` says so here,
@@ -50,8 +52,8 @@ __all__ = [
     "RunState", "mixer_of", "ffn_of", "schema_ffn", "apply_ffn",
     "schema_moe", "moe_capacity", "Route", "moe_route", "apply_moe",
     "schema_attn", "cache_attn", "apply_attn", "schema_mla", "cache_mla",
-    "apply_mla", "schema_rwkv", "cache_rwkv", "apply_rwkv_tm",
-    "apply_rwkv_cm",
+    "apply_mla", "schema_rec", "cache_rec", "apply_rec", "schema_rwkv",
+    "cache_rwkv", "apply_rwkv_tm", "apply_rwkv_cm",
 ]
 
 
@@ -427,6 +429,148 @@ def apply_mla(
             new_cache = cache
 
     out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent mixer (Griffin / RecurrentGemma)
+# ---------------------------------------------------------------------------
+
+
+def schema_rec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    r = cfg.rnn
+    dr = r.d_rnn or d
+    nb = 16  # block-diagonal gate blocks (RecurrentGemma-style)
+    bw = dr // nb
+    return {
+        "w_y": ParamDef((d, dr)),
+        "w_x": ParamDef((d, dr)),
+        "conv_w": ParamDef((r.conv_width, dr), scale=0.02),
+        "conv_b": ParamDef((dr,), init="zeros"),
+        "gate_a": ParamDef((nb, bw, bw)),
+        "gate_a_b": ParamDef((dr,), init="zeros"),
+        "gate_x": ParamDef((nb, bw, bw)),
+        "gate_x_b": ParamDef((dr,), init="zeros"),
+        "lam": ParamDef((dr,), init="normal", scale=0.5),
+        "w_out": ParamDef((dr, d), scale=0.02),
+    }
+
+
+def cache_rec(cfg: ModelConfig, batch: int) -> dict:
+    """The recurrence's state ``h`` (fp32) and the last ``conv_width - 1``
+    inputs of the temporal conv, ``conv`` (oldest first, in the activation
+    type)."""
+    r = cfg.rnn
+    dr = r.d_rnn or cfg.d_model
+    return {
+        "h": ParamDef((batch, dr), init="zeros", dtype=torch.float32),
+        "conv": ParamDef((batch, r.conv_width - 1, dr), init="zeros"),
+    }
+
+
+def _block_diag_gate(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """x: (..., dr) -> sigmoid(blockdiag(w) x + b), fp32; w: (nb, bw, bw).
+    The bias is added in the input's type, then cast to fp32."""
+    nb, bw, _ = w.shape
+    lead = x.shape[:-1]
+    xb = x.reshape(*lead, nb, bw)
+    y = torch.einsum("...nb,nbc->...nc", xb, w).reshape(*lead, nb * bw)
+    return torch.sigmoid((y + b).float())
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _decay_and_input(z: torch.Tensor, p, c: float):
+    """The RG-LRU's per-step decay ``a`` and input ``b`` (fp32) from the
+    conv output ``z``: log a = -c softplus(lam) r_gate, and
+    b = sqrt(max(1 - exp(2 log a), 1e-12)) (z i_gate)."""
+    r_gate = _block_diag_gate(z, p["gate_a"], p["gate_a_b"])  # recurrence
+    i_gate = _block_diag_gate(z, p["gate_x"], p["gate_x_b"])  # input
+    log_a = -c * _softplus(p["lam"].float()) * r_gate
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (
+        z.float() * i_gate
+    )
+    return a, b
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis 1 from h_{-1} = 0, by doubling:
+    after the step of offset d, each position holds the recurrence over
+    the last 2d positions ending at it (the decay product in ``a``, the
+    partial sum in ``b``); ceil(log2 S) steps of whole-tensor ops.  The
+    reference's ``jax.lax.associative_scan`` combines the same pairs in
+    another order, so fp32 results differ by rounding."""
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])],
+                      dim=1)
+        if 2 * d < S:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def _rglru(z: torch.Tensor, p, cfg: ModelConfig,
+           h0: torch.Tensor | None):
+    """RG-LRU over (B, S, dr) in fp32; returns (every position's state,
+    the last).  ``h0`` is folded into the first step: b_0 += a_0 h0."""
+    a, b = _decay_and_input(z, p, cfg.rnn.c)
+    if h0 is not None:
+        b[:, 0] += a[:, 0] * h0.float()
+    h = _linear_scan(a, b)
+    return h, h[:, -1]
+
+
+def apply_rec(
+    p, h: torch.Tensor, cfg: ModelConfig, rs: RunState, cache: dict | None
+) -> tuple[torch.Tensor, dict | None]:
+    """The RG-LRU mixer: out = (gelu(h W_y) * rglru(conv(h W_x))) W_out.
+
+    Full mode runs the temporal conv over the sequence padded with
+    ``conv_width - 1`` zeros in front (a sum of ``conv_width`` products,
+    then the bias) and the recurrence as a scan; with a cache and without
+    ``write_cache`` it starts from the cache's ``h``, as the reference's.
+    A prefill writes the last state and the last ``conv_width - 1`` inputs
+    of the conv, right-aligned, with zeros to the left of a prompt shorter
+    than that: the reference writes ``z[:, -(W-1):]``, which is then short
+    and which its decode cannot read; zeros are what its own full-sequence
+    conv puts before position 0.  Decode runs the conv as one contraction
+    over (conv ++ z) and one step of the recurrence."""
+    r = cfg.rnn
+    W = r.conv_width
+    y = L.act_fn("gelu")(torch.matmul(h, p["w_y"]))
+    z = torch.matmul(h, p["w_x"])
+
+    if rs.mode == "decode":
+        zc = torch.cat([cache["conv"], z], dim=1)               # (B, W, dr)
+        z1 = torch.einsum("bwr,wr->br", zc, p["conv_w"]) + p["conv_b"]
+        a, b = _decay_and_input(z1, p, r.c)
+        hn = a * cache["h"].float() + b
+        out = torch.matmul(y[:, 0] * hn.to(h.dtype), p["w_out"])
+        cache["h"].copy_(hn)
+        cache["conv"].copy_(zc[:, 1:])
+        return out[:, None], cache
+
+    S = z.shape[1]
+    zp = F.pad(z, (0, 0, W - 1, 0))
+    zc = sum(zp[:, i : i + S] * p["conv_w"][i] for i in range(W)) + p["conv_b"]
+    h0 = cache["h"] if (cache is not None and not rs.write_cache) else None
+    hseq, h_last = _rglru(zc, p, cfg, h0)
+    out = torch.matmul(y * hseq.to(h.dtype), p["w_out"])
+    new_cache = None
+    if cache is not None and rs.write_cache:
+        n = min(S, W - 1)
+        cache["h"].copy_(h_last)
+        cache["conv"].zero_()
+        cache["conv"][:, W - 1 - n :] = z[:, S - n :].to(cache["conv"].dtype)
+        new_cache = cache
     return out, new_cache
 
 

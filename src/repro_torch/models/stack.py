@@ -4,7 +4,9 @@ Ported from ``repro.models.stack`` for attention stacks (layer kinds
 ``attn`` / ``global`` and ``local``, the sliding-window kind, ``mla``,
 and ``attn_moe`` / ``mla_moe`` with an MoE FFN, in any prefix, block
 pattern and suffix; prefix layers of an MoE config take the dense FFN
-width ``moe.first_dense_ff``) and RWKV-6 stacks (``("rwkv",)``).  A
+width ``moe.first_dense_ff``), RecurrentGemma's hybrid stacks (``rec``,
+the RG-LRU mixer, beside the attention kinds; a ``rec`` layer keeps the
+dense FFN) and RWKV-6 stacks (``("rwkv",)``).  A
 model is: token embedding -> its layers -> final norm -> LM head.  The
 reference runs prefix layers, a scan over ``n_groups`` stacked copies of
 the block pattern, then suffix layers; here ``params["blocks"]`` and
@@ -43,6 +45,8 @@ def block_schema(cfg: ModelConfig, kind: str = "attn",
         sch["mix"] = B.schema_attn(cfg)
     elif mix == "mla":
         sch["mix"] = B.schema_mla(cfg)
+    elif mix == "rec":
+        sch["mix"] = B.schema_rec(cfg)
     elif mix == "rwkv":
         rw = B.schema_rwkv(cfg)
         sch["mix"] = rw["tm"]
@@ -73,6 +77,8 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int,
         return B.cache_attn(cfg, batch, max_len, cfg.sliding_window)
     if mix == "mla":
         return B.cache_mla(cfg, batch, max_len)
+    if mix == "rec":
+        return B.cache_rec(cfg, batch)
     if mix == "rwkv":
         return B.cache_rwkv(cfg, batch)
     raise ValueError(f"unknown mixer kind {kind!r}")
@@ -111,9 +117,9 @@ def model_cache_schema(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
                 rs: B.RunState, cache):
-    """The attention mixer of layer kind ``kind``: ``attn`` / ``global``
-    attend to every earlier position, ``local`` to the last
-    ``cfg.sliding_window``, ``mla`` through its latent KV."""
+    """The mixer of layer kind ``kind``: ``attn`` / ``global`` attend to
+    every earlier position, ``local`` to the last ``cfg.sliding_window``,
+    ``mla`` through its latent KV; ``rec`` is the RG-LRU recurrence."""
     mix = B.mixer_of(kind)
     if mix in ("attn", "global"):
         return B.apply_attn(p, h, cfg, rs, cache, window=None)
@@ -121,6 +127,8 @@ def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
         return B.apply_attn(p, h, cfg, rs, cache, window=cfg.sliding_window)
     if mix == "mla":
         return B.apply_mla(p, h, cfg, rs, cache)
+    if mix == "rec":
+        return B.apply_rec(p, h, cfg, rs, cache)
     raise ValueError(f"unknown mixer kind {kind!r}")
 
 

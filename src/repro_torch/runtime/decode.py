@@ -225,8 +225,10 @@ class ContinuousDecodeLane:
     def _row_caches(self, row: int) -> dict:
         """Row ``row``'s slice of the (R, ...) caches (views), emptied by
         cache kind: attention slots zeroed and marked empty (``pos`` = -1),
-        MLA's latent and roped-key caches (``ckv``, ``kr``), the RWKV
-        state and token-shift rows (``s``, ``tm_x``, ``cm_x``) zeroed.  An
+        MLA's latent and roped-key caches (``ckv``, ``kr``), the RG-LRU
+        state and conv inputs (``h``, ``conv``: a row's recurrence starts
+        from zeros, as a prefill's does), the RWKV state and token-shift
+        rows (``s``, ``tm_x``, ``cm_x``) zeroed.  An
         MLA layer masks by position (``arange <= t``), as the reference,
         whose prefill also zeroes the positions past the prompt."""
         view = {"blocks": [

@@ -584,6 +584,88 @@ def test_rwkv_smoke_model_on_card_equals_cpu(rng, cuda):
         close(lg, lc)
 
 
+@pytest.mark.parametrize("S", [2, 40])
+def test_recurrentgemma_smoke_model_on_card_equals_cpu(rng, cuda, S):
+    """The recurrentgemma_2b smoke model (fp32; RG-LRU layers and local
+    attention in a window of 8) on the card against the same weights on
+    the CPU: forward logits within 1e-4 * max, then a prefill of S tokens
+    (2: the conv state shorter than its width; 40: every ring wrapped) and
+    three decode steps, both sides fed the CPU's greedy tokens, logits and
+    every cache within 1e-4 * max; no kernel launched."""
+    cfg = get_smoke_config("recurrentgemma_2b")
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    card = Model(cfg, "cuda")
+    params_c = copy.deepcopy(params).to(cuda)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)))
+
+    def close(got, want):
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err <= 1e-4 * float(want.float().abs().max()), err
+
+    before = grouped_row_gemm.launches
+    with torch.no_grad():
+        close(stack.forward(params_c, cfg, tokens.to(cuda))[0],
+              stack.forward(params, cfg, tokens)[0])
+        lc, cc = cpu.prefill(params, {"tokens": tokens}, S + 4)
+        lg, cg = card.prefill(params_c, {"tokens": tokens.to(cuda)}, S + 4)
+        close(lg, lc)
+        for t in range(S, S + 3):
+            tok = torch.argmax(lc[:, 0], -1)[:, None]
+            lc, cc = cpu.decode(params, tok, t, cc)
+            lg, cg = card.decode(params_c, tok.to(cuda), t, cg)
+            close(lg, lc)
+        for c_card, c_cpu in zip(cg["blocks"], cc["blocks"]):
+            for name in c_cpu:
+                if name == "pos":
+                    assert torch.equal(c_card[name].cpu(), c_cpu[name])
+                else:
+                    close(c_card[name], c_cpu[name])
+    torch.cuda.synchronize()
+    assert grouped_row_gemm.launches == before
+
+
+def test_rec_block_at_full_width_on_card_equals_cpu(rng, cuda):
+    """One RG-LRU mixer at recurrentgemma_2b's width (d 2560, 16 gate
+    blocks of 160; random fp32 weights, the biases non-zero) on the card
+    against the CPU: a prefill of 1024 positions (the doubling scan's 10
+    steps), then two decode steps; outputs, the state ``h`` and the conv
+    inputs within 1e-4 * max."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.models.base import init_params
+
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b"),
+                              dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(5)
+    p = init_params(blocks.schema_rec(cfg), torch.float32, gen, "cpu")
+    p = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+         for k, v in p.items()}
+    p_c = {k: v.to(cuda) for k, v in p.items()}
+    cache = init_params(blocks.cache_rec(cfg, 1), torch.float32, None, "cpu")
+    cache_c = {k: v.to(cuda, copy=True) for k, v in cache.items()}
+    x = _rand(rng, 1, 1026, cfg.d_model)
+
+    def close(got, want):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+    full = blocks.RunState(mode="full", write_cache=True)
+    want, _ = blocks.apply_rec(p, x[:, :1024], cfg, full, cache)
+    got, _ = blocks.apply_rec(p_c, x[:, :1024].to(cuda), cfg, full, cache_c)
+    close(got, want)
+    for t in (1024, 1025):
+        step = blocks.RunState(mode="decode", t=t)
+        want, _ = blocks.apply_rec(p, x[:, t : t + 1], cfg, step, cache)
+        got, _ = blocks.apply_rec(p_c, x[:, t : t + 1].to(cuda), cfg, step,
+                                  cache_c)
+        close(got, want)
+        for name in ("h", "conv"):
+            close(cache_c[name], cache[name])
+
+
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_lite_16b"])
 def test_moe_smoke_model_on_card_equals_cpu(rng, cuda, arch):
     """The MoE smoke models (fp32; fine-grained MoE FFNs, and MLA for
@@ -720,7 +802,8 @@ def test_flash_attention_on_card_at_the_long_prompt_shape(cuda):
 K3_SHAPES = {"deepseek_7b": (4096, 102400), "phi3_mini_3p8b": (3072, 32064),
              "ragged_n999": (3000, 999), "ragged_n1000": (3000, 1000),
              "ragged_k": (129, 131), "deepseek_moe_16b": (2048, 102400),
-             "moe_ragged_n": (2048, 1001)}
+             "moe_ragged_n": (2048, 1001),
+             "recurrentgemma_2b": (2560, 256000)}
 
 
 @pytest.mark.parametrize("h_dtype", [torch.bfloat16, torch.float32])

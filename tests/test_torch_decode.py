@@ -259,7 +259,7 @@ def test_lane_runs_on_the_card_unless_asked(lm, monkeypatch):
         )
 
 
-@pytest.mark.parametrize("argv", [["--arch", "recurrentgemma_2b"]])
+@pytest.mark.parametrize("argv", [["--arch", "whisper_tiny"]])
 def test_serve_lm_unported_options_raise(argv):
     """Architectures of later slices are refused, not served some other
     way."""

@@ -212,13 +212,16 @@ def test_unported_configs_raise(change):
 
 def test_config_registry():
     assert get_config("deepseek_7b").d_model == 4096
-    # phi3_mini_3p8b and the two MoE archs are the reference's configs,
-    # FULL and smoke (their MoECfg / MLACfg compared as dataclass fields)
-    for arch in ("phi3_mini_3p8b", "deepseek_moe_16b", "deepseek_v2_lite_16b"):
+    # phi3_mini_3p8b, the two MoE archs and recurrentgemma_2b are the
+    # reference's configs, FULL and smoke (their MoECfg / MLACfg / RnnCfg
+    # compared as dataclass fields)
+    for arch in ("phi3_mini_3p8b", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+                 "recurrentgemma_2b"):
         for port, ref in ((get_config, j_config), (get_smoke_config, j_smoke)):
             tc, jc = port(arch), ref(arch)
             for f in dataclasses.fields(tc):
-                if f.name in ("moe", "mla") and getattr(jc, f.name) is not None:
+                if (f.name in ("moe", "mla", "rnn")
+                        and getattr(jc, f.name) is not None):
                     assert (dataclasses.asdict(getattr(tc, f.name))
                             == dataclasses.asdict(getattr(jc, f.name))), f.name
                 elif f.name != "mole":
@@ -227,6 +230,6 @@ def test_config_registry():
     assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
             full.vocab) == (32, 3072, 32, 96, 32064)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("recurrentgemma_2b")
+        get_config("whisper_tiny")
     with pytest.raises(NotImplementedError, match="unknown or not ported"):
         get_smoke_config("no_such_arch")

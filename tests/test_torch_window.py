@@ -41,7 +41,7 @@ from repro_torch.models import (  # noqa: E402
 from _lm_parity import hold_model  # noqa: E402
 
 RTOL = 1e-5
-ARCHS = ["gemma2_27b", "command_r_35b"]
+ARCHS = ["gemma2_27b", "command_r_35b", "recurrentgemma_2b"]
 FLASH = dict(dense_attn_max_seq=16, flash_block_kv=16)
 
 
@@ -79,7 +79,9 @@ def test_config_is_the_reference_config(arch, full):
                  else (get_smoke_config, j_smoke))
     tc, jc = port(arch), ref(arch)
     for f in dataclasses.fields(tc):
-        if f.name != "mole":
+        if f.name == "rnn" and jc.rnn is not None:
+            assert dataclasses.asdict(tc.rnn) == dataclasses.asdict(jc.rnn)
+        elif f.name != "mole":
             assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     Model(tc, "cpu")            # supported: raises nothing
 

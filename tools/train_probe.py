@@ -8,6 +8,7 @@ power limit.
     python3 tools/train_probe.py kernels_k3 gemma2_path command_r_path \
         gemma2_train                                  # vocab 256000
     python3 tools/train_probe.py moe_path mla_path mla_train   # MoE, MLA
+    python3 tools/train_probe.py kernels_k3 recurrentgemma_path  # RG-LRU
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -46,6 +47,9 @@ PHASES = {
     "mla_path": lambda dev, kernels: cs.lm_path(
         dev, kernels, phase="mla_path", arch=cs.MLA_ARCH,
         prompt_len=cs.MLA_PROMPT),
+    "recurrentgemma_path": lambda dev, kernels: cs.lm_path(
+        dev, kernels, phase="recurrentgemma_path", arch=cs.RG_ARCH,
+        prompt_len=cs.RG_PROMPT, twin_groups=cs.RG_TWIN_GROUPS),
     "mla_train": lambda dev, kernels: cs.train_path(
         dev, kernels, phase="mla_train", arch=cs.MLA_ARCH,
         peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.MLA_TRAIN),
