@@ -74,12 +74,13 @@ printing one JSON line; any failure raises and exits non-zero:
  4a. features_path the continuous LM lane (``lane="features"``) of
                 ``MoLeDeliveryEngine`` at Llama-3.2-Vision-90B's frontend
                 width: d_in 7680 (the stubbed vision tower's patch width)
-                to d_model 8192, vocab 128256, kappa 1.  4 tenants in 4
-                slots, each with its own W_in (7680, 8192) and one shared
-                (128256, 8192) embedding; a warm round, then 2 timed rounds
-                of 8 patch streams (1, 1024, 7680) through the default
-                buckets, so K1 runs at x (4, 64, 7680) x cores (4, 7680,
-                7680) and K2 at (4, 64, 7680) x (4, 7680, 8192).  Gated:
+                to d_model 8192, vocab 128256, kappa 1.  2 tenants in 2
+                slots (FEAT_TENANTS says why not 4), each with its own W_in
+                (7680, 8192) and one shared (128256, 8192) embedding; a
+                warm round, then 2 timed rounds of 8 patch streams (1,
+                1024, 7680) through the default buckets, so K1 runs at x
+                (2, 64, 7680) x cores (2, 7680, 7680) and K2 at (2, 64,
+                7680) x (2, 7680, 8192).  Gated:
                 every rid resolves once with shape (1, 1024, 8192); each
                 output within 1e-5 * max of per-request
                 ``LMSession.deliver_features`` on the card; each output of
@@ -378,6 +379,21 @@ printing one JSON line; any failure raises and exits non-zero:
                 the active parameters (shared and top-6 routed experts)
                 and MLA's attention as 6 H (192 + 128) a token, layer and
                 attended position.
+ 10e. recurrentgemma_train train_path at recurrentgemma_2b's published
+                width and depth (26 layers: 8 groups of rec, rec, local and
+                a rec, rec suffix; 2.67 B parameters; RG_TRAIN says why
+                they fit), 4 sequences of 4096 in 2 microbatches (every
+                local layer's window of 2048 slides), remat, bf16,
+                ``--mole token``: gates 1-4 (the twins are one group and
+                the suffix, 5 layers, in fp32 and bf16), the peak held at
+                PEAK_LIMIT_GB.  The RG-LRU's scan runs forward and, in
+                the backward, as the reverse scan of ``_LinearScan``.  MFU
+                counts 6 N a token (the tied head once) and the local
+                layers' attention over their mean attended context; the
+                scan and the conv are elementwise and not counted.
+                Printed beside the other train phases' figures: the scan's
+                time forward and forward plus backward at one rec layer's
+                shape and its share of the step (``scan_ms``).
  11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
      ``fp32_tables``), the card's name and power limit, and the final
@@ -429,7 +445,11 @@ CHURN_GEOM = dict(alpha=3, beta=16, m=16, p=3)
 # request is one image's patch stream (1, 1024, 7680).
 FEAT_ARCH = "llama32_vision_90b"
 FEAT_D_IN, FEAT_D_OUT, FEAT_VOCAB, FEAT_POSITIONS = 7680, 8192, 128256, 1024
-FEAT_TENANTS, FEAT_REQUESTS, FEAT_ROUNDS = 4, 8, 2
+# Two tenants: each one's secret build is an fp64 QR of 7680^2 on the host
+# (17-24 s a tenant on the card's host, most of the phase), so four cost
+# 68-95 s of the script's 1200 s; two keep every gate and both kernels'
+# launches at a group count of 2.
+FEAT_TENANTS, FEAT_REQUESTS, FEAT_ROUNDS = 2, 8, 2
 # The unfuse gate: three fp32 products of depth d_in lie between x and the
 # delivered x @ W_in (the host's fusion M^-1 W_in, the morph K1, the
 # projection K2 in split TF32, whose error is below fp32's: err_vs_fp64).  A
@@ -586,6 +606,18 @@ MLA_TRAIN = dict(groups=2, seq=2048, global_batch=4, micro=2)
 # before a block's window skipped); the model was trained at 8192.  The
 # twin is 2 groups and the suffix (8 layers).
 RG_ARCH, RG_PROMPT, RG_TWIN_GROUPS = "recurrentgemma_2b", 4096, 2
+# recurrentgemma_train: the train step at recurrentgemma_2b's published
+# width and depth.  Parameters: 2.672 B (the tied embedding 0.655 B, 18 rec
+# layers of 79.4 M, 8 local layers of 73.5 M); at 16 B a parameter 42.75 GB
+# of state.  Remat keeps each block's input, 26 x 2 x 4096 x 2560 x 2 B =
+# 1.09 GB a microbatch; one block's recompute and backward hold the scan's
+# a and h and their gradients in fp32 (4 x 84 MB at a microbatch of 2 x
+# 4096 x 2560) beside the gates' fp32 intermediates, the GeGLU's (2 x 4096
+# x 7680 bf16, 126 MB each) and a CE chunk's fp32 logits and their
+# gradient (2 x 512 x 256000 x 4 B = 1.05 GB each): about 50-58 GB in all,
+# under PEAK_LIMIT_GB, so no group is cut.  4 sequences of 4096 (past the
+# window of 2048) in 2 microbatches.
+RG_TRAIN = dict(groups=8, seq=4096, global_batch=4, micro=2)
 K3_RG = (4, 2560, 256000)       # K3 at its decode shape: 5.24 GB of tables
 
 
@@ -2586,7 +2618,7 @@ def churn(dev, core, runtime) -> None:
 
 def features_kernels(kernels, ref, x, cores, projs) -> dict:
     """K1 and K2 at the features lane's shapes, on the engine's own stacks
-    and one microbatch of the patch streams (gidx = arange(4)): each held
+    and one microbatch of the patch streams (gidx = arange(G)): each held
     against its plain version at REL_TOL, K2 also against float64
     (``err_vs_fp64``); device time in CUDA graphs (``graph_ms``), the plain
     version's and torch.bmm's (over the stack, which is the gathered
@@ -2633,7 +2665,8 @@ def features_path(dev, core, runtime, kernels, ref) -> dict:
     through ``MoLeDeliveryEngine``: FEAT_TENANTS tenants, each with its own
     (d_in, d_out) W_in, FEAT_ROUNDS timed rounds of FEAT_REQUESTS patch
     streams after a warm round, through the default buckets (max_rows 64:
-    one (4, 64, 7680) microbatch holds 64 positions of each tenant)."""
+    one (FEAT_TENANTS, 64, 7680) microbatch holds 64 positions of each
+    tenant)."""
     t_phase = time.monotonic()
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
 
@@ -3116,7 +3149,9 @@ def train_path(dev, kernels, *, phase: str = "train_path",
         TrainHParams, make_batched_decode_logits, make_row_prefill_step,
         make_train_step,
     )
-    from repro_torch.models import Model, ParamTree, layers as L, stack as S
+    from repro_torch.models import (
+        Model, ParamTree, blocks as B, layers as L, stack as S,
+    )
     from repro_torch.models.base import MoLeCfg
     from repro_torch.optim import adamw
 
@@ -3249,10 +3284,11 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     # remat runs each block's forward twice).
     gen = torch.Generator(device=dev).manual_seed(SEED)
     B_, H, Hkv, hd = global_batch // micro, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kinds = cfg.layer_kinds()
+    attn_kinds = [k for k in kinds if B.mixer_of(k) != "rec"]
     qkv = [torch.randn(B_, seq, h_, hd, generator=gen, device=dev)
            .to(cfg.adtype).requires_grad_() for h_ in (H, Hkv, Hkv)]
     go = torch.randn(B_, seq, H, hd, generator=gen, device=dev).to(cfg.adtype)
-    kinds = cfg.layer_kinds()
 
     def flash(backward, window):
         with torch.enable_grad():
@@ -3272,7 +3308,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     flash_ms = {"shape": [B_, seq, H, hd], "kv_heads": Hkv,
                 "sdpa_forward_backward": cuda_ms(sdpa, 3)}
     share = 0.0
-    for kind in sorted(set(kinds)):
+    for kind in sorted(set(attn_kinds)):
         window = cfg.sliding_window if kind == "local" else None
         fw = cuda_ms(lambda: flash(False, window), 3)
         fb = cuda_ms(lambda: flash(True, window), 3)
@@ -3282,6 +3318,12 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     flash_ms["share_of_step"] = share
     del qkv, go
     release()
+    scan_ms = None
+    n_rec = len(kinds) - len(attn_kinds)
+    if n_rec:
+        scan_ms = rec_scan_ms(dev, gen, (B_, seq, cfg.rnn.d_rnn or cfg.d_model))
+        scan_ms["share_of_step"] = micro * n_rec * (
+            scan_ms["forward"] + scan_ms["forward_backward"]) / p50
 
     # Model flops a step (remat's recompute not counted): 6 N a token for
     # the weights a token uses (N the active parameters: an MoE layer's
@@ -3296,7 +3338,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     n_active = cfg.active_param_count()
     pos = np.arange(1, seq + 1)
     ctx_sum = sum(float(np.minimum(pos, cfg.sliding_window).mean())
-                  if k == "local" else (seq + 1) / 2 for k in kinds)
+                  if k == "local" else (seq + 1) / 2 for k in attn_kinds)
     if cfg.mla is not None:
         d_qk, d_v = cfg.mla.qk_nope + cfg.mla.qk_rope, cfg.mla.v_head
     else:
@@ -3318,11 +3360,40 @@ def train_path(dev, kernels, *, phase: str = "train_path",
            "train_mfu": flops / (p50 / 1e3) / BF16_FLOP_PER_S,
            "flops_per_step": flops, "attended_context_per_token": ctx_sum,
            "train_step_profile": prof, "flash_ms": flash_ms,
+           "scan_ms": scan_ms,
            "mole_twin": {"layers": twin_groups * len(cfg.block_pattern) + fixed,
                          "fp32": twin_fp32,
                          "bf16": twin_bf16, "limit_rel": TRAIN_LOSS_RTOL},
            "phase_s": time.monotonic() - t_phase}
     emit(out)
+    return out
+
+
+def rec_scan_ms(dev, gen, shape) -> dict:
+    """The RG-LRU's scan (``blocks._linear_scan``) at one rec layer's
+    microbatch shape in fp32, decays in [0.9, 1): forward alone and
+    forward plus the reverse scan of its backward.  A train step runs it
+    micro x rec layers times each way (remat runs each block's forward
+    twice)."""
+    from repro_torch.models import blocks as B
+
+    a = (0.9 + 0.1 * torch.rand(shape, generator=gen, device=dev)
+         ).requires_grad_()
+    b = torch.randn(shape, generator=gen, device=dev).requires_grad_()
+    gh = torch.randn(shape, generator=gen, device=dev)
+
+    def forward():
+        with torch.no_grad():
+            B._linear_scan(a, b)
+
+    def forward_backward():
+        with torch.enable_grad():
+            torch.autograd.grad(B._linear_scan(a, b), (a, b), gh)
+
+    out = {"shape": list(shape), "forward": cuda_ms(forward, 3),
+           "forward_backward": cuda_ms(forward_backward, 3)}
+    del a, b, gh
+    release()
     return out
 
 
@@ -3623,6 +3694,9 @@ def main() -> None:
     release()
     train_path(dev, kernels, phase="mla_train", arch=MLA_ARCH,
                peak_limit_gb=PEAK_LIMIT_GB, **MLA_TRAIN)
+    release()
+    train_path(dev, kernels, phase="recurrentgemma_train", arch=RG_ARCH,
+               peak_limit_gb=PEAK_LIMIT_GB, **RG_TRAIN)
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
                     wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
     check(all(launches[n] > 0 for n in KERNEL_NAMES),

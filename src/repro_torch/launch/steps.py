@@ -75,20 +75,12 @@ def make_train_step(model: Model, hp: TrainHParams):
     parameters' type).  With one microbatch the gradients stay in the
     parameters' type; AdamW casts them to fp32.
 
-    RWKV-6 stacks are refused: K6 has no backward yet.  So are stacks
-    with RG-LRU (``rec``) layers: their training, the scan's gradients held
-    against the reference's, is ROADMAP item 8d-i-b.
+    RWKV-6 stacks are refused: K6 has no backward yet.
     """
     if model.cfg.rwkv is not None:
         raise NotImplementedError(
             f"{model.cfg.name}: training RWKV-6 needs a backward for the "
             f"wkv6 scan (K6), which is not written yet"
-        )
-    if "rec" in model.cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{model.cfg.name}: training a stack with RG-LRU (rec) layers "
-            f"is not ported yet (ROADMAP item 8d-i-b: the scan's gradients "
-            f"against the reference's)"
         )
 
     def loss_fn(params, mb):

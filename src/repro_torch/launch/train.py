@@ -10,15 +10,20 @@ AdamW, periodic async checkpoints, auto-resume.  Runs on the card unless
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek_moe_16b --smoke --steps 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma_2b --smoke --steps 8 --ckpt-every 4 \
+        --inject-failures 5 --mole token --device cpu
 
 The flags are the reference's, plus ``--device``.  The step is
 :func:`repro_torch.launch.steps.make_train_step`, run eagerly: it updates
 the parameters and moments in place, so there is no donation to ask for.
 Checkpoints go to ``<ckpt-dir>/<arch>`` (three kept); ``--resume`` restores
 the latest one into the freshly built state and seeks the pipeline to the
-index saved with it.  ``rwkv6_3b`` cannot train yet (its wkv6 kernel has no
-backward), ``--mole embedding`` needs a frontend model: both raise
-``NotImplementedError``, as do architectures the port does not run.
+index saved with it.  Every arch the port serves trains, the hybrid
+``recurrentgemma_2b`` (RG-LRU and local layers) included, but
+``rwkv6_3b`` (its wkv6 kernel has no backward yet); ``--mole embedding``
+needs a frontend model.  Both raise ``NotImplementedError``, as do
+architectures the port does not run.
 
 ``main(argv, cfg=...)`` runs on a given config in place of ``--arch``'s
 (``--smoke`` is then ignored; the ``--mole`` flags still apply): that is
@@ -73,7 +78,8 @@ def build(args, cfg: ModelConfig | None = None):
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help=f"architecture to train: {', '.join(ARCHS)}")
+                    help=f"architecture to train: {', '.join(ARCHS)} "
+                         f"(rwkv6_3b raises: its wkv6 kernel has no backward)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

@@ -499,7 +499,7 @@ def _decay_and_input(z: torch.Tensor, p, c: float):
     return a, b
 
 
-def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t over axis 1 from h_{-1} = 0, by doubling:
     after the step of offset d, each position holds the recurrence over
     the last 2d positions ending at it (the decay product in ``a``, the
@@ -515,6 +515,40 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b
+
+
+class _LinearScan(torch.autograd.Function):
+    """:func:`_doubling_scan` with its gradient as a scan in reverse.
+
+    For h_t = a_t h_{t-1} + b_t and g_t = dL/dh_t (through every later
+    state), g_t = dh_t + a_{t+1} g_{t+1}: the same recurrence over the
+    flipped sequence with the decays shifted by one (a_{t+1}, none past
+    the end).  Then dL/db_t = g_t and dL/da_t = g_t h_{t-1}, h_{-1} = 0.
+    Only ``a`` and the output ``h`` are kept for the backward, where
+    autograd through the doubling keeps two tensors of the input's size a
+    step and runs about three times the forward's ops."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _doubling_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        zero = torch.zeros_like(a[:, :1])
+        a_next = torch.cat([zero, a[:, 1:].flip(1)], dim=1)
+        g = _doubling_scan(a_next, dh.flip(1)).flip(1)
+        da = g * torch.cat([zero, h[:, :-1]], dim=1)
+        return da, g
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis 1 from h_{-1} = 0
+    (:class:`_LinearScan`)."""
+    return _LinearScan.apply(a, b)
 
 
 def _rglru(z: torch.Tensor, p, cfg: ModelConfig,

@@ -666,6 +666,131 @@ def test_rec_block_at_full_width_on_card_equals_cpu(rng, cuda):
             close(cache_c[name], cache[name])
 
 
+def _doubling_as_written(a, b):
+    """The RG-LRU's doubling scan as the forward computes it (a copy, so
+    that a change of the library's forward shows as a change of bits)."""
+    S, d = a.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])],
+                      dim=1)
+        if 2 * d < S:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+@pytest.mark.parametrize("S", [37, 4096])
+def test_linear_scan_on_card_against_cpu_and_float64(rng, cuda, S):
+    """The RG-LRU's scan (``_LinearScan``: the doubling forward, the
+    reverse scan as its backward) on the card, (2, S, 64) fp32, decays in
+    [0.9, 1): the forward equals the doubling scan's bits on the card;
+    the forward and the gradients of sum(w h) for a and b are within
+    1e-5 of their max of the CPU's and of a float64 recurrence run one
+    step at a time (the CPU tests hold the fp32 scan at 4096 steps within
+    1e-5 of max of float64)."""
+    from repro_torch.models import blocks
+
+    a = torch.from_numpy(rng.uniform(0.9, 1.0, (2, S, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, S, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, S, 64)).astype(np.float32))
+
+    def run(dev, dtype, scan):
+        x, y = (t.to(dev, dtype).requires_grad_() for t in (a, b))
+        with torch.enable_grad():
+            h = scan(x, y)
+            ga, gb = torch.autograd.grad((h * w.to(dev, dtype)).sum(), (x, y))
+        return [t.detach().cpu().double() for t in (h, ga, gb)]
+
+    def loop(x, y):
+        hs, out = torch.zeros_like(y[:, 0]), []
+        for t in range(x.shape[1]):
+            hs = x[:, t] * hs + y[:, t]
+            out.append(hs)
+        return torch.stack(out, 1)
+
+    ac, bc = a.to(cuda), b.to(cuda)
+    assert torch.equal(blocks._linear_scan(ac, bc),
+                       _doubling_as_written(ac, bc))
+    card = run(cuda, torch.float32, blocks._linear_scan)
+    for want in (run("cpu", torch.float32, blocks._linear_scan),
+                 run("cpu", torch.float64, loop)):
+        for got, wnt in zip(card, want):
+            err = float((got - wnt).abs().max())
+            assert err <= 1e-5 * float(wnt.abs().max()), err
+
+
+def test_hybrid_train_step_on_card_equals_cpu(rng, cuda):
+    """One train step of the recurrentgemma_2b smoke model (fp32; RG-LRU
+    and local layers, tied scaled embeddings; 2 microbatches, remat, the
+    windowed flash scan at 64 positions with blocks of 16) on the card
+    against the same step on the CPU.  The bounds are the CPU tests' for
+    the hybrid's step against the reference (tests/test_torch_train.py
+    GRAD_TOLS, NORM_RTOLS), or four times the CPU step's own departure
+    from the same step with the model in float64 where that is larger
+    (the gates' sqrt(1 - a^2) amplifies fp32 rounding in their small
+    gradients: the CPU's first moment of layer 1's gate_x departs by
+    9.5e-4 of its max): loss within 1e-5 and grad_norm within 1.2e-4
+    relative, the first moment within 1e-3 and the second within 2e-3 of
+    their max, count 1; the parameters within 2 lr, and where the clipped
+    gradient g = m / (1 - b1) is decided (|g| >= 1e-2 max|g|) within 1e-6
+    of max|p| + lr plus what gradients d = (m's bound) max|g| apart move
+    lr g / (|g| + eps): lr eps d / (|g| (|g| - d)) (``_hold_update``
+    there); no kernel launched, no leaf left requiring grad."""
+    import dataclasses
+
+    from repro_torch.launch.steps import TrainHParams, make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma_2b"),
+                              dense_attn_max_seq=16, flash_block_kv=16)
+    hp = TrainHParams(optimizer=adamw.AdamWConfig(warmup_steps=2), microbatch=2)
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    params_c = copy.deepcopy(params).to(cuda)
+    params_64 = copy.deepcopy(params).to(torch.float64)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)))
+             for k in ("tokens", "targets")}
+    kernels = (grouped_block_diag_matmul, grouped_aug_gemm, grouped_row_gemm,
+               block_diag_matmul, aug_gemm, wkv6_chunked)
+    before = [k.launches for k in kernels]
+    _, want_opt, want = make_train_step(cpu, hp)(
+        params, adamw.init_state(params), batch)
+    cfg_64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+    _, opt_64, m_64 = make_train_step(Model(cfg_64, "cpu"), hp)(
+        params_64, adamw.init_state(params_64), batch)
+    _, opt, got = make_train_step(Model(cfg, "cuda"), hp)(
+        params_c, adamw.init_state(params_c),
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    assert int(opt["count"]) == 1
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    for k, rtol in (("loss", 1e-5), ("grad_norm", 1.2e-4), ("lr", 1e-5)):
+        rtol = max(rtol, 4 * rel(want[k], m_64[k]))
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=rtol), k
+    lr, opt_cfg = float(want["lr"]), hp.optimizer
+    want_p = dict(adamw.named_leaves(params))
+    for name, p in adamw.named_leaves(params_c):
+        assert not p.requires_grad
+        tols = {}
+        for key, tol in (("m", 1e-3), ("v", 2e-3)):
+            w = want_opt[key][name]
+            tols[key] = max(tol, 4 * rel(w, opt_64[key][name]))
+            assert rel(opt[key][name], w) <= tols[key], (key, name)
+        g = want_opt["m"][name].double().abs() / (1 - opt_cfg.b1)
+        decided = g >= 1e-2 * g.max()
+        d = tols["m"] * g.max()
+        diff = (p.cpu() - want_p[name]).abs().double()
+        slack = 1e-6 * (float(want_p[name].abs().max()) + lr)
+        moved = lr * opt_cfg.eps * d / (g[decided] * (g[decided] - d))
+        assert bool((diff[decided] <= slack + moved).all()), name
+        assert float(diff.max()) <= 2 * lr + slack, name
+
+
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_lite_16b"])
 def test_moe_smoke_model_on_card_equals_cpu(rng, cuda, arch):
     """The MoE smoke models (fp32; fine-grained MoE FFNs, and MLA for

@@ -24,6 +24,16 @@ decode's einsum refuses it.  The port writes the conv state right-aligned
 with zeros to its left (what the reference's own full-sequence conv puts
 before position 0), so prompts of 1 and 2 tokens are held against the
 reference's full-sequence forward, teacher forced.
+
+Training: the scan's gradient (``_LinearScan``, the same doubling run in
+reverse) passes fp64 ``gradcheck``, equals autograd through the
+one-step recurrence in float64, and at 4096 steps stays within four times
+the error of ``jax.grad`` through the reference's ``associative_scan``
+against float64; ``_rglru``'s gradients (the gates, and a cached state
+folded in) within four times the reference's own departure from a float64
+oracle.  The whole model's gradients and train step are held in
+``tests/test_torch_train.py``, the training driver in
+``tests/test_torch_trainer.py``.
 """
 import dataclasses
 
@@ -33,6 +43,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.core.lm as jlm  # noqa: E402
@@ -310,11 +321,276 @@ def test_params_carry_over_and_rec_without_rnncfg_raises(ref):
             check_supported(dataclasses.replace(cfg, **change))
 
 
-def test_train_step_is_refused(ref):
-    """Training the hybrid stack is its own slice: ``make_train_step``
-    refuses a stack with rec layers and names it."""
-    with pytest.raises(NotImplementedError, match="8d-i-b"):
-        make_train_step(Model(ref["cfg"], "cpu"), TrainHParams())
+# -- the scan's gradient ----------------------------------------------------
+
+
+def _doubling_as_written(a, b):
+    """The doubling scan as the forward computes it, copied here so that a
+    change of the library's forward shows as a change of bits."""
+    S, d = a.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])],
+                      dim=1)
+        if 2 * d < S:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def _loop_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t one step at a time (autograd's oracle)."""
+    h, out = torch.zeros_like(b[:, 0]), []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out.append(h)
+    return torch.stack(out, 1)
+
+
+def _folded(scan):
+    """``scan`` from an initial state, folded in as ``_rglru`` folds it:
+    b_0 += a_0 h0 on a fresh ``b``."""
+    def run(a, b, h0):
+        b = b * 1
+        b[:, 0] += a[:, 0] * h0
+        return scan(a, b)
+    return run
+
+
+def _scan_inputs(rng, S, dtype, B=2, dr=3):
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, dr))).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((B, S, dr))).to(dtype)
+    h0 = torch.from_numpy(rng.standard_normal((B, dr))).to(dtype)
+    return a, b, h0
+
+
+@pytest.mark.parametrize("h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 64])
+def test_linear_scan_gradcheck(rng, S, h0):
+    """``_LinearScan`` in float64 passes ``torch.autograd.gradcheck``
+    (finite differences, 1e-6 steps, its default tolerances) at lengths
+    of one step, a power of two and neither, from zeros and with an
+    initial state folded into the first step (its gradient included)."""
+    a, b, init = (x.requires_grad_() for x in
+                  _scan_inputs(rng, S, torch.float64))
+    if h0:
+        assert torch.autograd.gradcheck(_folded(tB._linear_scan),
+                                        (a, b, init))
+    else:
+        assert torch.autograd.gradcheck(tB._linear_scan, (a, b))
+
+
+@pytest.mark.parametrize("h0", [False, True], ids=["zero", "h0"])
+def test_linear_scan_gradients_equal_the_loop_and_the_doubling(rng, h0):
+    """At 37 steps the reverse scan's gradients of a, b (and h0) equal
+    autograd through the one-step-at-a-time recurrence in float64 (within
+    1e-12 of their max), and in fp32 autograd through the doubling scan
+    itself (its ops, kept only as this oracle) within 1e-5 of their max:
+    the backward runs the same doubling over the flipped sequence, the
+    oracle the doubling's own adjoint, so they round in other orders."""
+    for dtype, oracle, tol in ((torch.float64, _loop_scan, 1e-12),
+                               (torch.float32, tB._doubling_scan, 1e-5)):
+        a, b, init = (x.requires_grad_() for x in
+                      _scan_inputs(rng, 37, dtype, dr=8))
+        w = torch.from_numpy(rng.standard_normal(b.shape)).to(dtype)
+        args = (a, b, init) if h0 else (a, b)
+        fold = _folded if h0 else (lambda f: f)
+        got = torch.autograd.grad((fold(tB._linear_scan)(*args) * w).sum(),
+                                  args)
+        want = torch.autograd.grad((fold(oracle)(*args) * w).sum(), args)
+        for g, ww in zip(got, want):
+            assert g.dtype == dtype
+            err = float((g - ww).abs().max())
+            assert err <= tol * float(ww.abs().max()), (dtype, err)
+
+
+@pytest.mark.parametrize("S", [1, 2, 5, 4096])
+def test_linear_scan_forward_is_the_doubling_bit_for_bit(rng, S):
+    """The scan's forward, under grad and without, gives the doubling
+    scan's bits (what the serving lane's prefill has computed all along)
+    and keeps its input."""
+    a, b, _ = _scan_inputs(rng, S, torch.float32, dr=16)
+    b_in = b.clone()
+    want = _doubling_as_written(a, b)
+    assert torch.equal(tB._linear_scan(a, b), want)
+    with torch.enable_grad():
+        got = tB._linear_scan(a.requires_grad_(), b.requires_grad_())
+    assert got.grad_fn is not None
+    assert torch.equal(got.detach(), want)
+    assert torch.equal(b.detach(), b_in)
+
+
+def test_scan_gradients_at_4096_steps_against_float64(rng):
+    """The reverse scan at the chip's sequence length (4096 steps, decays
+    in [0.9, 1), d_rnn 8) in fp32 against the float64 gradients of
+    L = sum(w h) by the recurrence g_t = w_t + a_{t+1} g_{t+1}, da_t =
+    g_t h_{t-1}, db_t = g_t: its error is at most four times that of
+    ``jax.grad`` through the reference's ``jax.lax.associative_scan`` on
+    the same fp32 inputs, for da and for db."""
+    a = rng.uniform(0.9, 1.0, (1, 4096, 8)).astype(np.float32)
+    b = rng.standard_normal((1, 4096, 8)).astype(np.float32)
+    w = rng.standard_normal((1, 4096, 8)).astype(np.float32)
+    a64, b64, w64 = (x[0].astype(np.float64) for x in (a, b, w))
+    h = np.zeros((4097, 8))                 # h[t + 1] = h_t, h[0] = 0
+    for t in range(4096):
+        h[t + 1] = a64[t] * h[t] + b64[t]
+    g = np.zeros((4096, 8))
+    nxt = np.zeros(8)
+    for t in range(4095, -1, -1):
+        nxt = w64[t] + (a64[t + 1] * nxt if t < 4095 else 0.0)
+        g[t] = nxt
+    exact = {"a": g * h[:-1], "b": g}
+
+    def combine(x, y):
+        return y[0] * x[0], y[0] * x[1] + y[1]
+
+    def loss(a, b):
+        return jnp.sum(jax.lax.associative_scan(combine, (a, b), axis=1)[1]
+                       * jnp.asarray(w))
+
+    ja, jb = jax.jit(jax.grad(loss, (0, 1)))(jnp.asarray(a), jnp.asarray(b))
+    ta, tb = (_t(x).requires_grad_() for x in (a, b))
+    ga, gb = torch.autograd.grad((tB._linear_scan(ta, tb) * _t(w)).sum(),
+                                 (ta, tb))
+    for name, want, got in (("a", ja, ga), ("b", jb, gb)):
+        e_ref = np.abs(np.asarray(want, np.float64)[0] - exact[name]).max()
+        e_port = np.abs(got.double().numpy()[0] - exact[name]).max()
+        assert e_port <= 4 * e_ref, (name, e_port, e_ref)
+        assert e_port <= 1e-5 * np.abs(exact[name]).max(), name
+
+
+def _rglru64(z, p, c, h0):
+    """The reference's ``_rglru`` written out in float64 torch ops, the
+    recurrence one step at a time: the float64 oracle of the tests
+    below."""
+    def gate(w, bias):
+        nb, bw, _ = w.shape
+        y = torch.einsum("...nb,nbc->...nc",
+                         z.reshape(*z.shape[:-1], nb, bw), w)
+        return torch.sigmoid(y.reshape(z.shape) + bias)
+
+    log_a = -c * F.softplus(p["lam"], threshold=1e9) * gate(p["gate_a"],
+                                                            p["gate_a_b"])
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1 - torch.exp(2 * log_a), 1e-12)) * (
+        z * gate(p["gate_x"], p["gate_x_b"]))
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
+    return _loop_scan(a, b)
+
+
+@pytest.mark.parametrize("h0", [False, True], ids=["zero", "h0"])
+def test_rglru_gradients_match_reference(ref, rng, h0):
+    """The gradients of sum(w h) through ``_rglru`` (z (2, 37, 64), the
+    six RG-LRU leaves it reads and, where folded in, a cached state h0
+    that requires grad: the in-place fold must leave autograd a correct
+    graph) against ``jax.grad`` of the reference's ``_rglru``: each within
+    four times the reference's own largest departure from the float64
+    oracle ``_rglru64``, of the oracle's max (at least 1e-6 of it).  The
+    gates' sqrt(1 - a^2) has an unbounded derivative as a -> 1, so fp32
+    rounding there is amplified in both packages alike."""
+    cfg, jcfg = ref["cfg"], ref["jcfg"]
+    jp, tp = _rec_block(ref, rng)
+    names = ["lam", "gate_a", "gate_a_b", "gate_x", "gate_x_b"]
+    z = rng.standard_normal((2, 37, cfg.rnn.d_rnn)).astype(np.float32)
+    w = rng.standard_normal(z.shape).astype(np.float32)
+    init = (rng.standard_normal((2, cfg.rnn.d_rnn)).astype(np.float32)
+            if h0 else None)
+
+    def jloss(leaves, z, init):
+        return jnp.sum(jB._rglru(z, dict(jp, **leaves), jcfg, init)[0] * w)
+
+    argnums = (0, 1, 2) if h0 else (0, 1)
+    want = jax.jit(jax.grad(jloss, argnums))(
+        {n: jnp.asarray(jp[n]) for n in names}, jnp.asarray(z),
+        None if init is None else jnp.asarray(init))
+
+    def port(dtype, fn):
+        leaves = {n: tp[n].to(dtype).requires_grad_() for n in names}
+        tz = _t(z).to(dtype).requires_grad_()
+        args = [*leaves.values(), tz]
+        th0 = None
+        if h0:
+            th0 = _t(init).to(dtype).requires_grad_()
+            args.append(th0)
+        out = fn(tz, dict(tp, **leaves), th0)
+        grads = torch.autograd.grad((out * _t(w).to(dtype)).sum(), args)
+        return [g.double().numpy() for g in grads]
+
+    got = port(torch.float32,
+               lambda z, p, h0: tB._rglru(z, p, cfg, h0)[0])
+    exact = port(torch.float64, lambda z, p, h0: _rglru64(z, p, cfg.rnn.c, h0))
+    want = [*(np.asarray(want[0][n], np.float64) for n in names),
+            np.asarray(want[1], np.float64)] + (
+                [np.asarray(want[2], np.float64)] if h0 else [])
+    assert len(got) == len(want) == len(exact) == len(names) + 1 + h0
+    for g, wnt, ex in zip(got, want, exact):
+        scale = np.abs(ex).max()
+        e_ref = np.abs(wnt - ex).max() / scale
+        e_port = np.abs(g - ex).max() / scale
+        assert e_port <= max(4 * e_ref, 1e-6), (e_port, e_ref)
+
+
+def _loss_grads(model, params, batch, remat):
+    leaves = list(params.parameters())
+    with torch.enable_grad():
+        for x in leaves:
+            x.requires_grad_(True)
+        try:
+            loss = model.loss(params, batch, remat=remat)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        finally:
+            for x in leaves:
+                x.requires_grad_(False)
+
+
+def test_remat_recomputes_the_scan_to_the_same_bits(ref, rng):
+    """``Model.loss`` of the hybrid with each block recomputed in the
+    backward (``torch.utils.checkpoint``, the scan's saved ``a`` and ``h``
+    recomputed with it) gives the loss and every leaf's gradient of the
+    run that keeps its activations, bit for bit, at 64 positions (the
+    local layers' window of 8 slides)."""
+    model, params = Model(ref["cfg"], "cpu"), ref["params"]
+    batch = {k: _t(rng.integers(0, ref["cfg"].vocab, (2, 64))).long()
+             for k in ("tokens", "targets")}
+    loss, grads = _loss_grads(model, params, batch, remat=False)
+    loss_r, grads_r = _loss_grads(model, params, batch, remat=True)
+    assert torch.equal(loss, loss_r)
+    assert len(grads) == len(list(params.parameters()))
+    for g, g_r in zip(grads, grads_r):
+        assert torch.equal(g, g_r)
+
+
+def test_train_step_then_serving_records_no_graph(rng):
+    """Two train steps of the smoke hybrid (2 microbatches, remat), then a
+    prefill of 5 tokens and 3 decode steps on the trained tree: no leaf
+    requires grad, no logit or cache (the rec layers' ``h`` and ``conv``,
+    the local layers' rings) carries a ``grad_fn``, and every logit is
+    finite."""
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config(ARCH)
+    model = Model(cfg, "cpu")
+    params = model.init(0)
+    opt = adamw.init_state(params)
+    step = make_train_step(model, TrainHParams(microbatch=2))
+    for _ in range(2):
+        batch = {k: _t(rng.integers(0, cfg.vocab, (4, 32))).long()
+                 for k in ("tokens", "targets")}
+        params, opt, m = step(params, opt, batch)
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert int(opt["count"]) == 2
+    assert not any(p.requires_grad for p in params.parameters())
+    tokens = _t(rng.integers(0, cfg.vocab, (2, 5))).long()
+    lg, caches = model.prefill(params, {"tokens": tokens}, 8)
+    outs = [lg]
+    for t in range(5, 8):
+        lg, caches = model.decode(params, torch.argmax(lg[:, -1:], -1), t,
+                                  caches)
+        outs.append(lg)
+    assert sorted(caches["blocks"][0]) == ["conv", "h"]
+    outs += [x for c in caches["blocks"] for x in c.values()]
+    assert all(o.grad_fn is None and not o.requires_grad for o in outs)
+    assert all(bool(torch.isfinite(o).all()) for o in outs[:4])
 
 
 _JIT_FORWARD = {}

@@ -78,10 +78,19 @@ GRAD_TOL = 1e-4
 # 1.1e-5 for the port; command_r_35b below 2e-5 and 4e-6).  Its gradients
 # and moments are held at GRAD_TOLS, its grad_norm at NORM_RTOLS, a few
 # times those departures; every other arch at GRAD_TOL and LOSS_RTOL.
-GRAD_TOLS = {"gemma2_27b": 2e-3}
-NORM_RTOLS = {"gemma2_27b": 2e-3}
+# The recurrentgemma_2b smoke hybrid (RG-LRU and local layers, tied and
+# scaled embeddings), against the port run with every op in float64 (its
+# RG-LRU gates and scan too, which both packages run in fp32), on these
+# tests' inputs: the reference's gradients depart by up to 2.4e-4 of
+# max|g| and its grad_norm by 3.1e-5 relative, the port's by 3.9e-4 and
+# 9.0e-5 (the port's local layers alone depart twice as far as the
+# reference's in grad_norm; its rec layers alone by 1e-6 of max|g|, as
+# the reference's).  Held at about four times the reference's departures.
+GRAD_TOLS = {"gemma2_27b": 2e-3, "recurrentgemma_2b": 1e-3}
+NORM_RTOLS = {"gemma2_27b": 2e-3, "recurrentgemma_2b": 1.2e-4}
 ADAM_RTOL = 1e-6
-ARCHS = ["deepseek_7b", "phi3_mini_3p8b", "command_r_35b", "gemma2_27b"]
+ARCHS = ["deepseek_7b", "phi3_mini_3p8b", "command_r_35b", "gemma2_27b",
+         "recurrentgemma_2b"]
 FLASH = dict(dense_attn_max_seq=16, flash_block_kv=16)
 ATTENTION = {"dense": {}, "flash": FLASH}
 S = 64
@@ -345,7 +354,8 @@ def test_train_step_matches_reference(rng, arch, microbatch):
         optimizer=jadamw.AdamWConfig(warmup_steps=2), **hp_kw)))
     step = make_train_step(Model(cfg, "cpu"), TrainHParams(optimizer=opt, **hp_kw))
     batch = _batch(rng, cfg.vocab, B=4)
-    _, want_g = jax.value_and_grad(lambda p: jmodel.loss(p, _j(batch)))(jparams)
+    _, want_g = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.loss(p, _j(batch))))(jparams)
     want_p, want_opt, want_m = jstep(jparams, jadamw.init_state(jparams),
                                      _j(batch))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
@@ -467,7 +477,7 @@ def test_aug_head_losses_match(rng):
 
 
 @pytest.mark.parametrize("arch", ["deepseek_7b", "rwkv6_3b", "command_r_35b",
-                                  "gemma2_27b"])
+                                  "gemma2_27b", "recurrentgemma_2b"])
 def test_token_mole_loss_equivalence(rng, arch):
     """loss(params, raw) == loss(fused params, morphed) and both equal the
     reference's loss (no grad: the rwkv loss runs K6's plain version)."""

@@ -436,6 +436,62 @@ def test_train_main_gemma2_runs_as_the_reference_driver(tmp_path, capsys):
     assert all(np.isfinite(float(v)) for v in _losses(hist).values())
 
 
+def test_train_main_recurrentgemma_runs_as_the_reference_driver(
+        tmp_path, capsys, monkeypatch):
+    """``launch/train.py --arch recurrentgemma_2b --smoke`` (RG-LRU and
+    local layers, window 8, sequences of 32 so every local window slides;
+    tied and scaled embeddings) through the reference's driver and the
+    port's, with a failure injected at step 3 after the checkpoint of step
+    2: the same header (the parameter count included) and fault-tolerance
+    lines word for word, the same lines with the numbers taken out, and
+    finite losses.  The reference's saves are joined, as in
+    ``test_train_main_prints_the_reference_format``, so that both packages
+    restore the step-2 checkpoint."""
+    save = JManager.save
+
+    def joined(self, *args, **kwargs):
+        save(self, *args, **kwargs)
+        self.wait()
+
+    monkeypatch.setattr(JManager, "save", joined)
+    argv = ["--arch", "recurrentgemma_2b", "--smoke", "--mole", "token",
+            "--seq-len", "32", "--batch", "4", "--steps", "5",
+            "--ckpt-every", "2", "--inject-failures", "3", "--log-every", "1"]
+    jtrain.main(argv + ["--ckpt-dir", str(tmp_path / "ref")])
+    want = capsys.readouterr().out
+    _, hist = train.main(argv + ["--ckpt-dir", str(tmp_path / "port"),
+                                 "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _shape_of(got) == _shape_of(want)
+    keep = [line for line in want.splitlines()
+            if line.startswith(("arch=", "  [FT]"))]
+    assert len(keep) == 2 and keep == [
+        line for line in got.splitlines()
+        if line.startswith(("arch=", "  [FT]"))]
+    assert sorted(_losses(hist)) == [0, 1, 2, 3, 4]
+    assert all(np.isfinite(float(v)) for v in _losses(hist).values())
+
+
+def test_train_main_recurrentgemma_resume_equals_clean_run(tmp_path, capsys):
+    """The hybrid through the port's driver: ``--steps 4`` then ``--steps
+    6 --resume`` ends with ``--steps 6``'s parameters, moments and count
+    bit for bit (``--warmup 4`` so the cut run follows the same learning
+    rates), its losses from the restore on equal the clean run's."""
+    flags = ["--arch", "recurrentgemma_2b", "--smoke", "--mole", "token",
+             "--device", "cpu", "--seq-len", "32", "--batch", "4",
+             "--warmup", "4", "--ckpt-every", "2", "--log-every", "1"]
+    clean, clean_hist = train.main(flags + ["--steps", "6", "--ckpt-dir",
+                                            str(tmp_path / "clean")])
+    train.main(flags + ["--steps", "4", "--ckpt-dir", str(tmp_path / "cut")])
+    resumed, hist = train.main(flags + ["--steps", "6", "--resume",
+                                        "--ckpt-dir", str(tmp_path / "cut")])
+    assert "resumed from step 4" in capsys.readouterr().out
+    assert sorted(_losses(hist)) == [4, 5]
+    assert all(_losses(hist)[s] == _losses(clean_hist)[s] for s in (4, 5))
+    _assert_same_state(resumed, clean)
+    assert int(resumed["opt"]["count"]) == 6
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--arch", "rwkv6_3b"], "wkv6"),
     (["--arch", ARCH, "--mole", "embedding"], "frontend"),

@@ -9,6 +9,7 @@ power limit.
         gemma2_train                                  # vocab 256000
     python3 tools/train_probe.py moe_path mla_path mla_train   # MoE, MLA
     python3 tools/train_probe.py kernels_k3 recurrentgemma_path  # RG-LRU
+    python3 tools/train_probe.py recurrentgemma_train   # the hybrid, trained
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -53,6 +54,9 @@ PHASES = {
     "mla_train": lambda dev, kernels: cs.train_path(
         dev, kernels, phase="mla_train", arch=cs.MLA_ARCH,
         peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.MLA_TRAIN),
+    "recurrentgemma_train": lambda dev, kernels: cs.train_path(
+        dev, kernels, phase="recurrentgemma_train", arch=cs.RG_ARCH,
+        peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.RG_TRAIN),
 }
 
 
