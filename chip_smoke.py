@@ -246,7 +246,10 @@ printing one JSON line; any failure raises and exits non-zero:
                 TF32 off, bf16 on the tensor cores) at the VGG-16 shapes,
                 and prints, not gated, K4's fp32 time at each split of K
                 and K5's product run on K4's FFMA kernel beside K5's own
-                (``on_morph_kernel``).
+                (``on_morph_kernel``).  K4 also at vlm_train's provider
+                morph, (2048, 7680) x (7680, 7680) fp32: against its plain
+                version, a float64 product (1e-5 * max|fp64|) and
+                torch.matmul, with its FFMA bound.
   8. vgg_path   the paper's developer path at VGG-16/CIFAR width (13 convs
                 64..512, 32x32, 10 classes), random weights from a seeded
                 generator on the card: one provider (``DataProvider``,
@@ -394,10 +397,53 @@ printing one JSON line; any failure raises and exits non-zero:
                 Printed beside the other train phases' figures: the scan's
                 time forward and forward plus backward at one rec layer's
                 shape and its share of the step (``scan_ms``).
+ 10f. vlm_path ``serve --mode lm`` (``serve.run_lm`` on a given config)
+                at llama32_vision_90b's published width (d 8192, 64 heads
+                of 128 over 8 KV heads, d_ff 28672 SwiGLU, vocab 128256, a
+                frontend of 1024 patches of 7680, tanh-gated cross layers
+                every fifth layer, bf16) cut to VLM_GROUPS of 20 groups
+                (the peak held at PEAK_LIMIT_GB; the constants say why),
+                both gates of every cross layer drawn in +-1 (the init's
+                zeros would make every cross layer add 0): 2 tenants x 8
+                requests of 512, 16 generated; the token lane morphs the
+                prompts, then one tenant at a time its fused params
+                (``fuse_lm_params``) prefill its 8 prompts beside all-zero
+                patches, as the reference feeds them, and decode greedily.
+                Gated: no kernel; each prefill fed (8, 1024, 7680) zero
+                bf16 patches; a fusion and a prefill a tenant; the peak;
+                and on the twin (its first attention and first cross
+                layer, full width, random patches): the served logits
+                unmorphed against the
+                raw params' prefill and decode within two bf16 ulps, each
+                token within the tie margin of an independent
+                teacher-forced forward with no cache, the cross caches
+                equal to K/V computed apart from the patches.  Printed:
+                prefill and decode-step p50, tokens/s, fusing a tenant.
+ 10g. vlm_train the train step at that width on ("attn", "cross") x 1
+                group (3.876 B parameters), 2 sequences of 2048 in 2
+                microbatches, remat, bf16, ``--mole embedding`` (kappa 1):
+                the developer's params fused from the init (``AugProj =
+                M^-1 W_in``) train on the provider stage's stream, whose
+                patches K4 morphs on the card.  Gates: (1) as train_path;
+                (2) K4 the only kernel, once a batch, at (2048, 7680) x
+                (7680, 7680); (3) at step 1 the raw params on raw patches
+                against the fused on morphed: in fp32 (no optimizer
+                state) the loss, every gradient but frontend_proj's, and
+                frontend_proj's against M^T times the raw one, and in
+                bf16 the train step's loss, each within VLM_GATE3_K times
+                the raw form's departure from a float64 evaluation (step
+                2 printed: AdamW is not rotation-invariant); (4) as
+                train_path.  Printed: step p50, tokens/s, MFU (6 flops a
+                token for the
+                parameters a token multiplies, attention over the causal
+                context and the 1024 patches, and 6 a parameter and patch
+                for frontend_proj and the cross K/V), the peak, a profiled
+                step, the provider stage's ms a batch and K4's share.
  11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
-     ``fp32_tables``), the card's name and power limit, and the final
-     ``{"ok": true, ...}`` line.
+     ``fp32_tables``; K4's at the vlm provider's morph, with vlm_train's
+     launches, beside its own under ``vlm_provider``), the card's name and
+     power limit, and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -619,6 +665,50 @@ RG_ARCH, RG_PROMPT, RG_TWIN_GROUPS = "recurrentgemma_2b", 4096, 2
 # window of 2048) in 2 microbatches.
 RG_TRAIN = dict(groups=8, seq=4096, global_batch=4, micro=2)
 K3_RG = (4, 2560, 256000)       # K3 at its decode shape: 5.24 GB of tables
+# vlm_path and vlm_train: llama32_vision_90b at its published width (d 8192,
+# 64 heads of 128 over 8 KV heads, d_ff 28672 SwiGLU, vocab 128256, RoPE
+# 5e5, a frontend of 1024 patches of 7680, tanh-gated cross layers every
+# fifth layer, bf16).  ModelConfig.param_count: 87.73 B in 100 layers; a
+# group of four attention layers and a cross layer is 4.278 B (8.56 GB in
+# bf16); embedding, head and frontend_proj 2.164 B (4.33 GB).  vlm_path
+# serves VLM_GROUPS of the 20 groups: 6 are 25.67 B, with the tables 27.83
+# B (55.7 GB); a tenant's fused embedding and head add 4.2 GB while it is
+# served; a prefill of 8 rows of 512 holds its dense cross scores over the
+# 1024 patches (8 x 64 x 512 x 1024 fp32, 1.07 GB, up to three such
+# tensors at once): about 63-66 GB, under PEAK_LIMIT_GB (7 groups would
+# add 8.56 GB).  2 tenants of 8 requests, prompts of 512, 16 generated;
+# the twin serves 4 of the prompts.
+VLM_ARCH, VLM_GROUPS, VLM_TENANTS, VLM_REQUESTS = "llama32_vision_90b", 6, 2, 16
+VLM_PROMPT, VLM_GEN, VLM_TWIN_ROWS = 512, 16, 4
+# The twin: the first attention layer and the first cross layer.  A whole
+# group (5 random bf16 layers) amplifies the rounding of the serving steps
+# against a forward past the tie margin: a token 30.0 bf16 ulps below the
+# forward's max (NVIDIA H100 80GB HBM3, 700.00 W).  The same happens in
+# fp32 on the CPU at d 1024: one attention layer departs from the forward
+# by 1e-6 of max|logit|, four by up to 1.4e-2, so it is depth, not the
+# cross layer (alone 1e-6).  lm_path's twins are 2 layers for that reason.
+VLM_TWIN_PATTERN = ("attn", "cross")
+# vlm_train: the pattern ("attn", "cross") x 1 group is 3.876 B parameters,
+# 62.0 GB of state at 16 B a parameter (a full group, 6.44 B, would need
+# 103 GB); remat keeps each block's input, one block's recompute and
+# backward hold the cross scores (1 x 64 x 2048 x 1024 fp32, 0.54 GB) and
+# their gradient, and a CE chunk's fp32 logits are 512 x 128256 x 4 B =
+# 0.26 GB: about 64-68 GB.  2 sequences of 2048 in 2 microbatches; the
+# provider morphs a batch's (2 x 1024, 7680) patch rows by the (7680, 7680)
+# core (kappa 1) through K4, K4_VLM.
+VLM_TRAIN = dict(seq=2048, global_batch=2, micro=2)
+K4_VLM = (2048, 1, 7680)        # (R, kappa, q): 241.6 GFLOP, 0.36 GB
+# Gate 3 of vlm_train holds the fused form against the raw form within this
+# many times the raw form's own departure from a float64 evaluation (the
+# CPU tests' rule, tests/test_torch_vlm.py: two fp32 evaluations agree no
+# closer than each is to the float64 one); the float64 gradients are taken
+# for these leaves (their fp32 copies wait on the host meanwhile).
+VLM_GATE3_K = 4
+VLM_FP64_LEAVES = (
+    "embed", "frontend_proj", "head", "final_norm", "blocks.0.mix.wq",
+    "blocks.0.ffn.wo", "blocks.1.mix.wq", "blocks.1.mix.wk",
+    "blocks.1.mix.wv", "blocks.1.mix.wo", "blocks.1.mix.ctx_norm",
+    "blocks.1.mix.gate_attn", "blocks.1.mix.gate_ffn", "blocks.1.ffn.wi_gate")
 
 
 def bf16_ulp(x: float) -> float:
@@ -2892,6 +2982,33 @@ def k45_checks(dev, kernels, ref) -> dict:
              kernels.morph_rows_batched(x, cores, 1),
              ref.block_diag_matmul_batched_ref(x, cores, 1))
     del x32, cores32, x, cores
+    # K4 at the provider's patch morph of vlm_train (fp32: the stage morphs
+    # the fp32 stream): against its plain version, a float64 product and
+    # torch.matmul; not counted (vlm_train counts its launches).
+    R, kappa, q = K4_VLM
+    x, core = randn(R, kappa * q), randn(q, q, scale=q ** -0.5)
+    got = kernels.morph_rows(x, core, kappa)
+    hold("block_diag_matmul", f"vlm_provider_R{R}_q{q}", torch.float32, got,
+         ref.block_diag_matmul_ref(x, core, kappa))
+    row = timed(torch.float32,
+                lambda: kernels.block_diag_matmul(x, core, kappa),
+                lambda: ref.block_diag_matmul_ref(x, core, kappa),
+                lambda: torch.matmul(x, core),
+                4 * (2 * R * kappa * q + q * q), 2 * R * kappa * q * q, 5)
+    check(same_bits(got, kernels.block_diag_matmul(x, core, kappa)),
+          "block_diag_matmul at the vlm provider shape: two calls differ")
+    row.update(timed_shape=f"x({R},{kappa * q}) core({q},{q}) kappa={kappa}",
+               deterministic=True,
+               max_abs_err=float((got - ref.block_diag_matmul_ref(
+                   x, core, kappa)).abs().max()),
+               splits=gemm.morph_splits(1, R * kappa, q, q,
+                                        gemm.sm_count(dev)),
+               err_vs_fp64=err_vs_fp64("block_diag_matmul", x[None],
+                                       core[None], got[None],
+                                       torch.matmul(x, core)[None]))
+    rows["block_diag_matmul"]["vlm_provider"] = row
+    del x, core, got
+    torch.cuda.empty_cache()
 
     # K5: single-tenant at the developer path's shape, per-group, ragged.
     B, K, N = K5_MAIN
@@ -3612,6 +3729,616 @@ def train_resume_path(dev, kernels) -> dict:
     return out
 
 
+# -- phases 10f and 10g: the vision-language stack ------------------------------
+
+def live_gates(params, cfg, seed: int) -> list[float]:
+    """Both tanh gates of every cross layer drawn uniform in +-1 from
+    ``seed``, in place.  ``Model.init`` draws them as zeros (the
+    reference's init), and a cross layer then adds exactly 0 to the
+    residual: a broken cross-attention would serve and train unseen."""
+    gen = torch.Generator().manual_seed(seed)
+    drawn = []
+    for kind, p in zip(cfg.layer_kinds(), params["blocks"]):
+        if kind == "cross":
+            for name in ("gate_attn", "gate_ffn"):
+                g = float(torch.rand((), generator=gen)) * 2 - 1
+                p["mix"][name].data.fill_(g)
+                drawn.append(g)
+    return drawn
+
+
+class ServeTap:
+    """Times what ``serve.run_lm``'s per-tenant path runs for a frontend
+    model.  While installed, ``repro_torch.core.deploy.fuse_lm_params`` and
+    ``repro_torch.launch.steps.make_prefill_step`` / ``make_decode_step``
+    (the names ``_serve_per_tenant`` reads when it runs) are wrapped: each
+    call is timed on the host clock between two ``torch.cuda.synchronize()``
+    and calls the real function once; a prefill also records its inputs'
+    shapes and dtypes and max|patches|."""
+
+    def __init__(self):
+        from repro_torch.core import deploy
+        from repro_torch.launch import steps
+
+        self.deploy, self.steps = deploy, steps
+        self._fuse = deploy.fuse_lm_params
+        self._prefill, self._decode = steps.make_prefill_step, steps.make_decode_step
+        self.fuse_s, self.prefill_ms, self.decode_ms, self.inputs = [], [], [], []
+
+    @staticmethod
+    def _timed(out: list, scale: float, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out.append((time.monotonic() - t0) * scale)
+        return res
+
+    def _wrap_fuse(self, *args, **kwargs):
+        return self._timed(self.fuse_s, 1.0,
+                           lambda: self._fuse(*args, **kwargs))
+
+    def _wrap_prefill(self, model):
+        step = self._prefill(model)
+
+        def prefill(params, batch, caches):
+            self.inputs.append({k: [list(v.shape), str(v.dtype).split(".")[-1]]
+                                for k, v in batch.items()})
+            self.inputs[-1]["max_abs_patches"] = float(
+                batch["patches"].abs().max())
+            return self._timed(self.prefill_ms, 1e3, step, params, batch,
+                               caches)
+        return prefill
+
+    def _wrap_decode(self, model):
+        step = self._decode(model)
+        return lambda *a: self._timed(self.decode_ms, 1e3, step, *a)
+
+    def __enter__(self):
+        self.deploy.fuse_lm_params = self._wrap_fuse
+        self.steps.make_prefill_step = self._wrap_prefill
+        self.steps.make_decode_step = self._wrap_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.deploy.fuse_lm_params = self._fuse
+        self.steps.make_prefill_step = self._prefill
+        self.steps.make_decode_step = self._decode
+
+
+def vlm_twin(dev, params, cfg, prompts, tenant_seed: int) -> dict:
+    """The twin of vlm_path: its first attention layer and its first gated
+    cross layer (2 layers, full width, the main run's weights and live
+    gates; VLM_TWIN_PATTERN says why not the whole group) on random
+    patches from the seed.  One tenant's fused params serve the morphed
+    prompts through ``make_prefill_step`` (which writes the cross caches)
+    and greedy ``make_decode_step`` (which reads them and never sees the
+    patches).  Gated: (4) the served logits, unmorphed with the tenant's
+    permutation (``plain[v] = morphed[perm[v]]``), against the raw params'
+    prefill and decode steps teacher-forced with the unmorphed tokens,
+    within two bf16 ulps of max|raw|; (3) each unmorphed token within the
+    tie margin (TIE_MARGIN_ULPS bf16 ulps of max|logit|) of the maximum of
+    an independent teacher-forced ``forward`` on the raw params with no
+    cache (the cross K/V computed anew); and the cross layer's caches after
+    the served prefill hold rms_norm(patches @ frontend_proj, ctx_norm)
+    @ wk (and wv), computed apart, within two bf16 ulps of their max.
+    Printed: how far the forward's logits on zero patches lie from those
+    on the random patches."""
+    import dataclasses
+
+    from repro_torch.core.deploy import fuse_lm_params
+    from repro_torch.core.lm import TokenMorpher
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import Model, layers as L, stack as S
+
+    cfg2 = dataclasses.replace(cfg, block_pattern=VLM_TWIN_PATTERN, n_groups=1)
+    model2 = Model(cfg2, dev)
+    params2 = {k: params[k] for k in params.keys() if k != "blocks"}
+    kinds = cfg.layer_kinds()
+    params2["blocks"] = [params["blocks"][kinds.index(k)]
+                         for k in VLM_TWIN_PATTERN]
+    rows, P = prompts.shape
+    fe = cfg.frontend
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    patches = torch.randn((rows, fe.n_tokens, fe.d_in), generator=gen,
+                          device=dev)
+    tm = TokenMorpher.create(tenant_seed, cfg.vocab)
+    prefill, decode = make_prefill_step(model2), make_decode_step(model2)
+
+    def serve_steps(p, toks, forced=None):
+        caches = model2.init_cache(rows, P + VLM_GEN + 1)
+        lg, caches = prefill(p, {"tokens": torch.from_numpy(toks).long().to(dev),
+                                 "patches": patches}, caches)
+        cross = {k: v.clone() for k, v in caches["blocks"][-1].items()}
+        out, logits = [], [lg[:, 0].float()]
+        for i in range(VLM_GEN - 1):
+            tok = (torch.argmax(lg[:, 0], -1) if forced is None
+                   else torch.from_numpy(forced[:, i]).to(dev))
+            out.append(tok)
+            lg, caches = decode(p, tok[:, None].long(), P + i, caches)
+            logits.append(lg[:, 0].float())
+        out.append(torch.argmax(lg[:, 0], -1))
+        return (torch.stack(logits, 1), torch.stack(out, 1).cpu().numpy(),
+                cross)
+
+    with torch.no_grad():
+        fused = fuse_lm_params(params2, cfg2, token_morpher=tm)
+        served_lg, served, cross = serve_steps(fused, tm.perm[prompts])
+        del fused
+        check(cfg2.layer_kinds()[-1] == "cross", "the twin ends in no cross layer")
+        mix = params2["blocks"][-1]["mix"]
+        ctx = L.rms_norm(torch.matmul(patches.to(cfg.adtype),
+                                      params2["frontend_proj"]),
+                         mix["ctx_norm"]).float()
+        cache_err = 0.0
+        for name in ("k", "v"):
+            want = torch.einsum("bsd,dhk->bshk", ctx, mix["w" + name].float())
+            err = float((cross[name].float() - want).abs().max())
+            lim = 2 * bf16_ulp(float(want.abs().max()))
+            check(err <= lim, f"vlm twin: cross cache {name} off by {err} > "
+                              f"{lim}")
+            cache_err = max(cache_err, err / lim)
+        del ctx, want, cross
+        final = tm.inv_perm[served]
+        raw_lg, _, _ = serve_steps(params2, prompts, forced=final)
+        perm = torch.from_numpy(tm.perm).to(dev)
+        unmorphed = served_lg[..., perm]
+        err4 = float((unmorphed - raw_lg).abs().max())
+        lim4 = 2 * bf16_ulp(float(raw_lg.abs().max()))
+        check(err4 <= lim4, f"vlm twin check 4: |unmorphed served - raw "
+                            f"steps| {err4} > {lim4}")
+        seqs = torch.from_numpy(np.concatenate([prompts, final[:, :-1]], 1)
+                                ).long().to(dev)
+        fwd = S.forward(params2, cfg2, seqs, ctx=patches)[0][:, P - 1:]
+        gap, exact = gaps_in_ulps(fwd, final)
+        check(bool((gap <= TIE_MARGIN_ULPS).all()),
+              f"vlm twin check 3: a token is {gap.max():.2f} bf16 ulps below "
+              f"the forward's max (margin {TIE_MARGIN_ULPS})")
+        steps_vs_fwd = float((raw_lg - fwd).abs().max())
+        zero = S.forward(params2, cfg2, seqs,
+                         ctx=torch.zeros_like(patches))[0][:, P - 1:]
+        live = float((zero - fwd).abs().max())
+    return {"layers": cfg2.layer_kinds(), "rows": rows, "prompt_len": P,
+            "gen": VLM_GEN, "patches": list(patches.shape),
+            "unmorph_vs_raw_steps_max_abs": err4, "unmorph_limit": lim4,
+            "forward_worst_gap_ulps": float(gap.max()),
+            "forward_exact_argmax_share": float(exact.mean()),
+            "steps_vs_forward_max_ulps": steps_vs_fwd / bf16_ulp(
+                float(fwd.abs().max())),
+            "cross_cache_worst_share_of_limit": cache_err,
+            "zero_vs_random_patches_max_ulps": live / bf16_ulp(
+                float(fwd.abs().max()))}
+
+
+def vlm_path(dev, kernels) -> dict:
+    """``serve --mode lm`` (``serve.run_lm``) at llama32_vision_90b's
+    published width cut to VLM_GROUPS groups, with live gates: the token
+    lane morphs the prompts, then one tenant at a time its fused params
+    prefill its 8 prompts beside all-zero patches and decode greedily.
+    Gated: no kernel launched (all six counters 0); every prefill fed
+    (8, 1024, 7680) zero bf16 patches; one fusion and one prefill a
+    tenant and a decode step a generated token after the first; the
+    generations' shape and range; the peak at PEAK_LIMIT_GB; the twin's
+    checks (:func:`vlm_twin`).  Printed: prefill and decode-step p50,
+    tokens/s, the fusing time a tenant, the peak."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_groups=VLM_GROUPS)
+    torch.cuda.reset_peak_memory_stats()
+    host_reset = host_peak_reset()
+    model = Model(cfg, dev)
+    t0 = time.monotonic()
+    params = model.init(SEED)
+    gates = live_gates(params, cfg, SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    args = serve.parse_args([
+        "--mode", "lm", "--arch", VLM_ARCH, "--requests", str(VLM_REQUESTS),
+        "--tenants", str(VLM_TENANTS), "--prompt-len", str(VLM_PROMPT),
+        "--gen", str(VLM_GEN), "--mole", "token", "--seed", str(SEED)])
+    reset_launches(kernels)
+    with torch.no_grad(), ServeTap() as tap:
+        t0 = time.monotonic()
+        final = serve.run_lm(args, params=params, cfg=cfg)
+        serve_s = time.monotonic() - t0
+    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    check(not any(launches.values()), f"vlm_path launched kernels: {launches}")
+    rows = VLM_REQUESTS // VLM_TENANTS
+    fe = cfg.frontend
+    want_in = {"tokens": [rows, VLM_PROMPT],
+               "patches": [rows, fe.n_tokens, fe.d_in]}
+    check(len(tap.fuse_s) == len(tap.prefill_ms) == VLM_TENANTS
+          and len(tap.decode_ms) == VLM_TENANTS * (VLM_GEN - 1),
+          f"{len(tap.fuse_s)} fusions, {len(tap.prefill_ms)} prefills, "
+          f"{len(tap.decode_ms)} decode steps for {VLM_TENANTS} tenants")
+    for seen in tap.inputs:
+        check(seen["tokens"][0] == want_in["tokens"]
+              and seen["patches"] == [want_in["patches"], "bfloat16"]
+              and seen["max_abs_patches"] == 0.0,
+              f"a prefill was fed {seen}")
+    check(final.shape == (VLM_REQUESTS, VLM_GEN)
+          and final.min() >= 0 and final.max() < cfg.vocab,
+          f"generations {final.shape}, ids {final.min()}..{final.max()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(peak_gb <= PEAK_LIMIT_GB,
+          f"peak device memory {peak_gb:.2f} GB > {PEAK_LIMIT_GB} GB")
+    prompts = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=VLM_PROMPT,
+                                     global_batch=VLM_REQUESTS, seed=SEED)
+                          ).batch(0)["tokens"]
+    twin = vlm_twin(dev, params, cfg, prompts[:VLM_TWIN_ROWS], SEED)
+    tokens = VLM_REQUESTS * VLM_GEN
+    dev_s = (sum(tap.fuse_s) + sum(tap.prefill_ms) / 1e3
+             + sum(tap.decode_ms) / 1e3)
+    out = {"phase": "vlm_path", "arch": VLM_ARCH, "layers": cfg.n_layers,
+           "published_layers": get_config(VLM_ARCH).n_layers,
+           "groups": VLM_GROUPS, "block_pattern": list(cfg.block_pattern),
+           "params": model.param_count(), "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "frontend": [fe.n_tokens, fe.d_in],
+           "dtype": cfg.dtype, "gates": gates, "tenants": VLM_TENANTS,
+           "requests": VLM_REQUESTS, "rows_per_prefill": rows,
+           "prompt_len": VLM_PROMPT, "gen": VLM_GEN, "launches": launches,
+           "prefill_inputs": tap.inputs[0],
+           "prefill_ms": tap.prefill_ms,
+           "prefill_p50_ms": float(np.median(tap.prefill_ms)),
+           "decode_step_p50_ms": float(np.median(tap.decode_ms)),
+           "fuse_s_per_tenant": tap.fuse_s,
+           "developer_s": dev_s, "tokens_per_s": tokens / dev_s,
+           "run_lm_s": serve_s, "tokens_per_s_run_lm": tokens / serve_s,
+           "weights_init_s": init_s, "peak_mem_gb": peak_gb,
+           "peak_limit_gb": PEAK_LIMIT_GB, "host_peak_rss_gb": host_peak_gb(),
+           "host_peak_rss_since": ("phase start" if host_reset
+                                   else "process start"),
+           "tie_margin_ulps": TIE_MARGIN_ULPS, "twin": twin,
+           "first_generation": final[0][:12].tolist(),
+           "phase_s": time.monotonic() - t_phase}
+    emit(out)
+    return out
+
+
+class MorphTap:
+    """Records what the provider stage hands K4: while installed,
+    ``repro_torch.data.pipeline.morph_rows`` (the name the stage calls) is
+    wrapped; each call records its operands' shapes and its device time
+    (host clock between two ``torch.cuda.synchronize()``), and calls the
+    real entry point once."""
+
+    def __init__(self):
+        from repro_torch.data import pipeline
+
+        self.pipeline, self.calls = pipeline, []
+        self._real = pipeline.morph_rows
+
+    def _morph(self, x, core, kappa):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = self._real(x, core, kappa)
+        torch.cuda.synchronize()
+        self.calls.append({"x": list(x.shape), "core": list(core.shape),
+                           "kappa": int(kappa),
+                           "ms": (time.monotonic() - t0) * 1e3})
+        return out
+
+    def __enter__(self):
+        self.pipeline.morph_rows = self._morph
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.morph_rows = self._real
+
+
+def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
+              global_batch: int = VLM_TRAIN["global_batch"],
+              micro: int = VLM_TRAIN["micro"]) -> dict:
+    """The train step at llama32_vision_90b's published width on the
+    pattern ("attn", "cross") x 1 group, ``--mole embedding`` (kappa 1),
+    live gates: the developer's params are fused from the init
+    (``frontend_proj`` becomes AugProj = M^-1 W_in) and train on the
+    provider stage's morphed stream, which K4 morphs on the card.  Gates:
+    (1) loss and grad_norm finite, the count equal to the steps; (2) K4
+    the only kernel, launched once a batch at (2048, 7680) x (7680, 7680);
+    (3) embedding-mode equality at step 1 (:func:`vlm_mole_gate`, and the
+    bf16 run's step-1 loss against the raw params' on the raw stream
+    within VLM_GATE3_K times the raw bf16 loss's departure from float64;
+    step 2 printed, not gated: AdamW is not rotation-invariant); (4) after
+    training no leaf requires grad, and a prefill and a decode step on the
+    trained params return tensors without a graph.  Printed: step p50,
+    tokens/s, MFU, the peak, the profiled step's top operations and idle
+    share, the provider's ms a batch (K4 and the whole stage)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import fuse_lm_params
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.launch.steps import (
+        TrainHParams, make_decode_step, make_prefill_step, make_train_step,
+    )
+    from repro_torch.models import Model, ParamTree
+    from repro_torch.models.base import MoLeCfg
+    from repro_torch.optim import adamw
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(
+        get_config(VLM_ARCH), block_pattern=("attn", "cross"), n_groups=1,
+        mole=MoLeCfg(enabled=True, mode="embedding", kappa=1, seed=SEED))
+    raw_cfg = dataclasses.replace(cfg, mole=MoLeCfg())
+    hp = TrainHParams(optimizer=adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP),
+                      microbatch=micro, remat=True)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=global_batch,
+                      seed=SEED)
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    pipe = Pipeline(data, model_cfg=cfg, device=dev)   # the core: fp64 QR
+    core_s = time.monotonic() - t0
+    em = pipe.provider.embed_morpher
+    model = Model(cfg, dev)
+    n_params = model.param_count()
+    params = model.init(SEED)
+    gates = live_gates(params, cfg, SEED)
+    params = ParamTree(fuse_lm_params(params, cfg, embed_morpher=em))
+    opt = adamw.init_state(params)
+    step = make_train_step(model, hp)
+    reset_launches(kernels)
+    metrics, step_ms, stage_ms = [], [], []
+    with MorphTap() as morph:
+        for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            batch = on_card(next(pipe))
+            torch.cuda.synchronize()
+            stage_ms.append((time.monotonic() - t0) * 1e3)
+            t0 = time.monotonic()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            metrics.append(m)
+        p50 = float(np.median(step_ms[TRAIN_WARMUP:]))
+
+        def profiled():
+            nonlocal params, opt
+            params, opt, m = step(params, opt, on_card(next(pipe)))
+            metrics.append(m)
+
+        prof = step_profile(profiled, p50)
+    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(peak_gb <= PEAK_LIMIT_GB,
+          f"peak device memory {peak_gb:.2f} GB > {PEAK_LIMIT_GB} GB")
+    # Gate 1.
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"gate 1: non-finite loss {losses} or grad_norm {norms}")
+    check(int(opt["count"]) == len(metrics),
+          f"gate 1: opt count {int(opt['count'])} after {len(metrics)} steps")
+    # Gate 2: K4 alone, once a batch (the warmup's step() call draws one
+    # batch more for profiling), at the provider's shape.
+    R, kappa, q = K4_VLM
+    batches = pipe.index
+    check(launches["block_diag_matmul"] == batches == len(morph.calls)
+          and not any(c for n, c in launches.items()
+                      if n != "block_diag_matmul"),
+          f"gate 2: launches {launches} for {batches} batches")
+    check(all(c["x"] == [R, kappa * q] and c["core"] == [q, q]
+              for c in morph.calls), f"gate 2: K4 saw {morph.calls}")
+    # Gate 4: the trained params serve without a graph.
+    check(not any(p.requires_grad for p in params.parameters()),
+          "gate 4: a leaf still requires grad after training")
+    with torch.no_grad():
+        toks = batch["tokens"][:1, :32].long()
+        caches = model.init_cache(1, 40)
+        lg, caches = make_prefill_step(model)(
+            params, {"tokens": toks, "patches": batch["patches"][:1]}, caches)
+        lg2, caches = make_decode_step(model)(
+            params, torch.argmax(lg[:, 0], -1)[:, None], 32, caches)
+    outs = [lg, lg2] + [x for c in caches["blocks"] for x in c.values()]
+    check(all(o.grad_fn is None and not o.requires_grad for o in outs),
+          "gate 4: a serving output after training carries a graph")
+    check(bool(torch.isfinite(lg2).all()), "gate 4: non-finite logits")
+    del params, opt, step, batch, metrics, caches, lg, lg2, outs
+    release()
+
+    # Gate 3, bf16: the raw params on the raw stream, 2 steps, against the
+    # fused run's first two (its step 1 gated below, step 2 printed).
+    raw_model = Model(raw_cfg, dev)
+    raw_params = raw_model.init(SEED)
+    live_gates(raw_params, raw_cfg, SEED)
+    raw_opt = adamw.init_state(raw_params)
+    raw_step = make_train_step(raw_model, hp)
+    raw_pipe = Pipeline(data, model_cfg=raw_cfg)
+    raw_losses = []
+    for _ in range(2):
+        raw_params, raw_opt, m = raw_step(raw_params, raw_opt,
+                                          on_card(next(raw_pipe)))
+        raw_losses.append(float(m["loss"]))
+    del raw_params, raw_opt, raw_step, raw_model
+    release()
+    mole = vlm_mole_gate(dev, cfg, raw_cfg, data, em)
+    rel1 = abs(losses[0] - raw_losses[0]) / abs(raw_losses[0])
+    dep_bf16 = abs(raw_losses[0] - mole["loss_fp64"]) / abs(mole["loss_fp64"])
+    check(rel1 <= VLM_GATE3_K * dep_bf16,
+          f"gate 3 (bf16): step-1 losses fused {losses[0]} raw "
+          f"{raw_losses[0]}: {rel1} > {VLM_GATE3_K} x {dep_bf16}")
+    # K4 at the provider's shape on the last batch's rows (not counted).
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (R, kappa * q)).astype(np.float32)).to(dev)
+    core = torch.from_numpy(em.core.matrix).to(dev)
+    k4_ms = cuda_ms(lambda: kernels.morph_rows(x, core, kappa), 10)
+    del x, core, pipe, raw_pipe
+    release()
+
+    # Model flops a step (remat's recompute not counted): 6 a token for the
+    # parameters a token's path multiplies (all but the embedding table,
+    # frontend_proj and the cross layers' wk / wv, which act on the
+    # patches); attention 12 H hd a token per attended position, (S + 1) / 2
+    # for a causal layer and the 1024 patches for a cross layer; and per
+    # sequence, frontend_proj and the cross layers' K/V projections over
+    # its 1024 patches, 6 flops a parameter and patch.
+    H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    fe = cfg.frontend
+    kinds = cfg.layer_kinds()
+    n_cross, n_self = kinds.count("cross"), kinds.count("attn")
+    per_patch = fe.d_in * d + n_cross * 2 * d * cfg.n_kv_heads * hd
+    tokens = global_batch * seq
+    flops = (tokens * (6 * (n_params - cfg.vocab * d - per_patch)
+                       + 12 * H * hd * (n_self * (seq + 1) / 2
+                                        + n_cross * fe.n_tokens))
+             + global_batch * 6 * fe.n_tokens * per_patch)
+    out = {"phase": "vlm_train", "arch": VLM_ARCH, "layers": cfg.n_layers,
+           "published_layers": get_config(VLM_ARCH).n_layers,
+           "block_pattern": list(cfg.block_pattern), "params": n_params,
+           "gates": gates, "seq_len": seq, "global_batch": global_batch,
+           "microbatches": micro, "remat": True, "mole": "embedding",
+           "kappa": kappa, "launches": launches, "k4_calls": morph.calls[:1],
+           "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "train_step_ms": p50, "train_tokens_per_s": tokens / (p50 / 1e3),
+           "train_peak_gb": peak_gb, "peak_limit_gb": PEAK_LIMIT_GB,
+           "train_mfu": flops / (p50 / 1e3) / BF16_FLOP_PER_S,
+           "flops_per_step": flops, "train_step_profile": prof,
+           "provider_stage_ms_per_batch": float(np.median(stage_ms)),
+           "provider_k4_ms_per_batch": float(np.median(
+               [c["ms"] for c in morph.calls])),
+           "k4_device_ms": k4_ms, "core_qr_s": core_s,
+           "mole_gate": dict(mole, bf16_step1_rel=rel1,
+                             bf16_raw_vs_fp64_rel=dep_bf16,
+                             bf16_raw_losses=raw_losses,
+                             bf16_fused_losses=losses[:2],
+                             bf16_step2_rel_not_gated=abs(
+                                 losses[1] - raw_losses[1]) / abs(raw_losses[1]),
+                             k=VLM_GATE3_K),
+           "phase_s": time.monotonic() - t_phase}
+    emit(out)
+    return out
+
+
+def max_rel_departure(host: torch.Tensor, exact: torch.Tensor) -> float:
+    """max|host - exact| / max|exact|, ``host`` (on the host) moved to
+    ``exact``'s device slice by slice (2^26 entries), so no copy of the
+    whole leaf is made there."""
+    a, b = host.reshape(-1), exact.reshape(-1)
+    step = 1 << 26
+    err = max(float((a[i:i + step].to(b.device).double() - b[i:i + step])
+                    .abs().max()) for i in range(0, b.numel(), step))
+    return err / float(b.abs().max())
+
+
+def vlm_mole_gate(dev, cfg, raw_cfg, data, em) -> dict:
+    """Gate 3 of vlm_train in fp32, at step 1, with no optimizer state (8 B
+    a parameter): on the stream's first batch, the raw params on the raw
+    patches against the fused params (AugProj = M^-1 W_in, fp32) on the
+    provider's morphed patches (K4).  With an orthogonal core the two
+    losses and every gradient but ``frontend_proj``'s are equal, and
+    dL/dAugProj = M^T dL/dW_in.  Each is held within VLM_GATE3_K times the
+    raw form's own departure from the same model evaluated with float64
+    products (norms, attention scores and the CE's logits stay fp32, as in
+    the fp32 run) on the same batch: the loss, and each gradient of the
+    leaves in VLM_FP64_LEAVES at its own departure, every other leaf at
+    the largest of theirs (float64 gradients of every leaf would need
+    31 GB beside the 31 GB of float64 params).  Returns the figures and
+    the float64 loss."""
+    import dataclasses
+
+    from repro_torch.core.deploy import fuse_lm_params
+    from repro_torch.data import Pipeline, ProviderStage
+    from repro_torch.launch import steps
+    from repro_torch.models import Model, ParamTree
+    from repro_torch.optim import adamw
+
+    c32 = dataclasses.replace(raw_cfg, dtype="float32", param_dtype="float32")
+    model = Model(c32, dev)
+    params = model.init(SEED)
+    live_gates(params, c32, SEED)
+    raw = {k: torch.as_tensor(v, device=dev)
+           for k, v in next(Pipeline(data, model_cfg=raw_cfg)).items()}
+    morphed = ProviderStage(embed_morpher=em, device=dev)(raw)
+
+    def grads(p, batch, wanted=None):
+        names, leaves = zip(*adamw.named_leaves(p))
+        if wanted is not None:
+            names, leaves = zip(*[(n, t) for n, t in zip(names, leaves)
+                                  if n in wanted])
+        with torch.enable_grad(), steps._grad_on(leaves):
+            loss = model.loss(p, batch, remat=True)
+            g = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), dict(zip(names, g))
+
+    loss_raw, g_raw = grads(params, raw)
+    fused = ParamTree(fuse_lm_params(params, c32, embed_morpher=em))
+    loss_fused, g_fused = grads(fused, morphed)
+    del fused
+    worst, worst_leaf, fused_rel = 0.0, None, {}
+    for n, g in g_raw.items():
+        if n == "frontend_proj":
+            continue
+        rel = float((g_fused[n] - g).abs().max()) / float(g.abs().max())
+        fused_rel[n] = rel
+        if rel > worst:
+            worst, worst_leaf = rel, n
+    q, kappa = em.core.q, em.core.kappa
+    core = torch.from_numpy(em.core.matrix).to(dev)
+    gp = g_raw["frontend_proj"]
+    want = torch.matmul(core.T, gp.reshape(kappa, q, -1)).reshape(gp.shape)
+    proj_rel = float((g_fused["frontend_proj"] - want).abs().max()) / float(
+        want.abs().max())
+    del g_fused, want, core
+    kept = {n: g_raw[n].cpu() for n in VLM_FP64_LEAVES}   # off the card
+    del g_raw
+    release()
+    # The float64 evaluation of the raw form, on the same weights.
+    c64 = dataclasses.replace(c32, dtype="float64", param_dtype="float64")
+    model = Model(c64, dev)
+    for p in params.parameters():
+        p.data = p.data.double()
+    # One pass a table (their float64 gradients are 8.4 GB each), one for
+    # the rest; each pass's gradients are compared slice by slice and freed.
+    tables = ("embed", "head")
+    deps = {}
+    for wanted in [(n,) for n in tables] + [
+            tuple(n for n in VLM_FP64_LEAVES if n not in tables)]:
+        loss64, g64 = grads(params, raw, wanted=set(wanted))
+        for n, g in g64.items():
+            deps[n] = max_rel_departure(kept.pop(n), g)
+        del g64
+        release()
+    dep_loss = abs(loss_raw - loss64) / abs(loss64)
+    dep_grad = max(deps.values())
+    del params
+    release()
+    loss_rel = abs(loss_fused - loss_raw) / abs(loss_raw)
+    k = VLM_GATE3_K
+    # Both evaluations take the CE's log-sum-exp of fp32 logits (as the
+    # reference does), so the losses may agree to the bit: one fp32 unit
+    # roundoff is the least departure the bound assumes.
+    loss_dep = max(dep_loss, FP32_UNIT_ROUNDOFF)
+    check(loss_rel <= k * loss_dep,
+          f"gate 3 (fp32): losses fused {loss_fused} raw {loss_raw}: "
+          f"{loss_rel} > {k} x {loss_dep}")
+    for n, rel in fused_rel.items():
+        dep = deps.get(n, dep_grad)
+        check(rel <= k * dep, f"gate 3 (fp32): gradient {n} {rel} > {k} x "
+                              f"{dep}")
+    check(proj_rel <= k * deps["frontend_proj"],
+          f"gate 3 (fp32): dAugProj against M^T dW_in {proj_rel} > {k} x "
+          f"{deps['frontend_proj']}")
+    return {"fp32_loss_raw": loss_raw, "fp32_loss_fused": loss_fused,
+            "fp32_loss_rel": loss_rel, "fp32_grad_worst_rel": worst,
+            "fp32_grad_worst_leaf": worst_leaf,
+            "fp32_dAugProj_vs_MT_dWin_rel": proj_rel,
+            "loss_fp64": loss64, "fp32_raw_vs_fp64_loss_rel": dep_loss,
+            "fp32_raw_vs_fp64_grad_rel": dep_grad,
+            "per_leaf_fused_vs_raw_and_raw_vs_fp64": {
+                n: [fused_rel.get(n), deps[n]] for n in VLM_FP64_LEAVES}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; needs a GPU")
@@ -3697,8 +4424,14 @@ def main() -> None:
     release()
     train_path(dev, kernels, phase="recurrentgemma_train", arch=RG_ARCH,
                peak_limit_gb=PEAK_LIMIT_GB, **RG_TRAIN)
+    release()
+    vlm_path(dev, kernels)
+    release()
+    vlm = vlm_train(dev, kernels)
+    release()
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
                     wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
+    launches["block_diag_matmul"] += vlm["launches"]["block_diag_matmul"]
     check(all(launches[n] > 0 for n in KERNEL_NAMES),
           f"a kernel was not launched on its path: {launches}")
 
@@ -3726,6 +4459,14 @@ def main() -> None:
     k3 = line[list(kernel_rows).index("grouped_row_gemm")]
     k3["fp32_tables"] = {k: rows["grouped_row_gemm"]["fp32_tables"][k]
                          for k in keys}
+    # K4's figures are at the developer path's morph (VGG-16/CIFAR); at the
+    # vlm provider's patch morph they stand beside them, with the launches
+    # of vlm_train's run (the rest of K4's launches are vgg_path's).
+    k4 = line[list(kernel_rows).index("block_diag_matmul")]
+    vlm_row = rows["block_diag_matmul"]["vlm_provider"]
+    k4["vlm_provider"] = dict(
+        {k: vlm_row[k] for k in keys + ("max_abs_err", "timed_shape")},
+        launches=vlm["launches"]["block_diag_matmul"])
     emit({"kernels": line})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

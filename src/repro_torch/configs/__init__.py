@@ -6,8 +6,9 @@ as their slices land (dense attention: deepseek_7b, phi3_mini_3p8b,
 command_r_35b and gemma2_27b, whose local layers attend in a sliding
 window; RWKV-6: rwkv6_3b; fine-grained MoE: deepseek_moe_16b, and
 deepseek_v2_lite_16b with multi-head latent attention; the hybrid
-RG-LRU / local-attention stack: recurrentgemma_2b).  Every other name
-raises ``NotImplementedError``.
+RG-LRU / local-attention stack: recurrentgemma_2b; the vision-language
+stack with tanh-gated cross-attention over a stubbed patch stream:
+llama32_vision_90b).  Every other name raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from ..models.base import ModelConfig
 
 ARCHS: tuple[str, ...] = (
     "command_r_35b", "gemma2_27b", "deepseek_7b", "deepseek_moe_16b",
-    "deepseek_v2_lite_16b", "phi3_mini_3p8b", "recurrentgemma_2b",
-    "rwkv6_3b",
+    "deepseek_v2_lite_16b", "llama32_vision_90b", "phi3_mini_3p8b",
+    "recurrentgemma_2b", "rwkv6_3b",
 )
 
 

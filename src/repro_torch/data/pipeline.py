@@ -1,21 +1,26 @@
 """Deterministic, seekable synthetic data pipeline with a MoLe provider
 stage.
 
-Copied from ``repro.data.pipeline`` (numpy only), so both packages draw the
-same batches from the same seed:
+Copied from ``repro.data.pipeline``, so both packages draw the same
+batches from the same seed:
 
   * **stateless indexing** — batch ``i`` is a pure function of
     ``(seed, i)``, so a restart is a seek, not a replay;
-  * **provider stage** — with MoLe on, the token stream leaving the
-    pipeline is morphed by the secret vocabulary permutation (labels
-    included); the trainer never sees raw tokens.
+  * **frontend stub** — a vlm's batch carries ``patches`` (B, n_tokens,
+    d_in) fp32 drawn from ``(seed, 2, i)``, the stubbed vision tower's
+    output;
+  * **provider stage** — with MoLe on, the stream leaving the pipeline is
+    morphed: tokens by the secret vocabulary permutation (labels
+    included), or in embedding mode the patches by the block-diagonal
+    core; the trainer never sees raw data.
 
 Synthetic text: a mixture of Zipf-distributed unigrams and a deterministic
 "grammar" (next token depends on the current token), so a model can learn
-it.  The reference's frontend stub and continuous (embedding) morphing
-serve frontend models, which the port does not run yet: ``Pipeline``
-refuses such configs (``check_supported``) and ``ProviderStage`` the
-embedding mode.
+it.  The reference morphs the patches with ``np.einsum`` on the host; here
+they go through the provider's morph kernel K4
+(:func:`repro_torch.kernels.ops.morph_rows`) on the pipeline's device, the
+card unless the caller names another, and stay there: the same function,
+fp32 in and out.  On the CPU K4 runs its plain version.
 """
 from __future__ import annotations
 
@@ -23,8 +28,12 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
-from ..core.lm import TokenMorpher
+from ..core.lm import EmbeddingMorpher, TokenMorpher
+from ..core.protocol import _resident
+from ..device import resolve_device
+from ..kernels.ops import morph_rows
 from ..models.base import ModelConfig, check_supported
 
 __all__ = ["DataConfig", "Pipeline", "ProviderStage", "SyntheticLM"]
@@ -72,20 +81,33 @@ class SyntheticLM:
 
 @dataclasses.dataclass
 class ProviderStage:
-    """The data provider's morphing stage (the trust boundary)."""
+    """The data provider's morphing stage (the trust boundary).
+
+    ``device`` is where the embedding morph runs (the card unless the
+    caller names another); the token morph is a gather on the host."""
 
     token_morpher: TokenMorpher | None = None
+    embed_morpher: EmbeddingMorpher | None = None
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        if self.embed_morpher is not None:
+            self.device = resolve_device(self.device)
 
     @classmethod
-    def for_model(cls, cfg: ModelConfig) -> "ProviderStage":
+    def for_model(cls, cfg: ModelConfig, device=None) -> "ProviderStage":
         if not cfg.mole.enabled:
             return cls()
         if cfg.mole.mode == "token":
             return cls(token_morpher=TokenMorpher.create(cfg.mole.seed, cfg.vocab))
         if cfg.mole.mode == "embedding":
-            raise NotImplementedError(
-                "embedding-mode MoLe morphs a frontend's features; frontend "
-                "models are not ported yet"
+            if cfg.frontend is None:
+                raise ValueError("embedding morphing needs a frontend")
+            return cls(
+                embed_morpher=EmbeddingMorpher.create(
+                    cfg.mole.seed, d_in=cfg.frontend.d_in, kappa=cfg.mole.kappa,
+                ),
+                device=device,
             )
         raise ValueError(cfg.mole.mode)
 
@@ -95,20 +117,35 @@ class ProviderStage:
             for k in ("tokens", "targets"):
                 if k in out:
                     out[k] = self.token_morpher.perm[out[k]]
+        if self.embed_morpher is not None and "patches" in out:
+            out["patches"] = self._morph(out["patches"])
         return out
+
+    def _morph(self, x) -> torch.Tensor:
+        """(..., kappa*q) fp32 rows times blockdiag(core) through K4 on
+        ``device``; the result stays there."""
+        core = self.embed_morpher.core
+        xt = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        mat = _resident(self.embed_morpher._core_on, core.matrix, xt.device)
+        rows = xt.reshape(-1, xt.shape[-1])
+        return morph_rows(rows, mat, core.kappa).reshape(xt.shape)
 
 
 class Pipeline:
-    """Seekable iterator: SyntheticLM -> provider stage."""
+    """Seekable iterator: SyntheticLM -> optional frontend stub -> provider.
+
+    ``device`` is where the provider's embedding morph runs (the card
+    unless the caller names another; only embedding mode reads it)."""
 
     def __init__(self, dcfg: DataConfig, model_cfg: ModelConfig | None = None,
-                 start_index: int = 0):
+                 start_index: int = 0, device=None):
         if model_cfg is not None:
             check_supported(model_cfg)
         self.source = SyntheticLM(dcfg)
         self.model_cfg = model_cfg
         self.provider = (
-            ProviderStage.for_model(model_cfg) if model_cfg else ProviderStage()
+            ProviderStage.for_model(model_cfg, device) if model_cfg
+            else ProviderStage()
         )
         self.index = start_index
 
@@ -118,10 +155,22 @@ class Pipeline:
     def state(self) -> dict:
         return {"index": self.index}
 
+    def _frontend(self, batch: dict, index: int) -> dict:
+        cfg = self.model_cfg
+        if cfg is None or cfg.frontend is None:
+            return batch
+        rng = np.random.default_rng((self.source.cfg.seed, 2, index))
+        batch["patches"] = rng.standard_normal(
+            (batch["tokens"].shape[0], cfg.frontend.n_tokens, cfg.frontend.d_in)
+        ).astype(np.float32)
+        return batch
+
     def __iter__(self) -> Iterator[dict]:
         return self
 
     def __next__(self) -> dict:
-        b = self.provider(self.source.batch(self.index))
+        b = self.source.batch(self.index)
+        b = self._frontend(b, self.index)
+        b = self.provider(b)
         self.index += 1
         return b

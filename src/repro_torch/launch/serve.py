@@ -18,9 +18,13 @@ engine's token lane morphs the prompts (provider side), and the
 continuous-batched cross-tenant decode lane generates from the morphed
 prompts with every tenant's fused Aug-Embedding / Aug-head
 (``repro_torch.runtime.decode``, logits through the K3 kernel); the lane
-unmorphs the generations for the provider.  ``--mole off`` serves the
-raw model on the raw prompts instead: no registry, no engine, one prefill
-and a greedy decode for all requests together.
+unmorphs the generations for the provider.  A frontend model (the vlm
+``llama32_vision_90b``) is served one tenant at a time instead, as the
+reference serves it: the tenant's fused parameters, one prefill of its
+morphed prompts beside all-zero patches, greedy decode, then the
+provider unmorphs.  ``--mole off`` serves the raw model on the raw
+prompts instead: no registry, no engine, one prefill and a greedy decode
+for all requests together (a frontend model beside zero patches).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch deepseek_7b --smoke --requests 8 --prompt-len 32 --gen 16
@@ -32,6 +36,8 @@ and a greedy decode for all requests together.
         --arch deepseek_7b --smoke --requests 4 --prompt-len 16 --mole off
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch deepseek_v2_lite_16b --smoke --requests 4 --prompt-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch llama32_vision_90b --smoke --requests 4 --prompt-len 16
 
 ``--mode serve`` — the **network front door**
 (``repro_torch.launch.server``): the async delivery engine behind a TCP
@@ -224,7 +230,7 @@ def run_delivery(args) -> dict:
     return out
 
 
-def run_lm(args, params=None) -> np.ndarray:
+def run_lm(args, params=None, cfg=None) -> np.ndarray:
     """Serve LM traffic: engine-morphed prompts, continuous-batched decode.
 
     Provider side: each LM tenant holds its own secret vocab permutation in
@@ -234,10 +240,14 @@ def run_lm(args, params=None) -> np.ndarray:
     Developer side: the
     :class:`~repro_torch.runtime.ContinuousDecodeLane` decodes every
     tenant's rows in one shared batched step against the registry's stacked
-    AugE tables / Aug-heads.  With ``--mole off`` neither runs: the raw
-    model serves the raw prompts (:func:`_serve_plain`).  ``params`` (a
-    :class:`ParamTree` on the device) replaces the random weights drawn
-    from ``--seed``.
+    AugE tables / Aug-heads; a frontend model is served one tenant at a
+    time on its fused parameters (:func:`_serve_per_tenant`).  With
+    ``--mole off`` neither runs: the raw model serves the raw prompts
+    (:func:`_serve_plain`).  ``params`` (a :class:`ParamTree` on the
+    device) replaces the random weights drawn from ``--seed``; ``cfg`` (a
+    :class:`ModelConfig`) replaces ``--arch``'s (``--smoke`` is then
+    ignored), which is how a run on the card cuts a published config's
+    depth.
 
     Returns the unmorphed generations, request-ordered.
     """
@@ -250,7 +260,9 @@ def run_lm(args, params=None) -> np.ndarray:
         resolve_device,
     )
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = (get_smoke_config(args.arch) if args.smoke
+               else get_config(args.arch))
     use_mole = args.mole != "off"
     if use_mole:
         cfg = dataclasses.replace(cfg, mole=MoLeCfg(enabled=True, mode="token"))
@@ -279,9 +291,10 @@ def run_lm(args, params=None) -> np.ndarray:
         )
         return final
 
-    embed = params["embed"].float().cpu().numpy()
+    # cast on the host: no fp32 copy of the tables on the card
+    embed = params["embed"].cpu().float().numpy()
     head = (None if cfg.tie_embeddings
-            else params["head"].float().cpu().numpy())
+            else params["head"].cpu().float().numpy())
 
     # ---- provider side: engine-morphed prompts ---------------------------
     capacity = args.capacity if args.capacity is not None else tenants
@@ -323,24 +336,31 @@ def run_lm(args, params=None) -> np.ndarray:
     dt_morph = time.time() - t0
     stats = engine.stats
 
-    # ---- developer side: continuous-batched decode -----------------------
-    # The lane shares the engine's FairScheduler: decode appetite charges
-    # the same engine-wide clock as prompt-morph traffic.
-    t0 = time.time()
-    lane = ContinuousDecodeLane(
-        model, params, registry,
-        rows=min(args.requests, registry.capacity),
-        max_len=args.prompt_len + args.gen + 1, device=device,
-        scheduler=engine.scheduler,
-    )
-    sids = [
-        lane.submit(tenant_of[r], served_prompts[r], args.gen,
-                    priority=priorities[r], premorphed=True)
-        for r in range(args.requests)
-    ]
-    lane.run()
-    final = np.stack([lane.take(sid) for sid in sids]).astype(np.int64)
-    dt = time.time() - t0
+    if cfg.frontend is not None:
+        # ---- developer side: per-tenant fused serving (frontend models) --
+        t0 = time.time()
+        final = _serve_per_tenant(model, params, registry, served_prompts,
+                                  tenant_of, args, device)
+        dt = time.time() - t0
+    else:
+        # ---- developer side: continuous-batched decode -------------------
+        # The lane shares the engine's FairScheduler: decode appetite
+        # charges the same engine-wide clock as prompt-morph traffic.
+        t0 = time.time()
+        lane = ContinuousDecodeLane(
+            model, params, registry,
+            rows=min(args.requests, registry.capacity),
+            max_len=args.prompt_len + args.gen + 1, device=device,
+            scheduler=engine.scheduler,
+        )
+        sids = [
+            lane.submit(tenant_of[r], served_prompts[r], args.gen,
+                        priority=priorities[r], premorphed=True)
+            for r in range(args.requests)
+        ]
+        lane.run()
+        final = np.stack([lane.take(sid) for sid in sids]).astype(np.int64)
+        dt = time.time() - t0
 
     tps = args.requests * args.gen / dt
     engine_line = (
@@ -376,10 +396,50 @@ def _serve_plain(model, params, prompts: np.ndarray, args,
     int64."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
-    prefill = make_prefill_step(model)
-    decode = make_decode_step(model)
+    return _generate(model, params, make_prefill_step(model),
+                     make_decode_step(model), prompts, args, device)
+
+
+def _serve_per_tenant(model, params, registry, prompts: np.ndarray,
+                      tenant_of: list[str], args, device) -> np.ndarray:
+    """Frontend models under ``--mole token``, as the reference serves
+    them: one tenant at a time, its token morpher fused into the embedding
+    and the untied head (``fuse_lm_params``), one prefill of its morphed
+    prompts, greedy decode from ``prompt_len``, and the provider unmorphs
+    the sampled tokens with the tenant's inverse permutation.  A tenant's
+    fused tables and caches are freed before the next tenant's are built.
+    Returns the unmorphed generations, (requests, gen) int64 in request
+    order."""
+    from repro_torch.core import deploy
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    by_tenant: dict[str, list[int]] = {}
+    for r, t in enumerate(tenant_of):
+        by_tenant.setdefault(t, []).append(r)
+    final = np.zeros((len(prompts), args.gen), np.int64)
+    for t, ridx in by_tenant.items():
+        morpher = registry.session(t).morpher
+        fused = deploy.fuse_lm_params(params, model.cfg, token_morpher=morpher)
+        served = _generate(model, fused, prefill, decode, prompts[ridx], args,
+                           device)
+        del fused
+        final[ridx] = morpher.inv_perm[served]
+    return final
+
+
+def _generate(model, params, prefill, decode, prompts: np.ndarray, args,
+              device) -> np.ndarray:
+    """One prefill of ``prompts`` (a frontend model's beside all-zero bf16
+    inputs of the frontend's shape, as the reference feeds them), then
+    ``gen - 1`` greedy decode steps; (rows, gen) int64."""
+    cfg = model.cfg
     caches = model.init_cache(len(prompts), args.prompt_len + args.gen + 1)
     batch = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(device)}
+    if cfg.frontend is not None:
+        batch["patches"] = torch.zeros(
+            (len(prompts), cfg.frontend.n_tokens, cfg.frontend.d_in),
+            dtype=torch.bfloat16, device=device)
     logits, caches = prefill(params, batch, caches)
     tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
     out = [tok]

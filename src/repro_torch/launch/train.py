@@ -13,6 +13,9 @@ AdamW, periodic async checkpoints, auto-resume.  Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch recurrentgemma_2b --smoke --steps 8 --ckpt-every 4 \
         --inject-failures 5 --mole token --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama32_vision_90b --smoke --steps 4 --mole embedding \
+        --kappa 4 --device cpu
 
 The flags are the reference's, plus ``--device``.  The step is
 :func:`repro_torch.launch.steps.make_train_step`, run eagerly: it updates
@@ -20,10 +23,13 @@ the parameters and moments in place, so there is no donation to ask for.
 Checkpoints go to ``<ckpt-dir>/<arch>`` (three kept); ``--resume`` restores
 the latest one into the freshly built state and seeks the pipeline to the
 index saved with it.  Every arch the port serves trains, the hybrid
-``recurrentgemma_2b`` (RG-LRU and local layers) included, but
-``rwkv6_3b`` (its wkv6 kernel has no backward yet); ``--mole embedding``
-needs a frontend model.  Both raise ``NotImplementedError``, as do
-architectures the port does not run.
+``recurrentgemma_2b`` (RG-LRU and local layers) and the vision-language
+``llama32_vision_90b`` included, but ``rwkv6_3b`` (its wkv6 kernel has no
+backward yet), which raises ``NotImplementedError``, as do architectures
+the port does not run.  ``--mole embedding`` (``--kappa`` blocks of the
+core) morphs a vlm's patch stream in the pipeline's provider stage, through
+the morph kernel K4 on ``--device``; a model without a frontend refuses it
+(``ValueError``).
 
 ``main(argv, cfg=...)`` runs on a given config in place of ``--arch``'s
 (``--smoke`` is then ignored; the ``--mole`` flags still apply): that is
@@ -71,7 +77,7 @@ def build(args, cfg: ModelConfig | None = None):
     step_fn = make_train_step(model, hp)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                       global_batch=args.batch, seed=args.data_seed)
-    pipeline = Pipeline(dcfg, model_cfg=cfg)
+    pipeline = Pipeline(dcfg, model_cfg=cfg, device=model.device)
     return cfg, model, step_fn, pipeline
 
 
@@ -128,7 +134,9 @@ def main(argv=None, cfg: ModelConfig | None = None):
         )
 
     def loop_step(state, batch):
-        b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        # a morphed patch stream is already on the device
+        b = {k: torch.as_tensor(v, device=model.device)
+             for k, v in batch.items()}
         p, o, metrics = step_fn(state["params"], state["opt"], b)
         return {"params": p, "opt": o}, metrics
 

@@ -1,8 +1,10 @@
 """Model API on PyTorch — what the serving steps and the decode lane use.
 
-Ported from ``repro.models.api`` for plain token LMs (attention stacks:
+Ported from ``repro.models.api`` for token LMs (attention stacks:
 global, sliding-window and MLA mixers with dense or MoE FFNs;
-RecurrentGemma's RG-LRU / local-attention hybrid; and RWKV-6 stacks).  ``Model(cfg, device)`` exposes:
+RecurrentGemma's RG-LRU / local-attention hybrid; RWKV-6 stacks) and
+vision-language stacks whose cross layers attend to a patch stream.
+``Model(cfg, device)`` exposes:
 
   schema() / init(generator) / param_count()
                                       — parameters as a :class:`ParamTree`
@@ -14,8 +16,9 @@ RecurrentGemma's RG-LRU / local-attention hybrid; and RWKV-6 stacks).  ``Model(c
   decode(params, token, t, caches)    — one-token step
 
 Batches are dicts of ``{"tokens": (B, S), "targets": (B, S)}`` integer
-tensors; the reference's frontend inputs (``patches``, ``frames``) belong to
-a later slice.  :func:`params_from_jax` carries a reference parameter tree
+tensors, and for a vlm ``"patches": (B, n_tokens, d_in)`` (the stubbed
+vision tower's output, fp32); the audio frontend's ``frames`` belong to a
+later slice.  :func:`params_from_jax` carries a reference parameter tree
 (as numpy arrays) over into the port, so both packages compute with the
 same weights.
 """
@@ -78,27 +81,28 @@ class Model:
         )
 
     # -- compute -----------------------------------------------------------
-    @staticmethod
-    def _tokens_only(batch: dict) -> None:
-        extra = sorted({"patches", "frames"} & set(batch))
-        if extra:
+    def _ctx(self, batch: dict) -> torch.Tensor | None:
+        """A vlm's patch stream in the activation type, or None."""
+        if "frames" in batch:
             raise NotImplementedError(
-                f"batch inputs {extra}: frontend and audio models are not "
-                f"ported yet"
+                "batch input 'frames': audio models are not ported yet"
             )
+        if "patches" in batch:
+            return batch["patches"].to(self.cfg.adtype)
+        return None
 
     def logits(self, params, batch: dict, remat: bool = False) -> torch.Tensor:
-        self._tokens_only(batch)
-        lg, _ = S.forward(params, self.cfg, batch["tokens"], remat=remat)
+        lg, _ = S.forward(params, self.cfg, batch["tokens"], remat=remat,
+                          ctx=self._ctx(batch))
         return lg
 
     def loss(self, params, batch: dict, remat: bool = False) -> torch.Tensor:
         """Mean next-token cross-entropy: the chunked
         :func:`~repro_torch.models.stack.fused_ce` when ``cfg.fused_ce``,
         else :func:`cross_entropy` of the full logits."""
-        self._tokens_only(batch)
         if self.cfg.fused_ce:
-            h = S.hidden_states(params, self.cfg, batch["tokens"], remat=remat)
+            h = S.hidden_states(params, self.cfg, batch["tokens"],
+                                ctx=self._ctx(batch), remat=remat)
             return S.fused_ce(params, self.cfg, h, batch["targets"])
         return cross_entropy(self.logits(params, batch, remat=remat),
                              batch["targets"])
@@ -113,8 +117,8 @@ class Model:
         through the LM head (the reference computes every position's logits
         and keeps the last: (B, S, V) fp32 is 50 GB for 8 prompts of 6144
         at vocab 256000)."""
-        self._tokens_only(batch)
-        rs = B.RunState(mode="full", write_cache=True)
+        rs = B.RunState(mode="full", write_cache=True, ctx=S.project_ctx(
+            params, self.cfg, self._ctx(batch)))
         h = S.embed_tokens(params, batch["tokens"], self.cfg)
         h, caches = S.apply_stack(params, h, self.cfg, rs, caches)
         return S.lm_head(params, h[:, -1:], self.cfg), caches
@@ -149,7 +153,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
     ``router`` / ``wg`` / ``wu`` / ``wd`` and its ``shared`` FFN, MLA's
     seven weights, an RG-LRU mixer's ten (``w_y``, ``w_x``, ``conv_w``,
     ``conv_b``, the block-diagonal gates ``gate_a`` / ``gate_x`` and their
-    biases, ``lam``, ``w_out``).
+    biases, ``lam``, ``w_out``), a cross layer's ``wq`` / ``wk`` / ``wv`` /
+    ``wo``, ``ctx_norm`` and its two gates (slice ``g`` of a ``(n_groups,)``
+    leaf is the 0-d gate of group ``g``); a vlm's ``frontend_proj`` is a
+    top-level leaf.
     """
     check_supported(cfg)
 

@@ -13,10 +13,11 @@ the reference's parameter dicts (``params["blocks"][i]["mix"]["wq"]``).
 
 The port runs attention stacks (global and sliding-window layers,
 DeepSeek-V2's multi-head latent attention, dense or fine-grained MoE
-FFNs), RecurrentGemma's hybrid of RG-LRU and local-attention layers, and
-RWKV-6 stacks: :func:`check_supported` raises
+FFNs), RecurrentGemma's hybrid of RG-LRU and local-attention layers,
+RWKV-6 stacks, and vision-language stacks whose gated cross-attention
+layers attend to a stubbed patch stream: :func:`check_supported` raises
 ``NotImplementedError`` for every config that needs a block kind, mixer or
-frontend of a later slice.
+frontend of a later slice (the audio encoder-decoder).
 """
 from __future__ import annotations
 
@@ -201,6 +202,7 @@ _ATTN_KINDS = ("attn", "global", "local")  # the dense self-attention kinds
 # a fine-grained MoE FFN
 _MOE_KINDS = ("attn_moe", "mla", "mla_moe")
 _REC_KINDS = ("rec",)   # the RG-LRU mixer of a hybrid stack
+_CROSS_KINDS = ("cross",)   # gated cross-attention over a vlm's patches
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -211,10 +213,14 @@ def check_supported(cfg: ModelConfig) -> None:
     (multi-head latent attention, with an ``MLACfg``) and ``attn_moe`` /
     ``mla_moe`` (the same mixers with a fine-grained MoE FFN, with a
     ``MoECfg``; a "moe" family has one); a ``family="hybrid"`` stack of
-    ``rec`` (RG-LRU, with an ``RnnCfg``) and the dense attention kinds; or
-    an RWKV-6 stack (``family="ssm"``, ``("rwkv",)``, ``rwkv`` set,
-    layernorm); no frontend.  Nothing else is computed in its place."""
+    ``rec`` (RG-LRU, with an ``RnnCfg``) and the dense attention kinds; a
+    ``family="vlm"`` stack of ``cross`` (cross-attention over the patch
+    stream, tanh-gated or not) and the dense attention kinds, with a
+    ``vision`` frontend; or an RWKV-6 stack (``family="ssm"``,
+    ``("rwkv",)``, ``rwkv`` set, layernorm).  No other config has a
+    frontend.  Nothing else is computed in its place."""
     rwkv = tuple(cfg.block_pattern) == ("rwkv",)
+    vlm = cfg.family == "vlm"
     later = []
     if rwkv:
         if cfg.family != "ssm":
@@ -233,14 +239,15 @@ def check_supported(cfg: ModelConfig) -> None:
     else:
         kinds = set(cfg.layer_kinds())
         hybrid = cfg.family == "hybrid"
-        if cfg.family not in ("dense", "moe", "hybrid"):
+        if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
             later.append(f"family={cfg.family!r}")
         if cfg.family == "moe" and cfg.moe is None:
             later.append("family='moe' without a MoECfg")
-        ported = _ATTN_KINDS + (_REC_KINDS if hybrid else _MOE_KINDS)
+        ported = _ATTN_KINDS + (_REC_KINDS if hybrid else
+                                _CROSS_KINDS if vlm else _MOE_KINDS)
         unknown = sorted(kinds - set(ported))
         if unknown:
-            later.append(f"layer kinds {unknown}")
+            later.append(f"layer kinds {unknown} in family={cfg.family!r}")
         if cfg.moe is None and any(k.endswith("_moe") for k in kinds):
             later.append("_moe layers without a MoECfg")
         if cfg.mla is None and kinds & {"mla", "mla_moe"}:
@@ -251,15 +258,20 @@ def check_supported(cfg: ModelConfig) -> None:
             later.append("rnn")
         if cfg.rwkv is not None:
             later.append("rwkv")
-    if cfg.frontend is not None:
-        later.append("frontend")
+    fe = cfg.frontend
+    if fe is None:
+        if vlm:
+            later.append("family='vlm' without a frontend")
+    elif not (vlm and fe.kind == "vision" and fe.enc_layers == 0):
+        later.append(f"a {fe.kind} frontend in family={cfg.family!r}")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet (the port runs "
             f"stacks of global and sliding-window attention, MLA and "
-            f"fine-grained MoE blocks, RG-LRU hybrids and RWKV-6 stacks; "
-            f"cross-attention, encoder-decoder and frontends arrive with "
-            f"later slices of the port)"
+            f"fine-grained MoE blocks, RG-LRU hybrids, RWKV-6 stacks and "
+            f"vision-language stacks of attention and cross-attention "
+            f"layers; the audio encoder-decoder (whisper: bidir and dec "
+            f"layers, an audio frontend) arrives with a later slice)"
         )
 
 

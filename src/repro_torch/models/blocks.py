@@ -2,12 +2,13 @@
 in a sliding window with a ring-buffer cache), DeepSeek-V2's multi-head
 latent attention (MLA), the dense and the fine-grained MoE FFN, the
 RG-LRU recurrent mixer of RecurrentGemma (temporal conv + gated linear
-recurrence), and the RWKV-6 block (time-mix + channel-mix).
+recurrence), the cross-attention mixer of a vision-language stack, and
+the RWKV-6 block (time-mix + channel-mix).
 
 Ported from ``repro.models.blocks`` (``RunState``, ``mixer_of``/``ffn_of``,
 the dense FFN, the MoE FFN in its capacity-buffer form, the self-attention,
-MLA and RG-LRU mixers, and the RWKV-6 time-mix and channel-mix).  The
-other layer kinds of the reference (cross-attention, the whisper
+MLA, RG-LRU and cross-attention mixers, and the RWKV-6 time-mix and
+channel-mix).  The other layer kinds of the reference (the whisper
 encoder/decoder layers) and the expert-parallel MoE under a mesh
 (``_apply_moe_sharded``) belong to later slices:
 :func:`repro_torch.models.base.check_supported` refuses their configs.  The
@@ -29,7 +30,9 @@ place where JAX returns new arrays:
     vector per B-row cache and vmaps over rows to get the same effect.
     MLA's cache (``ckv``, ``kr``) has no ``pos``: a row's positions up to
     its own ``t[r]`` are valid.  An RG-LRU cache (``h``, ``conv``) is each
-    row's own recurrence and reads no position.
+    row's own recurrence and reads no position.  A cross-attention cache
+    (``k``, ``v`` of the context's positions) is written by the prefill
+    and only read by decode.
 
 The reference's vmapped lane step also routes each row's token through an
 MoE FFN as a call of its own; :class:`RunState` ``row_calls`` says so here,
@@ -52,7 +55,8 @@ __all__ = [
     "RunState", "mixer_of", "ffn_of", "schema_ffn", "apply_ffn",
     "schema_moe", "moe_capacity", "Route", "moe_route", "apply_moe",
     "schema_attn", "cache_attn", "apply_attn", "schema_mla", "cache_mla",
-    "apply_mla", "schema_rec", "cache_rec", "apply_rec", "schema_rwkv",
+    "apply_mla", "schema_rec", "cache_rec", "apply_rec", "schema_cross",
+    "cache_cross", "apply_cross", "schema_rwkv",
     "cache_rwkv", "apply_rwkv_tm", "apply_rwkv_cm",
 ]
 
@@ -63,6 +67,9 @@ class RunState:
     # decode: position being written — an int for the whole batch, or a
     # (B,) tensor of per-row positions (the batched decode lane).
     t: int | torch.Tensor | None = None
+    # cross-attention context (B, Sc, d_ctx): full mode only (decode reads
+    # the cross caches the prefill wrote)
+    ctx: torch.Tensor | None = None
     write_cache: bool = False       # prefill: write caches in full mode
     # MoE routing: each batch row is a call of its own, with its own
     # capacity (the decode lane's rows, which the reference vmaps); else
@@ -325,6 +332,65 @@ def apply_attn(
             cache["pos"][:, idx] = ps.to(cache["pos"].dtype)
             new_cache = cache
 
+    out = torch.einsum("bshk,hkd->bsd", o.to(h.dtype), p["wo"])
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention mixer (the vlm's "cross" layers)
+# ---------------------------------------------------------------------------
+
+
+def schema_cross(cfg: ModelConfig, gated: bool, d_ctx: int) -> dict:
+    """Queries from the residual stream, keys and values from a context of
+    width ``d_ctx``, the context's RMSNorm scale ``ctx_norm``, and with
+    ``gated`` the two 0-d tanh gates of the block (attention and FFN), zero
+    at init."""
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sch = {
+        "wq": ParamDef((d, H, hd)),
+        "wk": ParamDef((d_ctx, Hkv, hd)),
+        "wv": ParamDef((d_ctx, Hkv, hd)),
+        "wo": ParamDef((H, hd, d), scale=0.02),
+        "ctx_norm": ParamDef((d_ctx,), init="zeros"),
+    }
+    if gated:
+        sch["gate_attn"] = ParamDef((), init="zeros")
+        sch["gate_ffn"] = ParamDef((), init="zeros")
+    return sch
+
+
+def cache_cross(cfg: ModelConfig, batch: int) -> dict:
+    """The context's keys and values, one slot per context position."""
+    shape = (batch, cfg.frontend.n_tokens, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": ParamDef(shape, init="zeros"),
+            "v": ParamDef(shape, init="zeros")}
+
+
+def apply_cross(
+    p, h: torch.Tensor, cfg: ModelConfig, rs: RunState, cache: dict | None
+) -> tuple[torch.Tensor, dict | None]:
+    """Cross-attention of ``h`` over the context: full mode projects
+    ``rms_norm(rs.ctx, ctx_norm)`` (RMSNorm whatever ``cfg.norm``) to K and
+    V and, under ``write_cache``, writes them into the cache in place;
+    decode reads the cache and never sees the context.  Every query
+    attends to every context position (no mask, no RoPE on either side):
+    dense GQA attention with fp32 scores at any length, as the
+    reference's."""
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    if rs.mode == "decode":
+        k, v = cache["k"], cache["v"]      # the context's K/V from prefill
+        new_cache = cache
+    else:
+        ctx = L.rms_norm(rs.ctx, p["ctx_norm"])
+        k = torch.einsum("bsd,dhk->bshk", ctx, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", ctx, p["wv"])
+        new_cache = None
+        if cache is not None and rs.write_cache:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+            new_cache = cache
+    o = L.dense_attention(q, k, v, causal=False)
     out = torch.einsum("bshk,hkd->bsd", o.to(h.dtype), p["wo"])
     return out, new_cache
 

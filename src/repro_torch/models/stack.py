@@ -6,7 +6,9 @@ and ``attn_moe`` / ``mla_moe`` with an MoE FFN, in any prefix, block
 pattern and suffix; prefix layers of an MoE config take the dense FFN
 width ``moe.first_dense_ff``), RecurrentGemma's hybrid stacks (``rec``,
 the RG-LRU mixer, beside the attention kinds; a ``rec`` layer keeps the
-dense FFN) and RWKV-6 stacks (``("rwkv",)``).  A
+dense FFN), vision-language stacks (``cross``, tanh-gated cross-attention
+over the frontend's stream after ``frontend_proj``, beside the attention
+kinds) and RWKV-6 stacks (``("rwkv",)``).  A
 model is: token embedding -> its layers -> final norm -> LM head.  The
 reference runs prefix layers, a scan over ``n_groups`` stacked copies of
 the block pattern, then suffix layers; here ``params["blocks"]`` and
@@ -28,7 +30,8 @@ from . import layers as L
 __all__ = [
     "block_schema", "block_cache_schema", "model_schema",
     "model_cache_schema", "apply_mixer", "apply_block",
-    "apply_stack", "embed_tokens", "hidden_states", "head_matrix",
+    "apply_stack", "embed_tokens", "project_ctx", "hidden_states",
+    "head_matrix",
     "fused_ce", "lm_head", "forward", "decode_step",
 ]
 
@@ -45,6 +48,12 @@ def block_schema(cfg: ModelConfig, kind: str = "attn",
         sch["mix"] = B.schema_attn(cfg)
     elif mix == "mla":
         sch["mix"] = B.schema_mla(cfg)
+    elif mix == "cross":
+        # the context is the frontend stream after frontend_proj (llama-3.2's
+        # multi_modal_projector): d_ctx = d_model.  MoLe embedding morphing
+        # fuses M^{-1} into frontend_proj alone.
+        sch["mix"] = B.schema_cross(cfg, gated=cfg.frontend.cross_gated,
+                                    d_ctx=cfg.d_model)
     elif mix == "rec":
         sch["mix"] = B.schema_rec(cfg)
     elif mix == "rwkv":
@@ -77,6 +86,8 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int,
         return B.cache_attn(cfg, batch, max_len, cfg.sliding_window)
     if mix == "mla":
         return B.cache_mla(cfg, batch, max_len)
+    if mix == "cross":
+        return B.cache_cross(cfg, batch)
     if mix == "rec":
         return B.cache_rec(cfg, batch)
     if mix == "rwkv":
@@ -92,6 +103,9 @@ def model_schema(cfg: ModelConfig) -> dict:
     check_supported(cfg)
     sch = {"embed": ParamDef((cfg.vocab, cfg.d_model), init="embed",
                              scale=0.02)}
+    if cfg.frontend is not None:
+        sch["frontend_proj"] = ParamDef((cfg.frontend.d_in, cfg.d_model),
+                                        scale=0.02)
     sch["final_norm"] = ParamDef((cfg.d_model,), init="zeros")
     if not cfg.tie_embeddings:
         sch["head"] = ParamDef((cfg.d_model, cfg.vocab), scale=0.02)
@@ -119,7 +133,8 @@ def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
                 rs: B.RunState, cache):
     """The mixer of layer kind ``kind``: ``attn`` / ``global`` attend to
     every earlier position, ``local`` to the last ``cfg.sliding_window``,
-    ``mla`` through its latent KV; ``rec`` is the RG-LRU recurrence."""
+    ``mla`` through its latent KV; ``cross`` to the context in ``rs``;
+    ``rec`` is the RG-LRU recurrence."""
     mix = B.mixer_of(kind)
     if mix in ("attn", "global"):
         return B.apply_attn(p, h, cfg, rs, cache, window=None)
@@ -127,6 +142,8 @@ def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
         return B.apply_attn(p, h, cfg, rs, cache, window=cfg.sliding_window)
     if mix == "mla":
         return B.apply_mla(p, h, cfg, rs, cache)
+    if mix == "cross":
+        return B.apply_cross(p, h, cfg, rs, cache)
     if mix == "rec":
         return B.apply_rec(p, h, cfg, rs, cache)
     raise ValueError(f"unknown mixer kind {kind!r}")
@@ -135,7 +152,9 @@ def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
 def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
                 kind: str = "attn"):
     """One block of layer kind ``kind`` (the reference passes it before
-    ``rs``; here it trails, so callers of attention blocks may omit it)."""
+    ``rs``; here it trails, so callers of attention blocks may omit it).
+    A gated cross layer scales its attention and its FFN output by the
+    tanh of its two 0-d gates, in ``h.dtype``."""
     if B.mixer_of(kind) == "rwkv":
         # time-mix and channel-mix both read and write the layer's cache
         a, cache = B.apply_rwkv_tm(p["mix"], L.norm(h, p["norm1"], cfg.norm),
@@ -151,10 +170,13 @@ def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
         fo = B.apply_ffn(p["ffn"], n, cfg)
         return h + a + fo, cache
 
+    gated = B.mixer_of(kind) == "cross" and cfg.frontend.cross_gated
     n = L.norm(h, p["norm1"], cfg.norm)
     a, cache = apply_mixer(p["mix"], n, cfg, kind, rs, cache)
     if cfg.post_norm:
         a = L.norm(a, p["post_norm1"], cfg.norm)
+    if gated:
+        a = torch.tanh(p["mix"]["gate_attn"]).to(h.dtype) * a
     h = h + a
     n2 = L.norm(h, p["norm2"], cfg.norm)
     if B.ffn_of(kind) == "moe":
@@ -163,6 +185,8 @@ def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
         fo = B.apply_ffn(p["ffn"], n2, cfg)
     if cfg.post_norm:
         fo = L.norm(fo, p["post_norm2"], cfg.norm)
+    if gated:
+        fo = torch.tanh(p["mix"]["gate_ffn"]).to(h.dtype) * fo
     return h + fo, cache
 
 
@@ -211,10 +235,21 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return h
 
 
+def project_ctx(params, cfg: ModelConfig,
+                ctx: torch.Tensor | None) -> torch.Tensor | None:
+    """The cross layers' context: the frontend stream (B, Sc, d_in) cast to
+    the activation type, through ``frontend_proj`` to d_model."""
+    if ctx is not None and "frontend_proj" in params.keys():
+        ctx = torch.matmul(ctx.to(cfg.adtype), params["frontend_proj"])
+    return ctx
+
+
 def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  ctx: torch.Tensor | None = None,
                   remat: bool = False) -> torch.Tensor:
-    """Final-norm'd hidden states (B, S, d): the input to the LM head."""
-    rs = B.RunState(mode="full")
+    """Final-norm'd hidden states (B, S, d): the input to the LM head.
+    ``ctx`` is a vlm's patch stream (:func:`project_ctx`)."""
+    rs = B.RunState(mode="full", ctx=project_ctx(params, cfg, ctx))
     h = embed_tokens(params, tokens, cfg)
     h, _ = apply_stack(params, h, cfg, rs, None, remat=remat)
     return L.norm(h, params["final_norm"], cfg.norm)
@@ -267,9 +302,11 @@ def lm_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             caches: dict | None = None, write_cache: bool = False,
-            remat: bool = False):
-    """Full-sequence forward (prefill).  Returns (logits, caches)."""
-    rs = B.RunState(mode="full", write_cache=write_cache)
+            remat: bool = False, ctx: torch.Tensor | None = None):
+    """Full-sequence forward (prefill).  Returns (logits, caches).
+    ``ctx`` is a vlm's patch stream (:func:`project_ctx`)."""
+    rs = B.RunState(mode="full", ctx=project_ctx(params, cfg, ctx),
+                    write_cache=write_cache)
     h = embed_tokens(params, tokens, cfg)
     h, new_caches = apply_stack(params, h, cfg, rs, caches, remat=remat)
     return lm_head(params, h, cfg), new_caches

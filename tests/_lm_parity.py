@@ -28,9 +28,10 @@ def decided(logits) -> np.ndarray:
     return top2[..., 1] - top2[..., 0] > GAP_MARGIN * np.abs(lg).max(-1)
 
 
-def ref_logits(jparams, jcfg, prompts, gens) -> list[np.ndarray]:
+def ref_logits(jparams, jcfg, prompts, gens, ctx=None) -> list[np.ndarray]:
     """The reference's logits at the positions that predicted ``gen``,
-    teacher-forced on each ``prompt + gen[:-1]`` (raw token ids).
+    teacher-forced on each ``prompt + gen[:-1]`` (raw token ids); ``ctx``
+    is a vlm's patch stream, one row per sequence.
 
     A dense model: one forward over all sequences (one batch, zero-padded
     at the end, which a causal model does not see).  An MoE model routes
@@ -46,7 +47,7 @@ def ref_logits(jparams, jcfg, prompts, gens) -> list[np.ndarray]:
     seqs = np.zeros((len(gens), P + G - 1), np.int32)
     for i, (p, g) in enumerate(zip(prompts, gens)):
         seqs[i, :P + len(g) - 1] = np.concatenate([p, g[:-1]])
-    lg = np.asarray(jS.forward(jparams, jcfg, jnp.asarray(seqs))[0],
+    lg = np.asarray(jS.forward(jparams, jcfg, jnp.asarray(seqs), ctx=ctx)[0],
                     np.float64)
     return [lg[i, P - 1:P - 1 + len(g)] for i, g in enumerate(gens)]
 
@@ -86,7 +87,7 @@ def _ref_logits_alone(jparams, jcfg, prompt, gen, max_len: int = 64) -> np.ndarr
     return np.asarray(jnp.stack(out), np.float64)
 
 
-def hold_lane(jparams, jcfg, prompts, got, want) -> int:
+def hold_lane(jparams, jcfg, prompts, got, want, ctx=None) -> int:
     """Hold generations ``got`` against the reference's ``want`` (sequences
     of unmorphed token arrays, one per request) without asking two
     machines to break a near-tie the same way:
@@ -99,20 +100,22 @@ def hold_lane(jparams, jcfg, prompts, got, want) -> int:
         the reference forward's maximum, so after a near-tie it is still a
         greedy decode under the reference's model.
 
-    Returns the number of steps held token for token.
+    ``ctx`` is a vlm's patch stream (:func:`ref_logits`).  Returns the
+    number of steps held token for token.
     """
     got = [np.asarray(g) for g in got]
     want = [np.asarray(w) for w in want]
     assert [g.shape for g in got] == [w.shape for w in want]
     n_steps = n_ties = held = 0
-    for g, w, lg in zip(got, want, ref_logits(jparams, jcfg, prompts, want)):
+    for g, w, lg in zip(got, want,
+                        ref_logits(jparams, jcfg, prompts, want, ctx)):
         ok = decided(lg)
         first = len(w) if ok.all() else int(np.argmin(ok))
         np.testing.assert_array_equal(g[:first], w[:first])
         n_steps, n_ties = n_steps + len(w), n_ties + int((~ok).sum())
         held += first
     assert n_ties * 10 <= n_steps, f"{n_ties} near-ties in {n_steps} steps"
-    for g, lg in zip(got, ref_logits(jparams, jcfg, prompts, got)):
+    for g, lg in zip(got, ref_logits(jparams, jcfg, prompts, got, ctx)):
         slack = lg.max(-1) - lg[np.arange(len(g)), g]
         assert (slack <= GAP_MARGIN * np.abs(lg).max(-1)).all(), slack
     return held

@@ -228,10 +228,12 @@ def test_param_count_matches_reference(arch):
 
 
 def test_frontend_inputs_are_refused(rng):
+    """The audio frontend's ``frames`` belong to a later slice (a vlm's
+    ``patches`` are held in ``tests/test_torch_vlm.py``)."""
     cfg = get_smoke_config("deepseek_7b")
     model = Model(cfg, "cpu")
-    batch = dict(_t(_batch(rng, cfg.vocab)), patches=torch.zeros(2, 4, 8))
-    with pytest.raises(NotImplementedError, match="patches"):
+    batch = dict(_t(_batch(rng, cfg.vocab)), frames=torch.zeros(2, 4, 8))
+    with pytest.raises(NotImplementedError, match="frames"):
         model.loss(model.init(0), batch)
 
 
@@ -309,6 +311,37 @@ def test_adamw_apply_matches_reference(rng, clip_norm):
         assert tp["b"].dtype == torch.bfloat16
         np.testing.assert_array_equal(
             tp["b"].float().numpy(), np.asarray(jp["b"], np.float32))
+
+
+def test_adamw_slices_give_the_whole_leaf_bits(rng, monkeypatch):
+    """``adamw.apply`` updates a leaf larger than ``adamw.SLICE`` in flat
+    slices (so its fp32 temporaries stay small): over 3 steps the
+    parameters and moments are bit for bit those of whole-leaf updates,
+    for fp32, bf16 and 0-d leaves and a non-contiguous gradient."""
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, decay_steps=10)
+    shapes = {"a": (5, 3), "b": (17,), "c": ()}
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+
+    def run(slice_):
+        monkeypatch.setattr(adamw, "SLICE", slice_)
+        p = {"a": torch.from_numpy(init["a"].copy()),
+             "b": torch.from_numpy(init["b"]).to(torch.bfloat16),
+             "c": torch.from_numpy(init["c"].copy())}
+        st = adamw.init_state(p)
+        for g in grads:
+            tg = {k: torch.from_numpy(v.copy()) for k, v in g.items()}
+            tg["a"] = tg["a"].T.contiguous().T      # not contiguous
+            p, st, _ = adamw.apply(cfg, p, tg, st)
+        return p, st
+
+    whole, sliced = run(1 << 26), run(4)
+    for k in shapes:
+        assert torch.equal(whole[0][k], sliced[0][k]), k
+        for mom in ("m", "v"):
+            assert torch.equal(whole[1][mom][k], sliced[1][mom][k]), (mom, k)
 
 
 # -- the train step ---------------------------------------------------------------
@@ -606,11 +639,19 @@ def test_pipeline_determinism_seek_and_state():
 
 
 def test_pipeline_refuses_what_the_port_does_not_run():
+    """Embedding-mode MoLe on a model without a frontend is refused, as the
+    reference refuses it (an assertion there); a config of a later slice
+    raises ``NotImplementedError``."""
     cfg = get_smoke_config("deepseek_7b")
     d = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2)
-    with pytest.raises(NotImplementedError, match="embedding"):
+    with pytest.raises(ValueError, match="needs a frontend"):
         Pipeline(d, model_cfg=dataclasses.replace(
-            cfg, mole=MoLeCfg(enabled=True, mode="embedding")))
+            cfg, mole=MoLeCfg(enabled=True, mode="embedding")), device="cpu")
+    with pytest.raises(AssertionError, match="needs a frontend"):
+        JPipeline(JDataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2),
+                  model_cfg=dataclasses.replace(
+                      j_smoke("deepseek_7b"),
+                      mole=JMoLeCfg(enabled=True, mode="embedding")))
     with pytest.raises(NotImplementedError):
         Pipeline(d, model_cfg=dataclasses.replace(cfg,
                                                   block_pattern=("attn_moe",)))

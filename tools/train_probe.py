@@ -10,6 +10,7 @@ power limit.
     python3 tools/train_probe.py moe_path mla_path mla_train   # MoE, MLA
     python3 tools/train_probe.py kernels_k3 recurrentgemma_path  # RG-LRU
     python3 tools/train_probe.py recurrentgemma_train   # the hybrid, trained
+    python3 tools/train_probe.py kernels_k45 vlm_path vlm_train   # the vlm
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -57,6 +58,10 @@ PHASES = {
     "recurrentgemma_train": lambda dev, kernels: cs.train_path(
         dev, kernels, phase="recurrentgemma_train", arch=cs.RG_ARCH,
         peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.RG_TRAIN),
+    "kernels_k45": lambda dev, kernels: cs.k45_checks(
+        dev, kernels, kernels.ref),
+    "vlm_path": cs.vlm_path,
+    "vlm_train": cs.vlm_train,
 }
 
 
