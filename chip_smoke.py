@@ -246,8 +246,9 @@ printing one JSON line; any failure raises and exits non-zero:
                 TF32 off, bf16 on the tensor cores) at the VGG-16 shapes,
                 and prints, not gated, K4's fp32 time at each split of K
                 and K5's product run on K4's FFMA kernel beside K5's own
-                (``on_morph_kernel``).  K4 also at vlm_train's provider
-                morph, (2048, 7680) x (7680, 7680) fp32: against its plain
+                (``on_morph_kernel``).  K4 also at vlm_train's and
+                whisper_train's provider morphs, (2048, 7680) x (7680,
+                7680) and (24000, 384) x (384, 384) fp32: against its plain
                 version, a float64 product (1e-5 * max|fp64|) and
                 torch.matmul, with its FFMA bound.
   8. vgg_path   the paper's developer path at VGG-16/CIFAR width (13 convs
@@ -411,13 +412,14 @@ printing one JSON line; any failure raises and exits non-zero:
                 patches, as the reference feeds them, and decode greedily.
                 Gated: no kernel; each prefill fed (8, 1024, 7680) zero
                 bf16 patches; a fusion and a prefill a tenant; the peak;
-                and on the twin (its first attention and first cross
-                layer, full width, random patches): the served logits
-                unmorphed against the
-                raw params' prefill and decode within two bf16 ulps, each
-                token within the tie margin of an independent
-                teacher-forced forward with no cache, the cross caches
-                equal to K/V computed apart from the patches.  Printed:
+                every cross layer's caches after a prefill of 4 prompts
+                beside random patches equal to K/V computed apart from the
+                patches; and on the twin (its first attention and first
+                cross layer, full width, random patches): the served
+                logits unmorphed against the raw params' prefill and decode
+                within two bf16 ulps, each token within the tie margin of
+                an independent teacher-forced forward with no cache.
+                Printed:
                 prefill and decode-step p50, tokens/s, fusing a tenant.
  10g. vlm_train the train step at that width on ("attn", "cross") x 1
                 group (3.876 B parameters), 2 sequences of 2048 in 2
@@ -439,17 +441,40 @@ printing one JSON line; any failure raises and exits non-zero:
                 context and the 1024 patches, and 6 a parameter and patch
                 for frontend_proj and the cross K/V), the peak, a profiled
                 step, the provider stage's ms a batch and K4's share.
+ 10h. whisper_path :func:`frontend_path` (vlm_path's serving and gates) at
+                whisper_tiny's published width and depth (4 bidir encoder
+                layers over 1500 frames of 384, 4 dec layers, d 384, 6 heads
+                of 64, vocab 51865, bf16), the attention's query and key
+                weights scaled by sqrt(H / d) (conditioned_attention says
+                why): 4 tenants x 8 requests of 192, 64 generated, each
+                prefill beside (8, 1500, 384) zero bf16 frames (the
+                reference's); no kernel.  On random frames from the seed
+                (zero frames silence the encoder and every cross
+                sublayer): every dec layer's cross K/V after a prefill
+                against rms_norm(encode(frames), ctx_norm) @ wk (wv)
+                computed apart; the twin (the whole served model) holds
+                checks 3 and 4 and puts the logits on zero frames farther
+                from those on random ones than check 4's limit.
+ 10i. whisper_train :func:`embedding_train` (vlm_train's gates) at that
+                size, the same scaled weights, 16 sequences of 448 in 2
+                microbatches, remat, bf16,
+                ``--mole embedding`` (kappa 1): ``enc_proj`` becomes AugProj
+                and K4 morphs each batch's (24000, 384) frame rows by the
+                (384, 384) core, the only kernel; gate 3's float64
+                gradients for every leaf.  MFU: ``whisper_flops``.
  11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
-     ``fp32_tables``; K4's at the vlm provider's morph, with vlm_train's
-     launches, beside its own under ``vlm_provider``), the card's name and
-     power limit, and the final ``{"ok": true, ...}`` line.
+     ``fp32_tables``; K4's at the vlm and whisper providers' morphs, with
+     vlm_train's and whisper_train's launches, beside its own under
+     ``vlm_provider`` and ``whisper_provider``), the card's name and power
+     limit, and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import asyncio
 import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -709,6 +734,39 @@ VLM_FP64_LEAVES = (
     "blocks.0.ffn.wo", "blocks.1.mix.wq", "blocks.1.mix.wk",
     "blocks.1.mix.wv", "blocks.1.mix.wo", "blocks.1.mix.ctx_norm",
     "blocks.1.mix.gate_attn", "blocks.1.mix.gate_ffn", "blocks.1.ffn.wi_gate")
+# whisper_path and whisper_train: whisper_tiny at its published width and
+# depth, uncut (4 bidir encoder layers over a stub of 1500 frames of 384, 4
+# dec decoder layers, d 384, 6 heads of 64, d_ff 1536 GELU, layernorm, vocab
+# 51865, untied head, RoPE 1e4, bf16).  ModelConfig.param_count: 56,504,832
+# (encoder 7,228,800: enc_proj 147,456, 4 blocks of 1,770,240, enc_norm 384;
+# decoder 49,276,032: embedding and head 19,916,160 each, 4 dec blocks of
+# 2,360,832, final_norm 384): 0.11 GB in bf16.  whisper_path: 4 tenants x 8
+# requests, prompts of 192 and 64 generated, 256 positions within the
+# published text context of 448; a tenant's prefill runs the encoder over
+# (8, 1500, 384) zero frames, its dense bidirectional scores 8 x 6 x 1500^2
+# fp32 = 0.43 GB a layer, and writes 4 cross caches of 8 x 1500 x 6 x 64 x
+# K and V x 2 B = 18.4 MB each.  Every dec layer's cross caches are checked
+# on random frames (zero frames silence the encoder and every cross
+# sublayer: no bias anywhere).  The twin is the whole served model on 4 of
+# the prompts and random frames.  Both phases scale the attention's query
+# and key weights (conditioned_attention): with the reference's init the
+# softmax is nearly one-hot, and the twin's serving steps departed from a
+# forward with no cache by 2.0, 19.25, 45.8 and 96.25 bf16 ulps of
+# max|logit| at 1, 2, 3 and 4 decoder layers, a served token 162 ulps below
+# the forward's max at 4 (NVIDIA H100 80GB HBM3, 700.00 W), and gate 3's
+# fp32 gradients departed from float64 by 4.9 of a leaf's max.
+WHISPER_ARCH = "whisper_tiny"
+WHISPER_PATH = dict(tenants=4, requests=32, prompt_len=192, gen=64,
+                    twin_rows=4)
+# whisper_train: 16 sequences of 448 (the published text context) in 2
+# microbatches, so the frames go through _split_micro; training state at 16
+# B a parameter is 0.9 GB; a microbatch's encoder scores are 8 x 6 x 1500^2
+# fp32 = 0.43 GB a bidir layer (remat recomputes one block at a time).  The
+# provider morphs a batch's (16 x 1500, 384) frame rows by the (384, 384)
+# core (kappa 1) through K4: 2 x 24000 x 384^2 = 7.08 GFLOP, 67 TFLOP/s
+# FFMA 0.106 ms, above the 0.022 ms its 74 MB take at 3.35 TB/s.
+WHISPER_TRAIN = dict(seq=448, global_batch=16, micro=2)
+K4_WHISPER = (24000, 1, 384)    # (R, kappa, q)
 
 
 def bf16_ulp(x: float) -> float:
@@ -2982,33 +3040,35 @@ def k45_checks(dev, kernels, ref) -> dict:
              kernels.morph_rows_batched(x, cores, 1),
              ref.block_diag_matmul_batched_ref(x, cores, 1))
     del x32, cores32, x, cores
-    # K4 at the provider's patch morph of vlm_train (fp32: the stage morphs
-    # the fp32 stream): against its plain version, a float64 product and
-    # torch.matmul; not counted (vlm_train counts its launches).
-    R, kappa, q = K4_VLM
-    x, core = randn(R, kappa * q), randn(q, q, scale=q ** -0.5)
-    got = kernels.morph_rows(x, core, kappa)
-    hold("block_diag_matmul", f"vlm_provider_R{R}_q{q}", torch.float32, got,
-         ref.block_diag_matmul_ref(x, core, kappa))
-    row = timed(torch.float32,
-                lambda: kernels.block_diag_matmul(x, core, kappa),
-                lambda: ref.block_diag_matmul_ref(x, core, kappa),
-                lambda: torch.matmul(x, core),
-                4 * (2 * R * kappa * q + q * q), 2 * R * kappa * q * q, 5)
-    check(same_bits(got, kernels.block_diag_matmul(x, core, kappa)),
-          "block_diag_matmul at the vlm provider shape: two calls differ")
-    row.update(timed_shape=f"x({R},{kappa * q}) core({q},{q}) kappa={kappa}",
-               deterministic=True,
-               max_abs_err=float((got - ref.block_diag_matmul_ref(
-                   x, core, kappa)).abs().max()),
-               splits=gemm.morph_splits(1, R * kappa, q, q,
-                                        gemm.sm_count(dev)),
-               err_vs_fp64=err_vs_fp64("block_diag_matmul", x[None],
-                                       core[None], got[None],
-                                       torch.matmul(x, core)[None]))
-    rows["block_diag_matmul"]["vlm_provider"] = row
-    del x, core, got
-    torch.cuda.empty_cache()
+    # K4 at the providers' morphs of vlm_train (patches) and whisper_train
+    # (frames), fp32 (the stage morphs the fp32 stream): against its plain
+    # version, a float64 product and torch.matmul; not counted (the train
+    # phases count their launches).
+    for tag, (R, kappa, q), iters in (("vlm_provider", K4_VLM, 5),
+                                      ("whisper_provider", K4_WHISPER, 20)):
+        x, core = randn(R, kappa * q), randn(q, q, scale=q ** -0.5)
+        got = kernels.morph_rows(x, core, kappa)
+        hold("block_diag_matmul", f"{tag}_R{R}_q{q}", torch.float32, got,
+             ref.block_diag_matmul_ref(x, core, kappa))
+        row = timed(torch.float32,
+                    lambda: kernels.block_diag_matmul(x, core, kappa),
+                    lambda: ref.block_diag_matmul_ref(x, core, kappa),
+                    lambda: torch.matmul(x, core),
+                    4 * (2 * R * kappa * q + q * q), 2 * R * kappa * q * q,
+                    iters)
+        check(same_bits(got, kernels.block_diag_matmul(x, core, kappa)),
+              f"block_diag_matmul at the {tag} shape: two calls differ")
+        row.update(
+            timed_shape=f"x({R},{kappa * q}) core({q},{q}) kappa={kappa}",
+            deterministic=True,
+            max_abs_err=float((got - ref.block_diag_matmul_ref(
+                x, core, kappa)).abs().max()),
+            splits=gemm.morph_splits(1, R * kappa, q, q, gemm.sm_count(dev)),
+            err_vs_fp64=err_vs_fp64("block_diag_matmul", x[None], core[None],
+                                    got[None], torch.matmul(x, core)[None]))
+        rows["block_diag_matmul"][tag] = row
+        del x, core, got
+        torch.cuda.empty_cache()
 
     # K5: single-tenant at the developer path's shape, per-group, ragged.
     B, K, N = K5_MAIN
@@ -3729,7 +3789,7 @@ def train_resume_path(dev, kernels) -> dict:
     return out
 
 
-# -- phases 10f and 10g: the vision-language stack ------------------------------
+# -- phases 10f-10i: the frontend models (vision-language, audio) ----------------
 
 def live_gates(params, cfg, seed: int) -> list[float]:
     """Both tanh gates of every cross layer drawn uniform in +-1 from
@@ -3754,7 +3814,7 @@ class ServeTap:
     (the names ``_serve_per_tenant`` reads when it runs) are wrapped: each
     call is timed on the host clock between two ``torch.cuda.synchronize()``
     and calls the real function once; a prefill also records its inputs'
-    shapes and dtypes and max|patches|."""
+    shapes and dtypes and the largest magnitude of its patches or frames."""
 
     def __init__(self):
         from repro_torch.core import deploy
@@ -3780,12 +3840,12 @@ class ServeTap:
 
     def _wrap_prefill(self, model):
         step = self._prefill(model)
+        key = model.cfg.frontend.batch_key
 
         def prefill(params, batch, caches):
             self.inputs.append({k: [list(v.shape), str(v.dtype).split(".")[-1]]
                                 for k, v in batch.items()})
-            self.inputs[-1]["max_abs_patches"] = float(
-                batch["patches"].abs().max())
+            self.inputs[-1]["max_abs_" + key] = float(batch[key].abs().max())
             return self._timed(self.prefill_ms, 1e3, step, params, batch,
                                caches)
         return prefill
@@ -3806,183 +3866,220 @@ class ServeTap:
         self.steps.make_decode_step = self._decode
 
 
-def vlm_twin(dev, params, cfg, prompts, tenant_seed: int) -> dict:
-    """The twin of vlm_path: its first attention layer and its first gated
-    cross layer (2 layers, full width, the main run's weights and live
-    gates; VLM_TWIN_PATTERN says why not the whole group) on random
-    patches from the seed.  One tenant's fused params serve the morphed
-    prompts through ``make_prefill_step`` (which writes the cross caches)
-    and greedy ``make_decode_step`` (which reads them and never sees the
-    patches).  Gated: (4) the served logits, unmorphed with the tenant's
+def cross_sublayers(cfg, params, caches) -> list:
+    """``(cross-attention params, its cache)`` for every cross sublayer in
+    layer order: a vlm's ``cross`` layers, each ``dec`` layer's cross
+    part."""
+    if cfg.family == "audio":
+        return [(p["cross"], c["cross"]) for p, c in
+                zip(params["dec"]["blocks"], caches["dec"]["blocks"])]
+    return [(p["mix"], c) for k, p, c in
+            zip(cfg.layer_kinds(), params["blocks"], caches["blocks"])
+            if k == "cross"]
+
+
+def frontend_input(dev, cfg, rows: int) -> torch.Tensor:
+    """Random patches or frames (rows, n_tokens, d_in) fp32 from the seed."""
+    fe = cfg.frontend
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    return torch.randn((rows, fe.n_tokens, fe.d_in), generator=g, device=dev)
+
+
+def cross_cache_check(dev, model, params, prompts) -> dict:
+    """One prefill (``make_prefill_step``) of the served model on
+    ``prompts`` beside random patches or frames; every cross sublayer's
+    caches must hold rms_norm(ctx, ctx_norm) @ wk (and wv), with ctx
+    computed apart (a vlm's patches @ frontend_proj, an audio model's
+    encoder output), within two bf16 ulps of their max."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import layers as L, stack as S, whisper as W
+
+    cfg = model.cfg
+    rows, P = prompts.shape
+    x = frontend_input(dev, cfg, rows)
+    worst = 0.0
+    with torch.no_grad():
+        caches = model.init_cache(rows, P + 1)
+        _, caches = make_prefill_step(model)(
+            params, {"tokens": torch.from_numpy(prompts).long().to(dev),
+                     cfg.frontend.batch_key: x}, caches)
+        ctx = (W.encode(params, x, cfg) if cfg.family == "audio"
+               else S.project_ctx(params, cfg, x))
+        cross = cross_sublayers(cfg, params, caches)
+        check(len(cross) > 0, "no cross sublayer")
+        for mix, c in cross:
+            cn = L.rms_norm(ctx, mix["ctx_norm"]).float()
+            for name in ("k", "v"):
+                want = torch.einsum("bsd,dhk->bshk", cn, mix["w" + name].float())
+                err = float((c[name].float() - want).abs().max())
+                lim = 2 * bf16_ulp(float(want.abs().max()))
+                check(err <= lim, f"cross cache {name} off by {err} > {lim}")
+                worst = max(worst, err / lim)
+    return {"cross_sublayers": len(cross), "rows": rows, "prompt_len": P,
+            "worst_share_of_limit": worst}
+
+
+def frontend_twin(dev, model, params, prompts, tenant_seed: int,
+                  gen: int) -> dict:
+    """The twin of a frontend model's serving path (``model`` and
+    ``params``: the vlm's first attention and cross layers, or the whole
+    whisper model) on random patches or frames from the
+    seed.  One tenant's fused params serve the morphed prompts through
+    ``make_prefill_step`` (which writes the cross caches) and greedy
+    ``make_decode_step`` (which reads them and never sees the frontend's
+    input).  Gated: (4) the served logits, unmorphed with the tenant's
     permutation (``plain[v] = morphed[perm[v]]``), against the raw params'
     prefill and decode steps teacher-forced with the unmorphed tokens,
     within two bf16 ulps of max|raw|; (3) each unmorphed token within the
     tie margin (TIE_MARGIN_ULPS bf16 ulps of max|logit|) of the maximum of
-    an independent teacher-forced ``forward`` on the raw params with no
-    cache (the cross K/V computed anew); and the cross layer's caches after
-    the served prefill hold rms_norm(patches @ frontend_proj, ctx_norm)
-    @ wk (and wv), computed apart, within two bf16 ulps of their max.
-    Printed: how far the forward's logits on zero patches lie from those
-    on the random patches."""
-    import dataclasses
-
+    an independent teacher-forced forward on the raw params with no cache
+    (``Model.logits``: the context and its K/V computed anew); and for an
+    audio model the forward's logits on all-zero frames lie farther than
+    check 4's limit from those on the random ones (the serving path's zero
+    frames silence the encoder and every cross sublayer).  Printed for
+    both: that distance in bf16 ulps."""
     from repro_torch.core.deploy import fuse_lm_params
     from repro_torch.core.lm import TokenMorpher
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import Model, layers as L, stack as S
 
-    cfg2 = dataclasses.replace(cfg, block_pattern=VLM_TWIN_PATTERN, n_groups=1)
-    model2 = Model(cfg2, dev)
-    params2 = {k: params[k] for k in params.keys() if k != "blocks"}
-    kinds = cfg.layer_kinds()
-    params2["blocks"] = [params["blocks"][kinds.index(k)]
-                         for k in VLM_TWIN_PATTERN]
+    cfg = model.cfg
+    key = cfg.frontend.batch_key
     rows, P = prompts.shape
-    fe = cfg.frontend
-    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    patches = torch.randn((rows, fe.n_tokens, fe.d_in), generator=gen,
-                          device=dev)
+    x = frontend_input(dev, cfg, rows)
     tm = TokenMorpher.create(tenant_seed, cfg.vocab)
-    prefill, decode = make_prefill_step(model2), make_decode_step(model2)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
 
     def serve_steps(p, toks, forced=None):
-        caches = model2.init_cache(rows, P + VLM_GEN + 1)
+        caches = model.init_cache(rows, P + gen + 1)
         lg, caches = prefill(p, {"tokens": torch.from_numpy(toks).long().to(dev),
-                                 "patches": patches}, caches)
-        cross = {k: v.clone() for k, v in caches["blocks"][-1].items()}
+                                 key: x}, caches)
         out, logits = [], [lg[:, 0].float()]
-        for i in range(VLM_GEN - 1):
+        for i in range(gen - 1):
             tok = (torch.argmax(lg[:, 0], -1) if forced is None
                    else torch.from_numpy(forced[:, i]).to(dev))
             out.append(tok)
             lg, caches = decode(p, tok[:, None].long(), P + i, caches)
             logits.append(lg[:, 0].float())
         out.append(torch.argmax(lg[:, 0], -1))
-        return (torch.stack(logits, 1), torch.stack(out, 1).cpu().numpy(),
-                cross)
+        return torch.stack(logits, 1), torch.stack(out, 1).cpu().numpy()
 
     with torch.no_grad():
-        fused = fuse_lm_params(params2, cfg2, token_morpher=tm)
-        served_lg, served, cross = serve_steps(fused, tm.perm[prompts])
+        fused = fuse_lm_params(params, cfg, token_morpher=tm)
+        served_lg, served = serve_steps(fused, tm.perm[prompts])
         del fused
-        check(cfg2.layer_kinds()[-1] == "cross", "the twin ends in no cross layer")
-        mix = params2["blocks"][-1]["mix"]
-        ctx = L.rms_norm(torch.matmul(patches.to(cfg.adtype),
-                                      params2["frontend_proj"]),
-                         mix["ctx_norm"]).float()
-        cache_err = 0.0
-        for name in ("k", "v"):
-            want = torch.einsum("bsd,dhk->bshk", ctx, mix["w" + name].float())
-            err = float((cross[name].float() - want).abs().max())
-            lim = 2 * bf16_ulp(float(want.abs().max()))
-            check(err <= lim, f"vlm twin: cross cache {name} off by {err} > "
-                              f"{lim}")
-            cache_err = max(cache_err, err / lim)
-        del ctx, want, cross
         final = tm.inv_perm[served]
-        raw_lg, _, _ = serve_steps(params2, prompts, forced=final)
+        raw_lg, _ = serve_steps(params, prompts, forced=final)
         perm = torch.from_numpy(tm.perm).to(dev)
         unmorphed = served_lg[..., perm]
         err4 = float((unmorphed - raw_lg).abs().max())
         lim4 = 2 * bf16_ulp(float(raw_lg.abs().max()))
-        check(err4 <= lim4, f"vlm twin check 4: |unmorphed served - raw "
-                            f"steps| {err4} > {lim4}")
+        check(err4 <= lim4, f"twin check 4: |unmorphed served - raw steps| "
+                            f"{err4} > {lim4}")
         seqs = torch.from_numpy(np.concatenate([prompts, final[:, :-1]], 1)
                                 ).long().to(dev)
-        fwd = S.forward(params2, cfg2, seqs, ctx=patches)[0][:, P - 1:]
+        fwd = model.logits(params, {"tokens": seqs, key: x})[:, P - 1:]
         gap, exact = gaps_in_ulps(fwd, final)
         check(bool((gap <= TIE_MARGIN_ULPS).all()),
-              f"vlm twin check 3: a token is {gap.max():.2f} bf16 ulps below "
+              f"twin check 3: a token is {gap.max():.2f} bf16 ulps below "
               f"the forward's max (margin {TIE_MARGIN_ULPS})")
         steps_vs_fwd = float((raw_lg - fwd).abs().max())
-        zero = S.forward(params2, cfg2, seqs,
-                         ctx=torch.zeros_like(patches))[0][:, P - 1:]
+        zero = model.logits(params, {"tokens": seqs,
+                                     key: torch.zeros_like(x)})[:, P - 1:]
         live = float((zero - fwd).abs().max())
-    return {"layers": cfg2.layer_kinds(), "rows": rows, "prompt_len": P,
-            "gen": VLM_GEN, "patches": list(patches.shape),
+        # the audio serving path feeds zero frames, which silence the
+        # encoder and every cross sublayer: the twin must be farther off
+        if cfg.family == "audio":
+            check(live > lim4, f"twin: logits on zero and on random {key} "
+                               f"{live} apart, not above check 4's {lim4}")
+    fwd_ulp = bf16_ulp(float(fwd.abs().max()))
+    return {"layers": cfg.layer_kinds(), "enc_layers": cfg.frontend.enc_layers,
+            "rows": rows, "prompt_len": P, "gen": gen, key: list(x.shape),
             "unmorph_vs_raw_steps_max_abs": err4, "unmorph_limit": lim4,
             "forward_worst_gap_ulps": float(gap.max()),
             "forward_exact_argmax_share": float(exact.mean()),
-            "steps_vs_forward_max_ulps": steps_vs_fwd / bf16_ulp(
-                float(fwd.abs().max())),
-            "cross_cache_worst_share_of_limit": cache_err,
-            "zero_vs_random_patches_max_ulps": live / bf16_ulp(
-                float(fwd.abs().max()))}
+            "steps_vs_forward_max_ulps": steps_vs_fwd / fwd_ulp,
+            f"zero_vs_random_{key}_max_ulps": live / fwd_ulp}
 
 
-def vlm_path(dev, kernels) -> dict:
-    """``serve --mode lm`` (``serve.run_lm``) at llama32_vision_90b's
-    published width cut to VLM_GROUPS groups, with live gates: the token
-    lane morphs the prompts, then one tenant at a time its fused params
-    prefill its 8 prompts beside all-zero patches and decode greedily.
-    Gated: no kernel launched (all six counters 0); every prefill fed
-    (8, 1024, 7680) zero bf16 patches; one fusion and one prefill a
-    tenant and a decode step a generated token after the first; the
-    generations' shape and range; the peak at PEAK_LIMIT_GB; the twin's
-    checks (:func:`vlm_twin`).  Printed: prefill and decode-step p50,
-    tokens/s, the fusing time a tenant, the peak."""
-    import dataclasses
-
+def frontend_path(dev, kernels, *, phase: str, arch: str, cfg, tenants: int,
+                  requests: int, prompt_len: int, gen: int, twin_rows: int,
+                  twin, prepare=None) -> dict:
+    """``serve --mode lm`` (``serve.run_lm``) of a frontend model on
+    ``cfg`` (the published config, cut or not) with random weights from the
+    seed (``prepare(params, cfg)`` then sets what the init leaves dead and
+    returns it): the token lane morphs the prompts, then one tenant at a
+    time its fused params prefill its prompts beside all-zero patches or
+    frames and decode greedily.  Gated: no kernel launched (all six
+    counters 0); every prefill fed (rows, n_tokens, d_in) zero bf16 inputs;
+    one fusion and one prefill a tenant and a decode step a generated token
+    after the first; the generations' shape and range; the peak at
+    PEAK_LIMIT_GB; every cross sublayer's caches after a prefill of the
+    first ``twin_rows`` prompts beside random inputs
+    (:func:`cross_cache_check`); the checks of :func:`frontend_twin` on
+    ``twin(model, params)`` (a ``(model, params)`` pair) serving those
+    prompts.  Printed: prefill and
+    decode-step p50, tokens/s, the fusing time a tenant, the peak."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import serve
     from repro_torch.models import Model
 
     t_phase = time.monotonic()
-    cfg = dataclasses.replace(get_config(VLM_ARCH), n_groups=VLM_GROUPS)
     torch.cuda.reset_peak_memory_stats()
     host_reset = host_peak_reset()
     model = Model(cfg, dev)
     t0 = time.monotonic()
     params = model.init(SEED)
-    gates = live_gates(params, cfg, SEED)
+    prepared = prepare(params, cfg) if prepare else None
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     args = serve.parse_args([
-        "--mode", "lm", "--arch", VLM_ARCH, "--requests", str(VLM_REQUESTS),
-        "--tenants", str(VLM_TENANTS), "--prompt-len", str(VLM_PROMPT),
-        "--gen", str(VLM_GEN), "--mole", "token", "--seed", str(SEED)])
+        "--mode", "lm", "--arch", arch, "--requests", str(requests),
+        "--tenants", str(tenants), "--prompt-len", str(prompt_len),
+        "--gen", str(gen), "--mole", "token", "--seed", str(SEED)])
     reset_launches(kernels)
     with torch.no_grad(), ServeTap() as tap:
         t0 = time.monotonic()
         final = serve.run_lm(args, params=params, cfg=cfg)
         serve_s = time.monotonic() - t0
     launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
-    check(not any(launches.values()), f"vlm_path launched kernels: {launches}")
-    rows = VLM_REQUESTS // VLM_TENANTS
-    fe = cfg.frontend
-    want_in = {"tokens": [rows, VLM_PROMPT],
-               "patches": [rows, fe.n_tokens, fe.d_in]}
-    check(len(tap.fuse_s) == len(tap.prefill_ms) == VLM_TENANTS
-          and len(tap.decode_ms) == VLM_TENANTS * (VLM_GEN - 1),
+    check(not any(launches.values()), f"{phase} launched kernels: {launches}")
+    rows = requests // tenants
+    fe, key = cfg.frontend, cfg.frontend.batch_key
+    check(len(tap.fuse_s) == len(tap.prefill_ms) == tenants
+          and len(tap.decode_ms) == tenants * (gen - 1),
           f"{len(tap.fuse_s)} fusions, {len(tap.prefill_ms)} prefills, "
-          f"{len(tap.decode_ms)} decode steps for {VLM_TENANTS} tenants")
+          f"{len(tap.decode_ms)} decode steps for {tenants} tenants")
     for seen in tap.inputs:
-        check(seen["tokens"][0] == want_in["tokens"]
-              and seen["patches"] == [want_in["patches"], "bfloat16"]
-              and seen["max_abs_patches"] == 0.0,
+        check(seen["tokens"][0] == [rows, prompt_len]
+              and seen[key] == [[rows, fe.n_tokens, fe.d_in], "bfloat16"]
+              and seen["max_abs_" + key] == 0.0,
               f"a prefill was fed {seen}")
-    check(final.shape == (VLM_REQUESTS, VLM_GEN)
+    check(final.shape == (requests, gen)
           and final.min() >= 0 and final.max() < cfg.vocab,
           f"generations {final.shape}, ids {final.min()}..{final.max()}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(peak_gb <= PEAK_LIMIT_GB,
           f"peak device memory {peak_gb:.2f} GB > {PEAK_LIMIT_GB} GB")
-    prompts = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=VLM_PROMPT,
-                                     global_batch=VLM_REQUESTS, seed=SEED)
+    prompts = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
+                                     global_batch=requests, seed=SEED)
                           ).batch(0)["tokens"]
-    twin = vlm_twin(dev, params, cfg, prompts[:VLM_TWIN_ROWS], SEED)
-    tokens = VLM_REQUESTS * VLM_GEN
+    caches_out = cross_cache_check(dev, model, params, prompts[:twin_rows])
+    twin_model, twin_params = twin(model, params)
+    twin_out = frontend_twin(dev, twin_model, twin_params,
+                             prompts[:twin_rows], SEED, gen)
+    tokens = requests * gen
     dev_s = (sum(tap.fuse_s) + sum(tap.prefill_ms) / 1e3
              + sum(tap.decode_ms) / 1e3)
-    out = {"phase": "vlm_path", "arch": VLM_ARCH, "layers": cfg.n_layers,
-           "published_layers": get_config(VLM_ARCH).n_layers,
-           "groups": VLM_GROUPS, "block_pattern": list(cfg.block_pattern),
+    out = {"phase": phase, "arch": arch, "layers": cfg.n_layers,
+           "enc_layers": fe.enc_layers,
+           "published_layers": get_config(arch).n_layers,
+           "block_pattern": list(cfg.block_pattern), "groups": cfg.n_groups,
            "params": model.param_count(), "d_model": cfg.d_model,
-           "vocab": cfg.vocab, "frontend": [fe.n_tokens, fe.d_in],
-           "dtype": cfg.dtype, "gates": gates, "tenants": VLM_TENANTS,
-           "requests": VLM_REQUESTS, "rows_per_prefill": rows,
-           "prompt_len": VLM_PROMPT, "gen": VLM_GEN, "launches": launches,
+           "vocab": cfg.vocab, "frontend": [fe.kind, fe.n_tokens, fe.d_in],
+           "dtype": cfg.dtype, "prepared": prepared, "tenants": tenants,
+           "requests": requests, "rows_per_prefill": rows,
+           "prompt_len": prompt_len, "gen": gen, "launches": launches,
            "prefill_inputs": tap.inputs[0],
            "prefill_ms": tap.prefill_ms,
            "prefill_p50_ms": float(np.median(tap.prefill_ms)),
@@ -3994,11 +4091,75 @@ def vlm_path(dev, kernels) -> dict:
            "peak_limit_gb": PEAK_LIMIT_GB, "host_peak_rss_gb": host_peak_gb(),
            "host_peak_rss_since": ("phase start" if host_reset
                                    else "process start"),
-           "tie_margin_ulps": TIE_MARGIN_ULPS, "twin": twin,
-           "first_generation": final[0][:12].tolist(),
+           "tie_margin_ulps": TIE_MARGIN_ULPS, "cross_caches": caches_out,
+           "twin": twin_out, "first_generation": final[0][:12].tolist(),
            "phase_s": time.monotonic() - t_phase}
     emit(out)
     return out
+
+
+def vlm_path(dev, kernels) -> dict:
+    """:func:`frontend_path` at llama32_vision_90b's published width cut to
+    VLM_GROUPS groups, both gates of every cross layer drawn in +-1
+    (:func:`live_gates`): 2 tenants x 8 requests of 512, 16 generated, each
+    prefill beside (8, 1024, 7680) zero patches; the twin is the first
+    attention and the first cross layer (VLM_TWIN_PATTERN says why)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_groups=VLM_GROUPS)
+
+    def twin(model, params):
+        cfg2 = dataclasses.replace(cfg, block_pattern=VLM_TWIN_PATTERN,
+                                   n_groups=1)
+        params2 = {k: params[k] for k in params.keys() if k != "blocks"}
+        kinds = cfg.layer_kinds()
+        params2["blocks"] = [params["blocks"][kinds.index(k)]
+                             for k in VLM_TWIN_PATTERN]
+        return Model(cfg2, dev), params2
+
+    return frontend_path(
+        dev, kernels, phase="vlm_path", arch=VLM_ARCH, cfg=cfg,
+        tenants=VLM_TENANTS, requests=VLM_REQUESTS, prompt_len=VLM_PROMPT,
+        gen=VLM_GEN, twin_rows=VLM_TWIN_ROWS, twin=twin,
+        prepare=lambda params, cfg: live_gates(params, cfg, SEED))
+
+
+def conditioned_attention(params, cfg) -> float:
+    """Every attention's query and key weights, (d, H, hd), scaled by
+    sqrt(H / d) in place, in the encoder's and the decoder's blocks, self
+    and cross; returns the factor.  ``Model.init`` draws them at 1/sqrt(H)
+    (fan-in is a weight's second to last axis, the reference's init), so q
+    and k have a std of sqrt(d / H) = 8 at whisper_tiny's width, the
+    scores a std of 64 and the softmax is nearly one-hot: the fp32
+    gradients are then rounding noise, and the decoder's serving steps
+    depart from a forward with no cache by more than the tie margin.
+    Scaled, q and k have unit std, as a trained model's do."""
+    H, d = cfg.n_heads, cfg.d_model
+    f = math.sqrt(H / d)
+    subs = [b["mix"] for b in params["enc_blocks"]] + [
+        b[k] for b in params["dec"]["blocks"] for k in ("mix", "cross")]
+    for p in subs:
+        for name in ("wq", "wk"):
+            p[name].data.mul_(f)
+    return f
+
+
+def whisper_path(dev, kernels) -> dict:
+    """:func:`frontend_path` at whisper_tiny's published width and depth
+    (WHISPER_PATH), the attention's query and key weights scaled
+    (:func:`conditioned_attention`): 4 tenants x 8 requests of 192, 64
+    generated, each prefill beside (8, 1500, 384) zero frames; every dec
+    layer's cross caches checked on random frames; the twin is the whole
+    served model."""
+    from repro_torch.configs import get_config
+
+    return frontend_path(dev, kernels, phase="whisper_path", arch=WHISPER_ARCH,
+                         cfg=get_config(WHISPER_ARCH),
+                         twin=lambda model, params: (model, params),
+                         prepare=conditioned_attention, **WHISPER_PATH)
 
 
 class MorphTap:
@@ -4032,26 +4193,75 @@ class MorphTap:
         self.pipeline.morph_rows = self._real
 
 
-def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
-              global_batch: int = VLM_TRAIN["global_batch"],
-              micro: int = VLM_TRAIN["micro"]) -> dict:
-    """The train step at llama32_vision_90b's published width on the
-    pattern ("attn", "cross") x 1 group, ``--mole embedding`` (kappa 1),
-    live gates: the developer's params are fused from the init
-    (``frontend_proj`` becomes AugProj = M^-1 W_in) and train on the
-    provider stage's morphed stream, which K4 morphs on the card.  Gates:
-    (1) loss and grad_norm finite, the count equal to the steps; (2) K4
-    the only kernel, launched once a batch at (2048, 7680) x (7680, 7680);
-    (3) embedding-mode equality at step 1 (:func:`vlm_mole_gate`, and the
-    bf16 run's step-1 loss against the raw params' on the raw stream
-    within VLM_GATE3_K times the raw bf16 loss's departure from float64;
-    step 2 printed, not gated: AdamW is not rotation-invariant); (4) after
-    training no leaf requires grad, and a prefill and a decode step on the
-    trained params return tensors without a graph.  Printed: step p50,
-    tokens/s, MFU, the peak, the profiled step's top operations and idle
-    share, the provider's ms a batch (K4 and the whole stage)."""
+def vlm_flops(cfg, n_params: int, seq: int, global_batch: int) -> float:
+    """Model flops of a vlm train step (remat's recompute not counted): 6
+    a token for the parameters a token's path multiplies (all but the
+    embedding table, frontend_proj and the cross layers' wk / wv, which
+    act on the patches); attention 12 H hd a token per attended position,
+    (S + 1) / 2 for a causal layer and the 1024 patches for a cross layer;
+    and per sequence, frontend_proj and the cross layers' K/V projections
+    over its 1024 patches, 6 flops a parameter and patch."""
+    H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    fe = cfg.frontend
+    kinds = cfg.layer_kinds()
+    n_cross, n_self = kinds.count("cross"), kinds.count("attn")
+    per_patch = fe.d_in * d + n_cross * 2 * d * cfg.n_kv_heads * hd
+    tokens = global_batch * seq
+    return (tokens * (6 * (n_params - cfg.vocab * d - per_patch)
+                      + 12 * H * hd * (n_self * (seq + 1) / 2
+                                       + n_cross * fe.n_tokens))
+            + global_batch * 6 * fe.n_tokens * per_patch)
+
+
+def whisper_flops(cfg, n_params: int, seq: int, global_batch: int) -> float:
+    """Model flops of a whisper train step (remat's recompute not counted),
+    per sequence of S decoder tokens over F frames: a token 6 flops a
+    decoder parameter its path multiplies (all but the embedding table and
+    the cross layers' wk / wv, which act on the frames) and 12 H hd per
+    attended position in each dec layer, (S + 1) / 2 causal and the F
+    frames in its cross sublayer; per sequence, the encoder's 6 N_enc F
+    and 12 H hd F^2 a bidir layer, and the cross K/V projections, 6 x 2 d
+    H hd F a dec layer."""
+    from repro_torch.checkpoint.manager import tree_leaves
+    from repro_torch.models.whisper import whisper_schema
+
+    H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    F, L_enc, L_dec = cfg.frontend.n_tokens, cfg.frontend.enc_layers, cfg.n_layers
+    n_dec = sum(math.prod(p.shape)
+                for p in tree_leaves(whisper_schema(cfg)["dec"]))
+    n_enc = n_params - n_dec
+    kv = 2 * d * cfg.n_kv_heads * hd
+    per_token = n_dec - cfg.vocab * d - L_dec * kv
+    tokens = global_batch * seq
+    return (tokens * (6 * per_token + L_dec * 12 * H * hd * ((seq + 1) / 2 + F))
+            + global_batch * (6 * n_enc * F + L_enc * 12 * H * hd * F * F
+                              + L_dec * 6 * kv * F))
+
+
+def embedding_train(dev, kernels, *, phase: str, arch: str, cfg, k4_shape,
+                    seq: int, global_batch: int, micro: int, flops,
+                    fp64_passes=None, prepare=None) -> dict:
+    """The train step of a frontend model on ``cfg`` (the published width,
+    cut or not), ``--mole embedding`` (kappa 1), random weights from the
+    seed (``prepare(params, cfg)`` sets what the init leaves dead): the
+    developer's params are fused from the init (the first product on the
+    frontend's input, ``frontend_proj`` or ``enc_proj``, becomes AugProj =
+    M^-1 W_in) and train on the provider stage's morphed stream, which K4
+    morphs on the card.  Gates: (1) loss and grad_norm finite, the count
+    equal to the steps; (2) K4 the only kernel, launched once a batch at
+    ``k4_shape``; (3) embedding-mode equality at step 1
+    (:func:`mole_gate`, and the bf16 run's step-1 loss against the raw
+    params' on the raw stream within VLM_GATE3_K times the raw bf16 loss's
+    departure from float64; step 2 printed, not gated: AdamW is not
+    rotation-invariant); (4) after training no leaf requires grad, and a
+    prefill and a decode step on the trained params return tensors without
+    a graph.  Printed: step p50, tokens/s, MFU (``flops(cfg, n_params,
+    seq, global_batch)`` a step over 989 TFLOP/s), the peak, the profiled
+    step's top operations and idle share, the provider's ms a batch (K4
+    and the whole stage)."""
     import dataclasses
 
+    from repro_torch.checkpoint.manager import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.core.deploy import fuse_lm_params
     from repro_torch.data import DataConfig, Pipeline
@@ -4063,10 +4273,10 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
     from repro_torch.optim import adamw
 
     t_phase = time.monotonic()
+    raw_cfg = cfg
     cfg = dataclasses.replace(
-        get_config(VLM_ARCH), block_pattern=("attn", "cross"), n_groups=1,
-        mole=MoLeCfg(enabled=True, mode="embedding", kappa=1, seed=SEED))
-    raw_cfg = dataclasses.replace(cfg, mole=MoLeCfg())
+        raw_cfg, mole=MoLeCfg(enabled=True, mode="embedding", kappa=1, seed=SEED))
+    key = cfg.frontend.batch_key
     hp = TrainHParams(optimizer=adamw.AdamWConfig(warmup_steps=TRAIN_WARMUP),
                       microbatch=micro, remat=True)
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=global_batch,
@@ -4075,6 +4285,10 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
     def on_card(batch):
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
+    def init(m, c):
+        p = m.init(SEED)
+        return p, (prepare(p, c) if prepare else None)
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     pipe = Pipeline(data, model_cfg=cfg, device=dev)   # the core: fp64 QR
@@ -4082,8 +4296,7 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
     em = pipe.provider.embed_morpher
     model = Model(cfg, dev)
     n_params = model.param_count()
-    params = model.init(SEED)
-    gates = live_gates(params, cfg, SEED)
+    params, prepared = init(model, cfg)
     params = ParamTree(fuse_lm_params(params, cfg, embed_morpher=em))
     opt = adamw.init_state(params)
     step = make_train_step(model, hp)
@@ -4122,7 +4335,7 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
           f"gate 1: opt count {int(opt['count'])} after {len(metrics)} steps")
     # Gate 2: K4 alone, once a batch (the warmup's step() call draws one
     # batch more for profiling), at the provider's shape.
-    R, kappa, q = K4_VLM
+    R, kappa, q = k4_shape
     batches = pipe.index
     check(launches["block_diag_matmul"] == batches == len(morph.calls)
           and not any(c for n, c in launches.items()
@@ -4137,10 +4350,10 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
         toks = batch["tokens"][:1, :32].long()
         caches = model.init_cache(1, 40)
         lg, caches = make_prefill_step(model)(
-            params, {"tokens": toks, "patches": batch["patches"][:1]}, caches)
+            params, {"tokens": toks, key: batch[key][:1]}, caches)
         lg2, caches = make_decode_step(model)(
             params, torch.argmax(lg[:, 0], -1)[:, None], 32, caches)
-    outs = [lg, lg2] + [x for c in caches["blocks"] for x in c.values()]
+    outs = [lg, lg2] + tree_leaves(caches)
     check(all(o.grad_fn is None and not o.requires_grad for o in outs),
           "gate 4: a serving output after training carries a graph")
     check(bool(torch.isfinite(lg2).all()), "gate 4: non-finite logits")
@@ -4150,8 +4363,7 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
     # Gate 3, bf16: the raw params on the raw stream, 2 steps, against the
     # fused run's first two (its step 1 gated below, step 2 printed).
     raw_model = Model(raw_cfg, dev)
-    raw_params = raw_model.init(SEED)
-    live_gates(raw_params, raw_cfg, SEED)
+    raw_params, _ = init(raw_model, raw_cfg)
     raw_opt = adamw.init_state(raw_params)
     raw_step = make_train_step(raw_model, hp)
     raw_pipe = Pipeline(data, model_cfg=raw_cfg)
@@ -4162,13 +4374,13 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
         raw_losses.append(float(m["loss"]))
     del raw_params, raw_opt, raw_step, raw_model
     release()
-    mole = vlm_mole_gate(dev, cfg, raw_cfg, data, em)
+    mole = mole_gate(dev, raw_cfg, data, em, fp64_passes, prepare)
     rel1 = abs(losses[0] - raw_losses[0]) / abs(raw_losses[0])
     dep_bf16 = abs(raw_losses[0] - mole["loss_fp64"]) / abs(mole["loss_fp64"])
     check(rel1 <= VLM_GATE3_K * dep_bf16,
           f"gate 3 (bf16): step-1 losses fused {losses[0]} raw "
           f"{raw_losses[0]}: {rel1} > {VLM_GATE3_K} x {dep_bf16}")
-    # K4 at the provider's shape on the last batch's rows (not counted).
+    # K4 at the provider's shape (not counted).
     x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
         (R, kappa * q)).astype(np.float32)).to(dev)
     core = torch.from_numpy(em.core.matrix).to(dev)
@@ -4176,34 +4388,20 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
     del x, core, pipe, raw_pipe
     release()
 
-    # Model flops a step (remat's recompute not counted): 6 a token for the
-    # parameters a token's path multiplies (all but the embedding table,
-    # frontend_proj and the cross layers' wk / wv, which act on the
-    # patches); attention 12 H hd a token per attended position, (S + 1) / 2
-    # for a causal layer and the 1024 patches for a cross layer; and per
-    # sequence, frontend_proj and the cross layers' K/V projections over
-    # its 1024 patches, 6 flops a parameter and patch.
-    H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
-    fe = cfg.frontend
-    kinds = cfg.layer_kinds()
-    n_cross, n_self = kinds.count("cross"), kinds.count("attn")
-    per_patch = fe.d_in * d + n_cross * 2 * d * cfg.n_kv_heads * hd
     tokens = global_batch * seq
-    flops = (tokens * (6 * (n_params - cfg.vocab * d - per_patch)
-                       + 12 * H * hd * (n_self * (seq + 1) / 2
-                                        + n_cross * fe.n_tokens))
-             + global_batch * 6 * fe.n_tokens * per_patch)
-    out = {"phase": "vlm_train", "arch": VLM_ARCH, "layers": cfg.n_layers,
-           "published_layers": get_config(VLM_ARCH).n_layers,
+    n_flops = flops(cfg, n_params, seq, global_batch)
+    out = {"phase": phase, "arch": arch, "layers": cfg.n_layers,
+           "enc_layers": cfg.frontend.enc_layers,
+           "published_layers": get_config(arch).n_layers,
            "block_pattern": list(cfg.block_pattern), "params": n_params,
-           "gates": gates, "seq_len": seq, "global_batch": global_batch,
+           "prepared": prepared, "seq_len": seq, "global_batch": global_batch,
            "microbatches": micro, "remat": True, "mole": "embedding",
            "kappa": kappa, "launches": launches, "k4_calls": morph.calls[:1],
            "losses": losses, "grad_norms": norms, "step_ms": step_ms,
            "train_step_ms": p50, "train_tokens_per_s": tokens / (p50 / 1e3),
            "train_peak_gb": peak_gb, "peak_limit_gb": PEAK_LIMIT_GB,
-           "train_mfu": flops / (p50 / 1e3) / BF16_FLOP_PER_S,
-           "flops_per_step": flops, "train_step_profile": prof,
+           "train_mfu": n_flops / (p50 / 1e3) / BF16_FLOP_PER_S,
+           "flops_per_step": n_flops, "train_step_profile": prof,
            "provider_stage_ms_per_batch": float(np.median(stage_ms)),
            "provider_k4_ms_per_batch": float(np.median(
                [c["ms"] for c in morph.calls])),
@@ -4220,6 +4418,46 @@ def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
     return out
 
 
+def vlm_train(dev, kernels, seq: int = VLM_TRAIN["seq"],
+              global_batch: int = VLM_TRAIN["global_batch"],
+              micro: int = VLM_TRAIN["micro"]) -> dict:
+    """:func:`embedding_train` at llama32_vision_90b's published width on
+    the pattern ("attn", "cross") x 1 group, live gates; K4 at (2048,
+    7680) x (7680, 7680); gate 3's float64 gradients for VLM_FP64_LEAVES,
+    the two tables a pass each."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    tables = ("embed", "head")
+    return embedding_train(
+        dev, kernels, phase="vlm_train", arch=VLM_ARCH,
+        cfg=dataclasses.replace(get_config(VLM_ARCH),
+                                block_pattern=("attn", "cross"), n_groups=1),
+        k4_shape=K4_VLM, seq=seq, global_batch=global_batch, micro=micro,
+        flops=vlm_flops,
+        fp64_passes=[(n,) for n in tables] + [
+            tuple(n for n in VLM_FP64_LEAVES if n not in tables)],
+        prepare=lambda params, cfg: live_gates(params, cfg, SEED))
+
+
+def whisper_train(dev, kernels, seq: int = WHISPER_TRAIN["seq"],
+                  global_batch: int = WHISPER_TRAIN["global_batch"],
+                  micro: int = WHISPER_TRAIN["micro"]) -> dict:
+    """:func:`embedding_train` at whisper_tiny's published width and depth
+    (WHISPER_TRAIN), the attention's query and key weights scaled
+    (:func:`conditioned_attention`); K4 at (24000, 384) x (384, 384), the
+    frames of a batch; gate 3's float64 gradients for every leaf in one
+    pass."""
+    from repro_torch.configs import get_config
+
+    return embedding_train(
+        dev, kernels, phase="whisper_train", arch=WHISPER_ARCH,
+        cfg=get_config(WHISPER_ARCH), k4_shape=K4_WHISPER, seq=seq,
+        global_batch=global_batch, micro=micro, flops=whisper_flops,
+        prepare=conditioned_attention)
+
+
 def max_rel_departure(host: torch.Tensor, exact: torch.Tensor) -> float:
     """max|host - exact| / max|exact|, ``host`` (on the host) moved to
     ``exact``'s device slice by slice (2^26 entries), so no copy of the
@@ -4231,20 +4469,22 @@ def max_rel_departure(host: torch.Tensor, exact: torch.Tensor) -> float:
     return err / float(b.abs().max())
 
 
-def vlm_mole_gate(dev, cfg, raw_cfg, data, em) -> dict:
-    """Gate 3 of vlm_train in fp32, at step 1, with no optimizer state (8 B
-    a parameter): on the stream's first batch, the raw params on the raw
-    patches against the fused params (AugProj = M^-1 W_in, fp32) on the
-    provider's morphed patches (K4).  With an orthogonal core the two
-    losses and every gradient but ``frontend_proj``'s are equal, and
-    dL/dAugProj = M^T dL/dW_in.  Each is held within VLM_GATE3_K times the
-    raw form's own departure from the same model evaluated with float64
-    products (norms, attention scores and the CE's logits stay fp32, as in
-    the fp32 run) on the same batch: the loss, and each gradient of the
-    leaves in VLM_FP64_LEAVES at its own departure, every other leaf at
-    the largest of theirs (float64 gradients of every leaf would need
-    31 GB beside the 31 GB of float64 params).  Returns the figures and
-    the float64 loss."""
+def mole_gate(dev, raw_cfg, data, em, fp64_passes=None, prepare=None) -> dict:
+    """Gate 3 of an embedding-mode train phase in fp32, at step 1, with no
+    optimizer state (8 B a parameter): on the stream's first batch, the raw
+    params on the raw patches or frames against the fused params (AugProj
+    = M^-1 W_in, fp32, in ``frontend_proj`` or ``enc_proj``) on the
+    provider's morphed ones (K4).  With an orthogonal core the two losses
+    and every gradient but AugProj's are equal, and dL/dAugProj = M^T
+    dL/dW_in.  Each is held within VLM_GATE3_K times the raw form's own
+    departure from the same model evaluated with float64 products (norms,
+    attention scores and the CE's logits stay fp32, as in the fp32 run) on
+    the same batch: the loss, and each gradient of a leaf whose float64
+    gradient is taken at its own departure, every other leaf at the
+    largest of theirs.  ``fp64_passes`` lists the leaves whose float64
+    gradients are taken, a tuple a pass (None: every leaf in one pass; a
+    vlm's would need 31 GB beside its 31 GB of float64 params).  Returns
+    the figures and the float64 loss."""
     import dataclasses
 
     from repro_torch.core.deploy import fuse_lm_params
@@ -4254,9 +4494,11 @@ def vlm_mole_gate(dev, cfg, raw_cfg, data, em) -> dict:
     from repro_torch.optim import adamw
 
     c32 = dataclasses.replace(raw_cfg, dtype="float32", param_dtype="float32")
+    proj = "enc_proj" if c32.family == "audio" else "frontend_proj"
     model = Model(c32, dev)
     params = model.init(SEED)
-    live_gates(params, c32, SEED)
+    if prepare:
+        prepare(params, c32)
     raw = {k: torch.as_tensor(v, device=dev)
            for k, v in next(Pipeline(data, model_cfg=raw_cfg)).items()}
     morphed = ProviderStage(embed_morpher=em, device=dev)(raw)
@@ -4277,7 +4519,7 @@ def vlm_mole_gate(dev, cfg, raw_cfg, data, em) -> dict:
     del fused
     worst, worst_leaf, fused_rel = 0.0, None, {}
     for n, g in g_raw.items():
-        if n == "frontend_proj":
+        if n == proj:
             continue
         rel = float((g_fused[n] - g).abs().max()) / float(g.abs().max())
         fused_rel[n] = rel
@@ -4285,12 +4527,13 @@ def vlm_mole_gate(dev, cfg, raw_cfg, data, em) -> dict:
             worst, worst_leaf = rel, n
     q, kappa = em.core.q, em.core.kappa
     core = torch.from_numpy(em.core.matrix).to(dev)
-    gp = g_raw["frontend_proj"]
+    gp = g_raw[proj]
     want = torch.matmul(core.T, gp.reshape(kappa, q, -1)).reshape(gp.shape)
-    proj_rel = float((g_fused["frontend_proj"] - want).abs().max()) / float(
+    proj_rel = float((g_fused[proj] - want).abs().max()) / float(
         want.abs().max())
     del g_fused, want, core
-    kept = {n: g_raw[n].cpu() for n in VLM_FP64_LEAVES}   # off the card
+    passes = fp64_passes or [tuple(g_raw)]
+    kept = {n: g_raw[n].cpu() for p in passes for n in p}   # off the card
     del g_raw
     release()
     # The float64 evaluation of the raw form, on the same weights.
@@ -4298,12 +4541,9 @@ def vlm_mole_gate(dev, cfg, raw_cfg, data, em) -> dict:
     model = Model(c64, dev)
     for p in params.parameters():
         p.data = p.data.double()
-    # One pass a table (their float64 gradients are 8.4 GB each), one for
-    # the rest; each pass's gradients are compared slice by slice and freed.
-    tables = ("embed", "head")
+    # Each pass's gradients are compared slice by slice and freed.
     deps = {}
-    for wanted in [(n,) for n in tables] + [
-            tuple(n for n in VLM_FP64_LEAVES if n not in tables)]:
+    for wanted in passes:
         loss64, g64 = grads(params, raw, wanted=set(wanted))
         for n, g in g64.items():
             deps[n] = max_rel_departure(kept.pop(n), g)
@@ -4326,17 +4566,21 @@ def vlm_mole_gate(dev, cfg, raw_cfg, data, em) -> dict:
         dep = deps.get(n, dep_grad)
         check(rel <= k * dep, f"gate 3 (fp32): gradient {n} {rel} > {k} x "
                               f"{dep}")
-    check(proj_rel <= k * deps["frontend_proj"],
+    check(proj_rel <= k * deps[proj],
           f"gate 3 (fp32): dAugProj against M^T dW_in {proj_rel} > {k} x "
-          f"{deps['frontend_proj']}")
+          f"{deps[proj]}")
+    closest = sorted(deps, key=lambda n: -(fused_rel.get(n, proj_rel)
+                                           / max(deps[n], 1e-30)))
     return {"fp32_loss_raw": loss_raw, "fp32_loss_fused": loss_fused,
             "fp32_loss_rel": loss_rel, "fp32_grad_worst_rel": worst,
             "fp32_grad_worst_leaf": worst_leaf,
             "fp32_dAugProj_vs_MT_dWin_rel": proj_rel,
             "loss_fp64": loss64, "fp32_raw_vs_fp64_loss_rel": dep_loss,
             "fp32_raw_vs_fp64_grad_rel": dep_grad,
-            "per_leaf_fused_vs_raw_and_raw_vs_fp64": {
-                n: [fused_rel.get(n), deps[n]] for n in VLM_FP64_LEAVES}}
+            "fp64_leaves": len(deps),
+            "closest_leaves_fused_vs_raw_and_raw_vs_fp64": {
+                n: [fused_rel.get(n, proj_rel), deps[n]]
+                for n in closest[:16]}}
 
 
 def main() -> None:
@@ -4429,9 +4673,14 @@ def main() -> None:
     release()
     vlm = vlm_train(dev, kernels)
     release()
+    whisper_path(dev, kernels)
+    release()
+    whisper = whisper_train(dev, kernels)
+    release()
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
                     wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
-    launches["block_diag_matmul"] += vlm["launches"]["block_diag_matmul"]
+    launches["block_diag_matmul"] += (vlm["launches"]["block_diag_matmul"]
+                                      + whisper["launches"]["block_diag_matmul"])
     check(all(launches[n] > 0 for n in KERNEL_NAMES),
           f"a kernel was not launched on its path: {launches}")
 
@@ -4460,13 +4709,15 @@ def main() -> None:
     k3["fp32_tables"] = {k: rows["grouped_row_gemm"]["fp32_tables"][k]
                          for k in keys}
     # K4's figures are at the developer path's morph (VGG-16/CIFAR); at the
-    # vlm provider's patch morph they stand beside them, with the launches
-    # of vlm_train's run (the rest of K4's launches are vgg_path's).
+    # vlm provider's patch morph and the whisper provider's frame morph they
+    # stand beside them, with the launches of vlm_train's and whisper_train's
+    # runs (the rest of K4's launches are vgg_path's).
     k4 = line[list(kernel_rows).index("block_diag_matmul")]
-    vlm_row = rows["block_diag_matmul"]["vlm_provider"]
-    k4["vlm_provider"] = dict(
-        {k: vlm_row[k] for k in keys + ("max_abs_err", "timed_shape")},
-        launches=vlm["launches"]["block_diag_matmul"])
+    for tag, run in (("vlm_provider", vlm), ("whisper_provider", whisper)):
+        row = rows["block_diag_matmul"][tag]
+        k4[tag] = dict(
+            {k: row[k] for k in keys + ("max_abs_err", "timed_shape")},
+            launches=run["launches"]["block_diag_matmul"])
     emit({"kernels": line})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,18 +6,19 @@ batches from the same seed:
 
   * **stateless indexing** — batch ``i`` is a pure function of
     ``(seed, i)``, so a restart is a seek, not a replay;
-  * **frontend stub** — a vlm's batch carries ``patches`` (B, n_tokens,
-    d_in) fp32 drawn from ``(seed, 2, i)``, the stubbed vision tower's
-    output;
+  * **frontend stub** — a frontend model's batch carries (B, n_tokens,
+    d_in) fp32 drawn from ``(seed, 2, i)``: a vlm's ``patches`` (the
+    stubbed vision tower's output), an audio model's ``frames`` (the
+    stubbed conv frontend's);
   * **provider stage** — with MoLe on, the stream leaving the pipeline is
     morphed: tokens by the secret vocabulary permutation (labels
-    included), or in embedding mode the patches by the block-diagonal
-    core; the trainer never sees raw data.
+    included), or in embedding mode the patches or frames by the
+    block-diagonal core; the trainer never sees raw data.
 
 Synthetic text: a mixture of Zipf-distributed unigrams and a deterministic
 "grammar" (next token depends on the current token), so a model can learn
-it.  The reference morphs the patches with ``np.einsum`` on the host; here
-they go through the provider's morph kernel K4
+it.  The reference morphs the patches and frames with ``np.einsum`` on the
+host; here they go through the provider's morph kernel K4
 (:func:`repro_torch.kernels.ops.morph_rows`) on the pipeline's device, the
 card unless the caller names another, and stay there: the same function,
 fp32 in and out.  On the CPU K4 runs its plain version.
@@ -117,8 +118,10 @@ class ProviderStage:
             for k in ("tokens", "targets"):
                 if k in out:
                     out[k] = self.token_morpher.perm[out[k]]
-        if self.embed_morpher is not None and "patches" in out:
-            out["patches"] = self._morph(out["patches"])
+        if self.embed_morpher is not None:
+            for k in ("patches", "frames"):
+                if k in out:
+                    out[k] = self._morph(out[k])
         return out
 
     def _morph(self, x) -> torch.Tensor:
@@ -160,7 +163,7 @@ class Pipeline:
         if cfg is None or cfg.frontend is None:
             return batch
         rng = np.random.default_rng((self.source.cfg.seed, 2, index))
-        batch["patches"] = rng.standard_normal(
+        batch[cfg.frontend.batch_key] = rng.standard_normal(
             (batch["tokens"].shape[0], cfg.frontend.n_tokens, cfg.frontend.d_in)
         ).astype(np.float32)
         return batch

@@ -19,12 +19,13 @@ continuous-batched cross-tenant decode lane generates from the morphed
 prompts with every tenant's fused Aug-Embedding / Aug-head
 (``repro_torch.runtime.decode``, logits through the K3 kernel); the lane
 unmorphs the generations for the provider.  A frontend model (the vlm
-``llama32_vision_90b``) is served one tenant at a time instead, as the
-reference serves it: the tenant's fused parameters, one prefill of its
-morphed prompts beside all-zero patches, greedy decode, then the
-provider unmorphs.  ``--mole off`` serves the raw model on the raw
-prompts instead: no registry, no engine, one prefill and a greedy decode
-for all requests together (a frontend model beside zero patches).
+``llama32_vision_90b``, the audio ``whisper_tiny``) is served one tenant
+at a time instead, as the reference serves it: the tenant's fused
+parameters, one prefill of its morphed prompts beside all-zero patches or
+frames, greedy decode, then the provider unmorphs.  ``--mole off`` serves
+the raw model on the raw prompts instead: no registry, no engine, one
+prefill and a greedy decode for all requests together (a frontend model
+beside zero patches or frames).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch deepseek_7b --smoke --requests 8 --prompt-len 32 --gen 16
@@ -38,6 +39,8 @@ for all requests together (a frontend model beside zero patches).
         --arch deepseek_v2_lite_16b --smoke --requests 4 --prompt-len 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
         --arch llama32_vision_90b --smoke --requests 4 --prompt-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch whisper_tiny --smoke --requests 4 --prompt-len 16
 
 ``--mode serve`` — the **network front door**
 (``repro_torch.launch.server``): the async delivery engine behind a TCP
@@ -291,10 +294,15 @@ def run_lm(args, params=None, cfg=None) -> np.ndarray:
         )
         return final
 
-    # cast on the host: no fp32 copy of the tables on the card
-    embed = params["embed"].cpu().float().numpy()
-    head = (None if cfg.tie_embeddings
-            else params["head"].cpu().float().numpy())
+    # cast on the host: no fp32 copy of the tables on the card; an audio
+    # model's tables are its decoder's, and its registry holds no head
+    # (the per-tenant path fuses the head from the morpher), as the
+    # reference's
+    audio = cfg.family == "audio"
+    tables = params["dec"] if audio else params
+    embed = tables["embed"].cpu().float().numpy()
+    head = (None if cfg.tie_embeddings or audio
+            else tables["head"].cpu().float().numpy())
 
     # ---- provider side: engine-morphed prompts ---------------------------
     capacity = args.capacity if args.capacity is not None else tenants
@@ -431,13 +439,14 @@ def _serve_per_tenant(model, params, registry, prompts: np.ndarray,
 def _generate(model, params, prefill, decode, prompts: np.ndarray, args,
               device) -> np.ndarray:
     """One prefill of ``prompts`` (a frontend model's beside all-zero bf16
-    inputs of the frontend's shape, as the reference feeds them), then
-    ``gen - 1`` greedy decode steps; (rows, gen) int64."""
+    inputs of the frontend's shape, as the reference feeds them: a vlm's
+    ``patches``, an audio model's ``frames``), then ``gen - 1`` greedy
+    decode steps; (rows, gen) int64."""
     cfg = model.cfg
     caches = model.init_cache(len(prompts), args.prompt_len + args.gen + 1)
     batch = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(device)}
     if cfg.frontend is not None:
-        batch["patches"] = torch.zeros(
+        batch[cfg.frontend.batch_key] = torch.zeros(
             (len(prompts), cfg.frontend.n_tokens, cfg.frontend.d_in),
             dtype=torch.bfloat16, device=device)
     logits, caches = prefill(params, batch, caches)

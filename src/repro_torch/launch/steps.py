@@ -40,8 +40,9 @@ class TrainHParams:
 
 
 def _split_micro(batch: dict, n_micro: int) -> dict:
-    """Every input of the batch (tokens, targets, a vlm's patches) cut
-    into ``n_micro`` microbatches along its first axis."""
+    """Every input of the batch (tokens, targets, a vlm's patches, an
+    audio model's frames) cut into ``n_micro`` microbatches along its
+    first axis."""
     def rs(x):
         b = x.shape[0]
         assert b % n_micro == 0, (b, n_micro)
@@ -119,8 +120,9 @@ def make_train_step(model: Model, hp: TrainHParams):
 
 def make_prefill_step(model: Model):
     """(params, batch, caches) -> (last-token logits, caches); a vlm's
-    batch carries its ``patches``, whose K/V the cross caches keep for
-    the decode steps."""
+    batch carries its ``patches``, an audio model's its ``frames`` (run
+    through the encoder once), whose K/V the cross caches keep for the
+    decode steps."""
 
     @torch.no_grad()
     def prefill_step(params, batch, caches):

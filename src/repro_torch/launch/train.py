@@ -16,20 +16,24 @@ AdamW, periodic async checkpoints, auto-resume.  Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch llama32_vision_90b --smoke --steps 4 --mole embedding \
         --kappa 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper_tiny --smoke --steps 4 --mole embedding \
+        --kappa 4 --device cpu
 
 The flags are the reference's, plus ``--device``.  The step is
 :func:`repro_torch.launch.steps.make_train_step`, run eagerly: it updates
 the parameters and moments in place, so there is no donation to ask for.
 Checkpoints go to ``<ckpt-dir>/<arch>`` (three kept); ``--resume`` restores
 the latest one into the freshly built state and seeks the pipeline to the
-index saved with it.  Every arch the port serves trains, the hybrid
-``recurrentgemma_2b`` (RG-LRU and local layers) and the vision-language
-``llama32_vision_90b`` included, but ``rwkv6_3b`` (its wkv6 kernel has no
-backward yet), which raises ``NotImplementedError``, as do architectures
-the port does not run.  ``--mole embedding`` (``--kappa`` blocks of the
-core) morphs a vlm's patch stream in the pipeline's provider stage, through
-the morph kernel K4 on ``--device``; a model without a frontend refuses it
-(``ValueError``).
+index saved with it.  Every arch of the registry trains, the hybrid
+``recurrentgemma_2b`` (RG-LRU and local layers), the vision-language
+``llama32_vision_90b`` and the audio encoder-decoder ``whisper_tiny``
+included, but ``rwkv6_3b`` (its wkv6 kernel has no backward yet), which
+raises ``NotImplementedError``, as do names outside the registry.
+``--mole embedding`` (``--kappa`` blocks of the core) morphs a vlm's patch
+stream or an audio model's frame stream in the pipeline's provider stage,
+through the morph kernel K4 on ``--device``; a model without a frontend
+refuses it (``ValueError``).
 
 ``main(argv, cfg=...)`` runs on a given config in place of ``--arch``'s
 (``--smoke`` is then ignored; the ``--mole`` flags still apply): that is

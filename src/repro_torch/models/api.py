@@ -2,8 +2,9 @@
 
 Ported from ``repro.models.api`` for token LMs (attention stacks:
 global, sliding-window and MLA mixers with dense or MoE FFNs;
-RecurrentGemma's RG-LRU / local-attention hybrid; RWKV-6 stacks) and
-vision-language stacks whose cross layers attend to a patch stream.
+RecurrentGemma's RG-LRU / local-attention hybrid; RWKV-6 stacks),
+vision-language stacks whose cross layers attend to a patch stream, and
+Whisper's audio encoder-decoder (:mod:`repro_torch.models.whisper`).
 ``Model(cfg, device)`` exposes:
 
   schema() / init(generator) / param_count()
@@ -17,8 +18,11 @@ vision-language stacks whose cross layers attend to a patch stream.
 
 Batches are dicts of ``{"tokens": (B, S), "targets": (B, S)}`` integer
 tensors, and for a vlm ``"patches": (B, n_tokens, d_in)`` (the stubbed
-vision tower's output, fp32); the audio frontend's ``frames`` belong to a
-later slice.  :func:`params_from_jax` carries a reference parameter tree
+vision tower's output, fp32), for an audio model ``"frames": (B,
+n_frames, d_in)`` (the stubbed conv frontend's output, fp32).  An audio
+model's parameters are ``{enc_proj, enc_blocks, enc_norm, dec}`` and its
+caches ``{"dec": ...}``; its decoder, ``params["dec"]``, is the stack the
+token steps run.  :func:`params_from_jax` carries a reference parameter tree
 (as numpy arrays) over into the port, so both packages compute with the
 same weights.
 """
@@ -31,6 +35,7 @@ from ..device import resolve_device
 from .base import ModelConfig, ParamTree, check_supported, init_params
 from . import blocks as B
 from . import stack as S
+from . import whisper as W
 
 __all__ = ["Model", "cross_entropy", "params_from_jax"]
 
@@ -51,8 +56,14 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
 
+    @property
+    def _audio(self) -> bool:
+        return self.cfg.family == "audio"
+
     # -- params ------------------------------------------------------------
     def schema(self) -> dict:
+        if self._audio:
+            return W.whisper_schema(self.cfg)
         return S.model_schema(self.cfg)
 
     def init(self, generator: torch.Generator | int) -> ParamTree:
@@ -72,6 +83,8 @@ class Model:
 
     # -- caches ------------------------------------------------------------
     def cache_schema(self, batch: int, max_len: int) -> dict:
+        if self._audio:
+            return W.whisper_cache_schema(self.cfg, batch, max_len)
         return S.model_cache_schema(self.cfg, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -81,19 +94,21 @@ class Model:
         )
 
     # -- compute -----------------------------------------------------------
-    def _ctx(self, batch: dict) -> torch.Tensor | None:
-        """A vlm's patch stream in the activation type, or None."""
-        if "frames" in batch:
-            raise NotImplementedError(
-                "batch input 'frames': audio models are not ported yet"
-            )
-        if "patches" in batch:
-            return batch["patches"].to(self.cfg.adtype)
-        return None
+    def _trunk(self, params, batch: dict, remat: bool = False):
+        """``(stack params, cross context at d_model or None)``: an audio
+        model's decoder and its frames through the encoder; a vlm's params
+        and its patches through ``frontend_proj``; else the params and
+        None."""
+        if self._audio:
+            return params["dec"], W.encode(params, batch["frames"], self.cfg,
+                                           remat=remat)
+        if self.cfg.family == "vlm":
+            return params, S.project_ctx(params, self.cfg, batch["patches"])
+        return params, None
 
     def logits(self, params, batch: dict, remat: bool = False) -> torch.Tensor:
-        lg, _ = S.forward(params, self.cfg, batch["tokens"], remat=remat,
-                          ctx=self._ctx(batch))
+        p, ctx = self._trunk(params, batch, remat)
+        lg, _ = S.forward(p, self.cfg, batch["tokens"], remat=remat, ctx=ctx)
         return lg
 
     def loss(self, params, batch: dict, remat: bool = False) -> torch.Tensor:
@@ -101,9 +116,10 @@ class Model:
         :func:`~repro_torch.models.stack.fused_ce` when ``cfg.fused_ce``,
         else :func:`cross_entropy` of the full logits."""
         if self.cfg.fused_ce:
-            h = S.hidden_states(params, self.cfg, batch["tokens"],
-                                ctx=self._ctx(batch), remat=remat)
-            return S.fused_ce(params, self.cfg, h, batch["targets"])
+            p, ctx = self._trunk(params, batch, remat)
+            h = S.hidden_states(p, self.cfg, batch["tokens"], ctx=ctx,
+                                remat=remat)
+            return S.fused_ce(p, self.cfg, h, batch["targets"])
         return cross_entropy(self.logits(params, batch, remat=remat),
                              batch["targets"])
 
@@ -116,14 +132,19 @@ class Model:
         the last position's logits (B, 1, V).  Only that position goes
         through the LM head (the reference computes every position's logits
         and keeps the last: (B, S, V) fp32 is 50 GB for 8 prompts of 6144
-        at vocab 256000)."""
-        rs = B.RunState(mode="full", write_cache=True, ctx=S.project_ctx(
-            params, self.cfg, self._ctx(batch)))
-        h = S.embed_tokens(params, batch["tokens"], self.cfg)
-        h, caches = S.apply_stack(params, h, self.cfg, rs, caches)
-        return S.lm_head(params, h[:, -1:], self.cfg), caches
+        at vocab 256000).  An audio model's frames go through the encoder
+        once; each ``dec`` layer keeps their K/V in its cross cache."""
+        p, ctx = self._trunk(params, batch)
+        rs = B.RunState(mode="full", write_cache=True, ctx=ctx)
+        h = S.embed_tokens(p, batch["tokens"], self.cfg)
+        h, new = S.apply_stack(p, h, self.cfg, rs,
+                               caches["dec"] if self._audio else caches)
+        logits = S.lm_head(p, h[:, -1:], self.cfg)
+        return logits, ({"dec": new} if self._audio else new)
 
     def decode(self, params, token: torch.Tensor, t, caches):
+        if self._audio:
+            return W.decode_step(params, self.cfg, token, t, caches)
         return S.decode_step(params, self.cfg, token, t, caches)
 
 
@@ -157,6 +178,12 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
     ``wo``, ``ctx_norm`` and its two gates (slice ``g`` of a ``(n_groups,)``
     leaf is the 0-d gate of group ``g``); a vlm's ``frontend_proj`` is a
     top-level leaf.
+
+    An audio model's tree nests: ``enc_proj`` and ``enc_norm`` are
+    top-level leaves, ``enc_blocks["b0"]`` (stacked on ``enc_layers``)
+    becomes the list ``enc_blocks`` of per-layer dicts, and ``dec`` (the
+    decoder, a ``dec`` layer's ``norm_cross`` and ``cross`` among its
+    leaves) takes the layout above.
     """
     check_supported(cfg)
 
@@ -166,13 +193,24 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device) -> ParamTree:
         a = np.asarray(node)
         return _tensor(a if index is None else a[index], device)
 
-    layers = ("prefix", "blocks", "suffix")
-    out = {k: conv(v) for k, v in tree.items() if k not in layers}
-    P = len(cfg.block_pattern)
-    out["blocks"] = (
-        [conv(p) for p in tree.get("prefix", [])]
-        + [conv(tree["blocks"][f"b{i}"], g)
-           for g in range(cfg.n_groups) for i in range(P)]
-        + [conv(p) for p in tree.get("suffix", [])]
-    )
-    return ParamTree(out)
+    def stack_tree(tree):
+        layers = ("prefix", "blocks", "suffix")
+        out = {k: conv(v) for k, v in tree.items() if k not in layers}
+        P = len(cfg.block_pattern)
+        out["blocks"] = (
+            [conv(p) for p in tree.get("prefix", [])]
+            + [conv(tree["blocks"][f"b{i}"], g)
+               for g in range(cfg.n_groups) for i in range(P)]
+            + [conv(p) for p in tree.get("suffix", [])]
+        )
+        return out
+
+    if cfg.family != "audio":
+        return ParamTree(stack_tree(tree))
+    return ParamTree({
+        "enc_proj": conv(tree["enc_proj"]),
+        "enc_blocks": [conv(tree["enc_blocks"]["b0"], i)
+                       for i in range(cfg.frontend.enc_layers)],
+        "enc_norm": conv(tree["enc_norm"]),
+        "dec": stack_tree(tree["dec"]),
+    })

@@ -14,10 +14,10 @@ the reference's parameter dicts (``params["blocks"][i]["mix"]["wq"]``).
 The port runs attention stacks (global and sliding-window layers,
 DeepSeek-V2's multi-head latent attention, dense or fine-grained MoE
 FFNs), RecurrentGemma's hybrid of RG-LRU and local-attention layers,
-RWKV-6 stacks, and vision-language stacks whose gated cross-attention
-layers attend to a stubbed patch stream: :func:`check_supported` raises
-``NotImplementedError`` for every config that needs a block kind, mixer or
-frontend of a later slice (the audio encoder-decoder).
+RWKV-6 stacks, vision-language stacks whose gated cross-attention layers
+attend to a stubbed patch stream, and Whisper's audio encoder-decoder:
+:func:`check_supported` raises ``NotImplementedError`` for every config
+that combines these in a way the reference's configs do not.
 """
 from __future__ import annotations
 
@@ -86,6 +86,12 @@ class FrontendCfg:
     n_tokens: int             # number of frontend positions (patches / frames)
     cross_gated: bool = True  # tanh-gated cross-attn (llama-3.2-vision style)
     enc_layers: int = 0       # encoder depth (whisper-style enc-dec only)
+
+    @property
+    def batch_key(self) -> str:
+        """The batch input the stub fills: an audio model's frames, a
+        vision model's patches."""
+        return "frames" if self.kind == "audio" else "patches"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,8 +171,11 @@ class ModelConfig:
         )
 
     def param_count(self) -> int:
-        """Total parameter count (from the schema, exact)."""
-        from .stack import model_schema  # local import to avoid cycle
+        """Total parameter count (from the schema, exact; an audio model's
+        encoder included)."""
+        # local imports to avoid a cycle
+        from .stack import model_schema
+        from .whisper import whisper_schema
 
         def size(node) -> int:
             if isinstance(node, ParamDef):
@@ -174,7 +183,8 @@ class ModelConfig:
             values = node.values() if isinstance(node, dict) else node
             return sum(size(v) for v in values)
 
-        return size(model_schema(self))
+        schema = whisper_schema if self.family == "audio" else model_schema
+        return size(schema(self))
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: shared + top_k routed experts)."""
@@ -203,6 +213,7 @@ _ATTN_KINDS = ("attn", "global", "local")  # the dense self-attention kinds
 _MOE_KINDS = ("attn_moe", "mla", "mla_moe")
 _REC_KINDS = ("rec",)   # the RG-LRU mixer of a hybrid stack
 _CROSS_KINDS = ("cross",)   # gated cross-attention over a vlm's patches
+_DEC_KINDS = ("dec",)   # whisper's decoder layer: self, cross, FFN
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -216,11 +227,15 @@ def check_supported(cfg: ModelConfig) -> None:
     ``rec`` (RG-LRU, with an ``RnnCfg``) and the dense attention kinds; a
     ``family="vlm"`` stack of ``cross`` (cross-attention over the patch
     stream, tanh-gated or not) and the dense attention kinds, with a
-    ``vision`` frontend; or an RWKV-6 stack (``family="ssm"``,
+    ``vision`` frontend; a ``family="audio"`` decoder of ``dec`` layers
+    alone (no prefix, suffix, MoE, MLA or window) with an ``audio``
+    frontend of ``enc_layers > 0`` bidirectional encoder layers and
+    ungated cross-attention; or an RWKV-6 stack (``family="ssm"``,
     ``("rwkv",)``, ``rwkv`` set, layernorm).  No other config has a
     frontend.  Nothing else is computed in its place."""
     rwkv = tuple(cfg.block_pattern) == ("rwkv",)
     vlm = cfg.family == "vlm"
+    audio = cfg.family == "audio"
     later = []
     if rwkv:
         if cfg.family != "ssm":
@@ -239,12 +254,12 @@ def check_supported(cfg: ModelConfig) -> None:
     else:
         kinds = set(cfg.layer_kinds())
         hybrid = cfg.family == "hybrid"
-        if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
+        if cfg.family not in ("dense", "moe", "hybrid", "vlm", "audio"):
             later.append(f"family={cfg.family!r}")
         if cfg.family == "moe" and cfg.moe is None:
             later.append("family='moe' without a MoECfg")
-        ported = _ATTN_KINDS + (_REC_KINDS if hybrid else
-                                _CROSS_KINDS if vlm else _MOE_KINDS)
+        ported = (_DEC_KINDS if audio else _ATTN_KINDS + (
+            _REC_KINDS if hybrid else _CROSS_KINDS if vlm else _MOE_KINDS))
         unknown = sorted(kinds - set(ported))
         if unknown:
             later.append(f"layer kinds {unknown} in family={cfg.family!r}")
@@ -258,20 +273,38 @@ def check_supported(cfg: ModelConfig) -> None:
             later.append("rnn")
         if cfg.rwkv is not None:
             later.append("rwkv")
+        if audio:
+            if cfg.prefix_pattern or cfg.suffix_pattern:
+                later.append("prefix/suffix layers in an audio stack")
+            if cfg.sliding_window is not None:
+                later.append("sliding_window in an audio stack")
+            for name in ("moe", "mla"):
+                if getattr(cfg, name) is not None:
+                    later.append(f"{name} in an audio stack")
     fe = cfg.frontend
     if fe is None:
-        if vlm:
-            later.append("family='vlm' without a frontend")
-    elif not (vlm and fe.kind == "vision" and fe.enc_layers == 0):
+        if vlm or audio:
+            later.append(f"family={cfg.family!r} without a frontend")
+    elif vlm:
+        if fe.kind != "vision" or fe.enc_layers:
+            later.append(f"a {fe.kind} frontend of {fe.enc_layers} encoder "
+                         f"layers in family='vlm'")
+    elif audio:
+        if fe.kind != "audio" or fe.enc_layers <= 0 or fe.cross_gated:
+            later.append(f"a {fe.kind} frontend of {fe.enc_layers} encoder "
+                         f"layers (cross_gated={fe.cross_gated}) in "
+                         f"family='audio'")
+    else:
         later.append(f"a {fe.kind} frontend in family={cfg.family!r}")
     if later:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} not ported yet (the port runs "
+            f"{cfg.name}: {', '.join(later)} not ported (the port runs "
             f"stacks of global and sliding-window attention, MLA and "
-            f"fine-grained MoE blocks, RG-LRU hybrids, RWKV-6 stacks and "
+            f"fine-grained MoE blocks, RG-LRU hybrids, RWKV-6 stacks, "
             f"vision-language stacks of attention and cross-attention "
-            f"layers; the audio encoder-decoder (whisper: bidir and dec "
-            f"layers, an audio frontend) arrives with a later slice)"
+            f"layers behind a vision frontend, and audio encoder-decoders "
+            f"of bidir encoder and dec decoder layers behind an audio "
+            f"frontend)"
         )
 
 

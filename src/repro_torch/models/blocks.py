@@ -8,11 +8,11 @@ the RWKV-6 block (time-mix + channel-mix).
 Ported from ``repro.models.blocks`` (``RunState``, ``mixer_of``/``ffn_of``,
 the dense FFN, the MoE FFN in its capacity-buffer form, the self-attention,
 MLA, RG-LRU and cross-attention mixers, and the RWKV-6 time-mix and
-channel-mix).  The other layer kinds of the reference (the whisper
-encoder/decoder layers) and the expert-parallel MoE under a mesh
-(``_apply_moe_sharded``) belong to later slices:
-:func:`repro_torch.models.base.check_supported` refuses their configs.  The
-RWKV-6 time-mix runs its prefill scan through K6
+channel-mix).  Whisper's ``bidir`` encoder layers and ``dec`` decoder
+layers are assembled from these mixers in
+:mod:`repro_torch.models.stack`.  The expert-parallel MoE under a mesh
+(``_apply_moe_sharded``) belongs to a later slice.  The RWKV-6 time-mix
+runs its prefill scan through K6
 (:func:`repro_torch.kernels.wkv6.wkv6_chunked`); the reference's
 ``_wkv_intra_subchunked`` (an XLA form selected by ``subchunk > 0``) is not
 ported, since K6 replaces both of the reference's XLA forms on the card.

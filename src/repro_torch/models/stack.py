@@ -8,7 +8,10 @@ width ``moe.first_dense_ff``), RecurrentGemma's hybrid stacks (``rec``,
 the RG-LRU mixer, beside the attention kinds; a ``rec`` layer keeps the
 dense FFN), vision-language stacks (``cross``, tanh-gated cross-attention
 over the frontend's stream after ``frontend_proj``, beside the attention
-kinds) and RWKV-6 stacks (``("rwkv",)``).  A
+kinds), Whisper's decoder (``dec``: self-attention, ungated
+cross-attention over the encoder's output, FFN; the encoder's ``bidir``
+layers attend without a mask, :mod:`repro_torch.models.whisper`) and
+RWKV-6 stacks (``("rwkv",)``).  A
 model is: token embedding -> its layers -> final norm -> LM head.  The
 reference runs prefix layers, a scan over ``n_groups`` stacked copies of
 the block pattern, then suffix layers; here ``params["blocks"]`` and
@@ -16,7 +19,9 @@ the block pattern, then suffix layers; here ``params["blocks"]`` and
 (prefix, pattern x n_groups, suffix) and :func:`apply_stack` loops over
 them, each block dispatched on its kind.
 Training reads :func:`hidden_states` and :func:`fused_ce`, the chunked
-cross-entropy that never holds ``(B, S, V)`` logits.
+cross-entropy that never holds ``(B, S, V)`` logits.  The cross layers'
+context reaches the stack at d_model: a vlm's patches after
+:func:`project_ctx`, an audio model's encoder output as it is.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ def block_schema(cfg: ModelConfig, kind: str = "attn",
                  d_ff_override: int | None = None) -> dict:
     mix = B.mixer_of(kind)
     sch = {"norm1": ParamDef((cfg.d_model,), init="zeros")}
-    if mix in ("attn", "global", "local"):
+    if mix in ("attn", "global", "local", "bidir"):
         sch["mix"] = B.schema_attn(cfg)
     elif mix == "mla":
         sch["mix"] = B.schema_mla(cfg)
@@ -60,6 +65,12 @@ def block_schema(cfg: ModelConfig, kind: str = "attn",
         rw = B.schema_rwkv(cfg)
         sch["mix"] = rw["tm"]
         sch["ffn"] = rw["cm"]
+    elif mix == "dec":
+        # whisper's decoder layer: the cross-attention's context is the
+        # encoder's output (d_model), not the raw frame stream
+        sch["mix"] = B.schema_attn(cfg)
+        sch["norm_cross"] = ParamDef((cfg.d_model,), init="zeros")
+        sch["cross"] = B.schema_cross(cfg, gated=False, d_ctx=cfg.d_model)
     else:
         raise ValueError(f"unknown mixer kind {kind!r}")
     if B.ffn_of(kind) == "rwkv_cm":
@@ -92,6 +103,9 @@ def block_cache_schema(cfg: ModelConfig, kind: str, batch: int,
         return B.cache_rec(cfg, batch)
     if mix == "rwkv":
         return B.cache_rwkv(cfg, batch)
+    if mix == "dec":
+        return {"self": B.cache_attn(cfg, batch, max_len),
+                "cross": B.cache_cross(cfg, batch)}
     raise ValueError(f"unknown mixer kind {kind!r}")
 
 
@@ -103,7 +117,8 @@ def model_schema(cfg: ModelConfig) -> dict:
     check_supported(cfg)
     sch = {"embed": ParamDef((cfg.vocab, cfg.d_model), init="embed",
                              scale=0.02)}
-    if cfg.frontend is not None:
+    if cfg.frontend is not None and cfg.family != "audio":
+        # an audio model projects its frames by enc_proj, in the encoder
         sch["frontend_proj"] = ParamDef((cfg.frontend.d_in, cfg.d_model),
                                         scale=0.02)
     sch["final_norm"] = ParamDef((cfg.d_model,), init="zeros")
@@ -133,11 +148,14 @@ def apply_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
                 rs: B.RunState, cache):
     """The mixer of layer kind ``kind``: ``attn`` / ``global`` attend to
     every earlier position, ``local`` to the last ``cfg.sliding_window``,
-    ``mla`` through its latent KV; ``cross`` to the context in ``rs``;
-    ``rec`` is the RG-LRU recurrence."""
+    ``bidir`` to every position (the encoder's, no mask), ``mla`` through
+    its latent KV; ``cross`` to the context in ``rs``; ``rec`` is the
+    RG-LRU recurrence."""
     mix = B.mixer_of(kind)
     if mix in ("attn", "global"):
         return B.apply_attn(p, h, cfg, rs, cache, window=None)
+    if mix == "bidir":
+        return B.apply_attn(p, h, cfg, rs, cache, window=None, causal=False)
     if mix == "local":
         return B.apply_attn(p, h, cfg, rs, cache, window=cfg.sliding_window)
     if mix == "mla":
@@ -154,7 +172,24 @@ def apply_block(p, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState, cache,
     """One block of layer kind ``kind`` (the reference passes it before
     ``rs``; here it trails, so callers of attention blocks may omit it).
     A gated cross layer scales its attention and its FFN output by the
-    tanh of its two 0-d gates, in ``h.dtype``."""
+    tanh of its two 0-d gates, in ``h.dtype``.  A ``dec`` layer runs
+    self-attention, cross-attention over ``rs.ctx`` and the FFN, each
+    pre-normed (``norm1``, ``norm_cross``, ``norm2``), on its cache
+    ``{"self", "cross"}``."""
+    if B.mixer_of(kind) == "dec":
+        c_self = cache["self"] if cache is not None else None
+        c_cross = cache["cross"] if cache is not None else None
+        a, c_self = B.apply_attn(p["mix"], L.norm(h, p["norm1"], cfg.norm),
+                                 cfg, rs, c_self)
+        h = h + a
+        a, c_cross = B.apply_cross(p["cross"],
+                                   L.norm(h, p["norm_cross"], cfg.norm),
+                                   cfg, rs, c_cross)
+        h = h + a
+        h = h + B.apply_ffn(p["ffn"], L.norm(h, p["norm2"], cfg.norm), cfg)
+        return h, ({"self": c_self, "cross": c_cross}
+                   if cache is not None else None)
+
     if B.mixer_of(kind) == "rwkv":
         # time-mix and channel-mix both read and write the layer's cache
         a, cache = B.apply_rwkv_tm(p["mix"], L.norm(h, p["norm1"], cfg.norm),
@@ -235,21 +270,18 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return h
 
 
-def project_ctx(params, cfg: ModelConfig,
-                ctx: torch.Tensor | None) -> torch.Tensor | None:
-    """The cross layers' context: the frontend stream (B, Sc, d_in) cast to
+def project_ctx(params, cfg: ModelConfig, ctx: torch.Tensor) -> torch.Tensor:
+    """A vlm's cross-layer context: the patch stream (B, Sc, d_in) cast to
     the activation type, through ``frontend_proj`` to d_model."""
-    if ctx is not None and "frontend_proj" in params.keys():
-        ctx = torch.matmul(ctx.to(cfg.adtype), params["frontend_proj"])
-    return ctx
+    return torch.matmul(ctx.to(cfg.adtype), params["frontend_proj"])
 
 
 def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
                   ctx: torch.Tensor | None = None,
                   remat: bool = False) -> torch.Tensor:
     """Final-norm'd hidden states (B, S, d): the input to the LM head.
-    ``ctx`` is a vlm's patch stream (:func:`project_ctx`)."""
-    rs = B.RunState(mode="full", ctx=project_ctx(params, cfg, ctx))
+    ``ctx`` is the cross layers' context at d_model (B, Sc, d)."""
+    rs = B.RunState(mode="full", ctx=ctx)
     h = embed_tokens(params, tokens, cfg)
     h, _ = apply_stack(params, h, cfg, rs, None, remat=remat)
     return L.norm(h, params["final_norm"], cfg.norm)
@@ -304,9 +336,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             caches: dict | None = None, write_cache: bool = False,
             remat: bool = False, ctx: torch.Tensor | None = None):
     """Full-sequence forward (prefill).  Returns (logits, caches).
-    ``ctx`` is a vlm's patch stream (:func:`project_ctx`)."""
-    rs = B.RunState(mode="full", ctx=project_ctx(params, cfg, ctx),
-                    write_cache=write_cache)
+    ``ctx`` is the cross layers' context at d_model (B, Sc, d)."""
+    rs = B.RunState(mode="full", ctx=ctx, write_cache=write_cache)
     h = embed_tokens(params, tokens, cfg)
     h, new_caches = apply_stack(params, h, cfg, rs, caches, remat=remat)
     return lm_head(params, h, cfg), new_caches

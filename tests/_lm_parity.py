@@ -31,7 +31,8 @@ def decided(logits) -> np.ndarray:
 def ref_logits(jparams, jcfg, prompts, gens, ctx=None) -> list[np.ndarray]:
     """The reference's logits at the positions that predicted ``gen``,
     teacher-forced on each ``prompt + gen[:-1]`` (raw token ids); ``ctx``
-    is a vlm's patch stream, one row per sequence.
+    is a vlm's patch stream or an audio model's frames, one row per
+    sequence.
 
     A dense model: one forward over all sequences (one batch, zero-padded
     at the end, which a causal model does not see).  An MoE model routes
@@ -47,8 +48,12 @@ def ref_logits(jparams, jcfg, prompts, gens, ctx=None) -> list[np.ndarray]:
     seqs = np.zeros((len(gens), P + G - 1), np.int32)
     for i, (p, g) in enumerate(zip(prompts, gens)):
         seqs[i, :P + len(g) - 1] = np.concatenate([p, g[:-1]])
-    lg = np.asarray(jS.forward(jparams, jcfg, jnp.asarray(seqs), ctx=ctx)[0],
-                    np.float64)
+    if jcfg.family == "audio":
+        from repro.models import whisper as jW
+        lg = jW.forward(jparams, jcfg, ctx, jnp.asarray(seqs))[0]
+    else:
+        lg = jS.forward(jparams, jcfg, jnp.asarray(seqs), ctx=ctx)[0]
+    lg = np.asarray(lg, np.float64)
     return [lg[i, P - 1:P - 1 + len(g)] for i, g in enumerate(gens)]
 
 
@@ -100,7 +105,8 @@ def hold_lane(jparams, jcfg, prompts, got, want, ctx=None) -> int:
         the reference forward's maximum, so after a near-tie it is still a
         greedy decode under the reference's model.
 
-    ``ctx`` is a vlm's patch stream (:func:`ref_logits`).  Returns the
+    ``ctx`` is a vlm's patches or an audio model's frames
+    (:func:`ref_logits`).  Returns the
     number of steps held token for token.
     """
     got = [np.asarray(g) for g in got]

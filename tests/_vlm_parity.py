@@ -120,3 +120,24 @@ def grad_tols(ref, want: dict, want_norm: float | None = None):
                               LOSS_RTOL)
     return (oracle_tol([(want[n].numpy(), exact[n]) for n in want], GRAD_TOL),
             norm_tol)
+
+
+def hold_update(name, got, want, before, grad, lr, grad_tol, scale):
+    """``tests/test_torch_train.py``'s bound on one Adam step's parameters
+    against the reference's.  At t = 1 the step is lr (g s / (|g s| + eps)
+    + wd p), s the clip scale: +-lr wherever |g| >> eps.  A gradient entry
+    near zero may take the other sign in the other package, which moves
+    that entry by up to 2 lr; where |g_ref| >= 1e-2 max|g_ref| the sign is
+    decided, and gradients d = grad_tol max|g| apart move g s / (|g s| +
+    eps) by up to eps d / (s |g| (|g| - d)), so the parameters agree to
+    1e-6 of max|p| + lr plus lr times that, entry by entry."""
+    got, want, before, grad = (np.asarray(x, np.float64) for x in
+                               (got, want, before, grad))
+    diff = np.abs(got - want)
+    slack = np.full(diff.shape, 1e-6 * (np.abs(before).max() + lr))
+    decided = np.abs(grad) >= 1e-2 * np.abs(grad).max()
+    d, g = grad_tol * np.abs(grad).max(), np.abs(grad[decided])
+    slack[decided] += (lr * adamw.AdamWConfig().eps * d
+                       / (scale * g * (g - d)))
+    assert (diff[decided] <= slack[decided]).all(), (name, diff[decided].max())
+    assert (diff <= 2 * lr + slack).all(), (name, diff.max())

@@ -256,6 +256,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs.deepseek_v2_lite_16b"} <= set(mods)
     assert {"repro_torch.configs.recurrentgemma_2b",
             "repro_torch.configs.llama32_vision_90b"} <= set(mods)
+    assert {"repro_torch.models.whisper",
+            "repro_torch.configs.whisper_tiny"} <= set(mods)
     assert {"repro_torch.checkpoint.manager", "repro_torch.runtime.async_engine",
             "repro_torch.runtime.wire", "repro_torch.launch.server",
             "repro_torch.launch.client"} <= set(mods)

@@ -1205,3 +1205,50 @@ def test_provider_stage_launches_k4_on_the_card(cuda):
         scale = float(want["patches"].abs().max())
         assert float((got["patches"].cpu() - want["patches"]).abs().max()) \
             <= 1e-5 * scale
+
+
+def test_k4_at_the_whisper_provider_shape(cuda):
+    """K4 at the provider's frame morph of ``whisper_tiny`` training
+    (``--mole embedding``, kappa 1): 16 sequences of 1500 frames of 384,
+    (24000, 384) rows x one (384, 384) core.  fp32, against its plain
+    version within 1e-4 of max|plain| and against a float64 product within
+    1e-5 of max|fp64|; one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(24000, 384, generator=gen, device=cuda)
+    core = torch.randn(384, 384, generator=gen, device=cuda) * 384 ** -0.5
+    before = block_diag_matmul.launches
+    got = morph_rows(x, core, 1)
+    assert block_diag_matmul.launches == before + 1
+    want = ref.block_diag_matmul_ref(x, core, 1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    exact = torch.matmul(x.double(), core.double())
+    assert (float((got.double() - exact).abs().max())
+            <= 1e-5 * float(exact.abs().max()))
+
+
+def test_provider_stage_launches_k4_on_frames(cuda):
+    """``Pipeline`` of ``whisper_tiny`` (smoke) with ``--mole embedding``
+    (kappa 4) on a CUDA device: the frames are morphed by K4 (one launch a
+    batch) and stay on the card; the tokens are the CPU pipeline's, the
+    frames within 1e-5 of max|plain| of its plain morph."""
+    import dataclasses
+
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.models.base import MoLeCfg
+
+    cfg = dataclasses.replace(
+        get_smoke_config("whisper_tiny"),
+        mole=MoLeCfg(enabled=True, mode="embedding", kappa=4, seed=5))
+    data = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2, seed=1)
+    on_cpu = Pipeline(data, model_cfg=cfg, device="cpu")
+    on_card = Pipeline(data, model_cfg=cfg, device=cuda)
+    for _ in range(2):
+        before = block_diag_matmul.launches
+        got, want = next(on_card), next(on_cpu)
+        assert block_diag_matmul.launches == before + 1
+        assert "patches" not in got and got["frames"].device.type == "cuda"
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        scale = float(want["frames"].abs().max())
+        assert float((got["frames"].cpu() - want["frames"]).abs().max()) \
+            <= 1e-5 * scale

@@ -229,7 +229,5 @@ def test_config_registry():
     full = get_config("phi3_mini_3p8b")
     assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
             full.vocab) == (32, 3072, 32, 96, 32064)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper_tiny")
     with pytest.raises(NotImplementedError, match="unknown or not ported"):
         get_smoke_config("no_such_arch")

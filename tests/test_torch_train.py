@@ -216,7 +216,8 @@ def test_unfused_loss_and_logits_match_reference(rng):
 
 
 @pytest.mark.parametrize("arch", ["deepseek_7b", "phi3_mini_3p8b", "rwkv6_3b",
-                                  "command_r_35b", "gemma2_27b"])
+                                  "command_r_35b", "gemma2_27b",
+                                  "whisper_tiny"])
 def test_param_count_matches_reference(arch):
     """Counted from the schema at the smoke and the FULL configs (nothing
     allocated: 6.91 B parameters at deepseek_7b)."""
@@ -225,16 +226,6 @@ def test_param_count_matches_reference(arch):
         JModel(j_smoke(arch)).param_count()
     assert Model(get_config(arch), "cpu").param_count() == \
         JModel(j_get_config(arch)).param_count()
-
-
-def test_frontend_inputs_are_refused(rng):
-    """The audio frontend's ``frames`` belong to a later slice (a vlm's
-    ``patches`` are held in ``tests/test_torch_vlm.py``)."""
-    cfg = get_smoke_config("deepseek_7b")
-    model = Model(cfg, "cpu")
-    batch = dict(_t(_batch(rng, cfg.vocab)), frames=torch.zeros(2, 4, 8))
-    with pytest.raises(NotImplementedError, match="frames"):
-        model.loss(model.init(0), batch)
 
 
 # -- AdamW ----------------------------------------------------------------------

@@ -492,13 +492,18 @@ def test_train_main_recurrentgemma_resume_equals_clean_run(tmp_path, capsys):
     assert int(resumed["opt"]["count"]) == 6
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--arch", "rwkv6_3b"], "wkv6"),
-    (["--arch", "whisper_tiny", "--mole", "embedding"], "not ported"),
-    (["--arch", "whisper_tiny"], "not ported"),
+@pytest.mark.parametrize("extra,error,match", [
+    (["--arch", "rwkv6_3b"], NotImplementedError, "wkv6"),
+    (["--arch", "deepseek_7b", "--mole", "embedding"], ValueError,
+     "needs a frontend"),
+    (["--arch", "no_such_arch"], NotImplementedError, "not ported"),
 ], ids=["rwkv6_3b", "mole_embedding", "unported_arch"])
-def test_train_main_refuses_what_the_port_does_not_train(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_train_main_refuses_what_the_port_does_not_train(tmp_path, extra,
+                                                          error, match):
+    """RWKV-6 (K6 has no backward), embedding-mode MoLe on a model without
+    a frontend (nothing to morph; the reference asserts), and a name
+    outside the registry."""
+    with pytest.raises(error, match=match):
         train.main(["--smoke", "--device", "cpu", "--steps", "1",
                     "--ckpt-dir", str(tmp_path), *extra])
 

@@ -11,6 +11,7 @@ power limit.
     python3 tools/train_probe.py kernels_k3 recurrentgemma_path  # RG-LRU
     python3 tools/train_probe.py recurrentgemma_train   # the hybrid, trained
     python3 tools/train_probe.py kernels_k45 vlm_path vlm_train   # the vlm
+    python3 tools/train_probe.py whisper_path whisper_train   # whisper_tiny
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -62,6 +63,8 @@ PHASES = {
         dev, kernels, kernels.ref),
     "vlm_path": cs.vlm_path,
     "vlm_train": cs.vlm_train,
+    "whisper_path": cs.whisper_path,
+    "whisper_train": cs.whisper_train,
 }
 
 
