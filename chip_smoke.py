@@ -169,7 +169,7 @@ printing one JSON line; any failure raises and exits non-zero:
  6b. mole_off   ``serve.run_lm`` with ``--mole off`` on the card, on
                 lm_long_prompt's weights and (the same seeded) prompts: one
                 prefill of the 4 raw prompts and a greedy decode, no
-                registry, engine or kernel.  Gated: all six launch counters
+                registry, engine or kernel.  Gated: all seven launch counters
                 stay 0; the prompts are lm_long_prompt's; each token is the
                 argmax of its plain logits; the tokens equal the lane's over
                 each request's decided prefix (positions before the first
@@ -278,7 +278,8 @@ printing one JSON line; any failure raises and exits non-zero:
                 plain versions, the chunked form (``ref.wkv6_chunked_ref``)
                 and the token recurrence (``ref.wkv6_ref``), in fp32 at 40
                 heads of 64, chunk 128: T = 1024, T = 384 (300 padded),
-                160 heads at T = 128, and T = 32 < chunk; inputs as the
+                160 heads at T = 128, T = 32 < chunk, and 80 heads at T =
+                4096 (rwkv_train's microbatch); inputs as the
                 reference's wkv6 sweep draws them, s0 nonzero.  Bound: out
                 and final state within 1e-4 * max|plain|.  Gated: two calls
                 at (40, 384) give the same bits.  Times kernel and plain
@@ -292,6 +293,21 @@ printing one JSON line; any failure raises and exits non-zero:
                 K6's times are device times from CUDA graphs of 10 calls
                 (``graph_ms``; the kernel runs shorter than its wrapper's
                 host time), the back-to-back time beside them.
+                The backward (``kernels.wkv6_scan``: one K6 launch on
+                flipped operands, two launches of the key-row scan
+                ``wkv6_rows``, ``csrc/wkv6_rows.cu``) at one time-mix
+                layer's training shape (BH 80 = 2 sequences x 40 heads, T
+                4096, D 64, chunk 128), decays drawn as the model's
+                ``_decay`` draws them at init, s0 and dS_T nonzero: the
+                key-row kernel against ``ref.wkv6_rows_ref`` (1e-4 *
+                max|plain|); each of dr, dk, dv, dlogw, du and ds0 against
+                float64 autograd of the token recurrence (checkpointed by
+                segments of 128 tokens) within 1e-4 * max|float64|, the
+                fp32 autograd of the same recurrence's departure printed
+                beside it; two backward calls give the same bits.  Timed:
+                the key-row kernel (``graph_ms``) beside its plain version
+                and its bound, and the whole backward (``cuda_p50``) beside
+                its bound.
  10. rwkv_path  ``serve --mode lm`` at rwkv6_3b FULL width (32 layers,
                 d_model 2560, 40 heads of 64, vocab 65536, bf16), random
                 weights from a seeded generator on the card: 4 tenants at
@@ -309,7 +325,7 @@ printing one JSON line; any failure raises and exits non-zero:
                 admission prefill, as device time (``graph_ms``) and back
                 to back (``cuda_p50``, the wrapper's host time included, as
                 the eager prefill pays it).  Peak memory is read per LM phase
-                (reset at its start).  Every path phase sets all six
+                (reset at its start).  Every path phase sets all seven
                 launch counters to 0 before its run and fails if a kernel
                 not on its path was launched.
  10a. train_path the train step (``launch/steps.py`` ``make_train_step``:
@@ -321,15 +337,15 @@ printing one JSON line; any failure raises and exits non-zero:
                 random weights from a seed, 2048 positions a sequence (the
                 flash scan and its backward), on ``Pipeline``'s stream
                 morphed by its provider stage (``--mole token``): 2
-                untimed and 5 timed steps, then one profiled.  Gated: (1)
+                untimed and 3 timed steps, then one profiled.  Gated: (1)
                 loss and grad_norm finite at every step, the optimizer's
-                count equal to the steps run; (2) all six launch counters
-                0; (3) on a 2-layer twin at full width, 3 steps of the raw
+                count equal to the steps run; (2) all seven launch counters
+                0; (3) on a 2-layer twin at full width, 2 steps of the raw
                 params on the raw stream against the fused params
                 (``fuse_lm_params``) on the morphed stream, from one init:
                 the losses of the first 2 fp32 steps and of the first bf16
-                step within TRAIN_LOSS_RTOL (later steps part as fast as
-                the raw run in one microbatch does, printed beside it);
+                step within TRAIN_LOSS_RTOL (bf16 step 2 printed: Adam
+                amplifies rounding from random init, TRAIN_GATED_STEPS);
                 (4) after
                 training, no leaf requires grad, and the decode lane's
                 admission prefill and batched decode step on the trained
@@ -356,7 +372,7 @@ printing one JSON line; any failure raises and exits non-zero:
                 from step 3), a cut one (``--steps 4``, then ``--steps 8
                 --resume``), and a second clean run as a control.  Gated:
                 (1) loss and grad_norm finite at every step, restarts 0, 1,
-                0; (2) all six launch counters 0; (3) the faulty and resumed
+                0; (2) all seven launch counters 0; (3) the faulty and resumed
                 runs' losses at steps 3-7 and their final params and
                 moments equal the clean run's bit for bit when the two
                 clean runs are bit-equal, else within twice the clean runs'
@@ -462,7 +478,23 @@ printing one JSON line; any failure raises and exits non-zero:
                 and K4 morphs each batch's (24000, 384) frame rows by the
                 (384, 384) core, the only kernel; gate 3's float64
                 gradients for every leaf.  MFU: ``whisper_flops``.
- 11. the ``kernels`` line (K1-K6, each launched on its path; K3's numbers
+ 10j. rwkv_train train_path at rwkv6_3b's published width and depth (32
+                layers, d 2560, 40 heads of 64, d_ff 8960, vocab 65536,
+                3.10 B parameters; RWKV_TRAIN says why they fit), 4
+                sequences of 4096 in 2 microbatches, remat, bf16, ``--mole
+                token``: gates 1, 3 and 4 as train_path (the twins 2
+                layers); gate 2: over the main run, K6 launched exactly 3
+                times a layer, microbatch and step (remat's two forwards
+                and the flipped launch of the backward) and the key-row
+                scan twice, no other kernel (the twins launch only those
+                two).  MFU has no attention term and does not count the
+                scan's flops; the profiled step gives the scan kernels'
+                device time and share (``step_profile``'s ``tracked_ms``),
+                and ``scan_ms`` the scan's forward and forward plus
+                backward at one layer's microbatch shape.
+ 11. the ``kernels`` line (K1-K6 and the key-row scan, each launched on
+     its path, K6's and the key-row scan's launches including
+     rwkv_train's; K3's numbers
      on bf16 tables, its fp32-table numbers beside them under
      ``fp32_tables``; K4's at the vlm and whisper providers' morphs, with
      vlm_train's and whisper_train's launches, beside its own under
@@ -489,7 +521,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 KERNEL_NAMES = ("grouped_block_diag_matmul", "grouped_aug_gemm",
                 "grouped_row_gemm", "block_diag_matmul", "aug_gemm",
-                "wkv6_chunked")
+                "wkv6_chunked", "wkv6_rows")
 REL_TOL = 1e-4
 GIDX_CASES = {      # over a 6-slot table, as in tests/test_grouped_kernels.py
     "identity": [0, 1, 2, 3],
@@ -563,9 +595,18 @@ K3_PHI3 = (4, 3072, 32064)
 # 64, chunk 128.  A 300-token prompt pads to 3 chunks (84 padded tokens).
 RWKV_ARCH, RWKV_PROMPT = "rwkv6_3b", 300
 K6_D, K6_CHUNK = 64, 128
-K6_CASES = [(40, 1024), (40, 384), (160, 128), (40, 32)]    # (BH, T)
+K6_CASES = [(40, 1024), (40, 384), (160, 128), (40, 32),   # (BH, T)
+            (80, 4096)]         # the last: rwkv_train's microbatch
 K6_MAIN = (40, 384)             # the prefill's shape: B = 1, T = 300 padded
 K6_T_SWEEP = (32, 128, 384, 1024)   # K6's time against T at BH = 40
+# K6's gradient (kernels_k6) at one time-mix layer's shape in rwkv_train: a
+# microbatch of 2 sequences of 4096 over 40 heads.  The float64 oracle
+# (autograd of the token recurrence) is checkpointed by segments of
+# K6_GRAD_SEGMENT tokens, so it keeps 32 states and one segment's graph.
+K6_TRAIN = (80, 4096)           # (BH, T)
+K6_TRAIN_HEADS = 40
+K6_GRAD_SEGMENT = 128
+K6_GRAD_REL_TOL = 1e-4          # x max|float64| for each of the six gradients
 TIE_MARGIN_ULPS = 4             # bf16 units in the last place of max|logit|
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # K4/K5 (kernels_k45) and the developer path (vgg_path).
@@ -588,20 +629,23 @@ PAPER_OVERHEAD = 0.09           # "VGG-16 on CIFAR ... computational overhead on
 # of 4; remat on; AdamW's defaults, warmup 2.
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = (
     "deepseek_7b", 15, 2048, 8, 2)
-TRAIN_WARMUP, TRAIN_TIMED = 2, 5            # untimed, then timed steps
-TRAIN_TWIN_LAYERS, TRAIN_TWIN_STEPS = 2, 3  # gate 3: raw against fused
+# The train phases' repetitions, few so that the script and the card tests
+# stay under 1000 s: 2 untimed steps, 3 timed; the twins' 2 steps hold
+# every gated step (TRAIN_GATED_STEPS), and gate 3 runs no control.
+TRAIN_WARMUP, TRAIN_TIMED = 2, 3            # untimed, then timed steps
+TRAIN_TWIN_LAYERS, TRAIN_TWIN_STEPS = 2, 2  # gate 3: raw against fused
 # Gate 3: the reference test's bound (tests/test_mole_lm.py) on the raw and
 # fused twins' losses over the steps TRAIN_GATED_STEPS names; the same
 # comparison in fp32 on the CPU
 # (tests/test_torch_train.py::test_token_mole_training_equivalence) departs
-# by at most 7.6e-8 over 3 steps.  Later steps are printed beside a control,
-# the raw run in one microbatch (the same function summed in another
-# order): from random init at lr 3e-4 Adam amplifies rounding about tenfold
-# a step, so the control departs by 8.6e-6 and 9.4e-5 at fp32
-# steps 2 and 3, the fused run by 8.1e-8 and 4.1e-5; in bf16 the fused run
-# departs by 5.1e-5 at step 2 (the backward's dh = dlogits @ head^T sums
-# over the vocabulary in the permuted order and rounds to bf16).  Measured
-# on an NVIDIA H100 80GB HBM3 at 700.00 W.
+# by at most 7.6e-8 over 3 steps.  Later steps are not gated: from random
+# init at lr 3e-4 Adam amplifies rounding about tenfold a step, so the raw
+# run in one microbatch (the same function summed in another order)
+# departed by 8.6e-6 and 9.4e-5 at fp32 steps 2 and 3, the fused run by
+# 8.1e-8 and 4.1e-5; in bf16 the fused run departs by 5.1e-5 at step 2 (the
+# backward's dh = dlogits @ head^T sums over the vocabulary in the permuted
+# order and rounds to bf16).  Measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W.
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GATED_STEPS = {"float32": 2, "bfloat16": 1}
 # train_resume_path: launch/train.py at phi3_mini_3p8b's published width, cut
@@ -766,6 +810,18 @@ WHISPER_PATH = dict(tenants=4, requests=32, prompt_len=192, gen=64,
 # core (kappa 1) through K4: 2 x 24000 x 384^2 = 7.08 GFLOP, 67 TFLOP/s
 # FFMA 0.106 ms, above the 0.022 ms its 74 MB take at 3.35 TB/s.
 WHISPER_TRAIN = dict(seq=448, global_batch=16, micro=2)
+# rwkv_train: the train step at rwkv6_3b's published width and depth, 32
+# layers.  ModelConfig.param_count: 3,099,691,520 (embedding and head
+# 65536 x 2560 each, 0.336 B; a layer 86.4 M); at 16 B a parameter (bf16
+# params and grads, the fp32 microbatch sum, two fp32 moments) 49.6 GB of
+# state.  Remat keeps each block's input, 32 x 2 x 4096 x 2560 x 2 B = 1.34
+# GB a microbatch; one block's recompute and backward hold the time-mix's
+# fp32 r, k, v, logw (2 x 4096 x 2560 x 4 B = 84 MB each), the backward's
+# flipped copies and its float64 reverse sums (168 MB each), the
+# channel-mix's 2 x 4096 x 8960 bf16 (73 MB) and a CE chunk's fp32 logits
+# and their gradient: about 52-60 GB in all, under PEAK_LIMIT_GB, so no
+# layer is cut.  4 sequences of 4096 in 2 microbatches.
+RWKV_TRAIN = dict(groups=32, seq=4096, global_batch=4, micro=2)
 K4_WHISPER = (24000, 1, 384)    # (R, kappa, q)
 
 
@@ -1347,13 +1403,176 @@ def k6_form_floor_ms(BH: int, T: int, D: int) -> float:
     return 3 * BH * T * D * D / (FP32_FLOP_PER_S / 2) * 1e3
 
 
-def k6_checks(dev, kernels, ref, build_report) -> dict:
+def k6_train_ops(dev, gen, BH: int, T: int, heads: int):
+    """One time-mix layer's scan operands in training, fp32 on the card, and
+    the cotangents: r, k, v, dO ~ N(0, 1); logw as ``blocks._decay`` draws
+    it at init, -exp(w0 + tanh(xw w1) w2) with w0 ~ N(0, 1) a channel (its
+    init) and the data-dependent term ~ 0.1 N(0, 1) a token (w1, w2 at
+    scale 0.02 over rank 64: sqrt(64) x 0.02 x E|tanh|); u ~ 0.5 N(0, 1) a
+    channel (its init); s0 and dS_T ~ 0.1 N(0, 1).  Heads repeat over the
+    ``BH / heads`` sequences."""
+    D = K6_D
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v, d_out = (randn(BH, T, D) for _ in range(4))
+    w0 = randn(heads, D).repeat(BH // heads, 1)[:, None, :]
+    logw = -torch.exp(w0 + 0.1 * randn(BH, T, D))
+    u = (0.5 * randn(heads, D)).repeat(BH // heads, 1)
+    s0, d_s = 0.1 * randn(BH, D, D), 0.1 * randn(BH, D, D)
+    return (r, k, v, logw, u, s0), d_out, d_s
+
+
+def k6_grad_oracle(ops, d_out, d_s, dtype) -> list:
+    """The six gradients (r, k, v, logw, u, s0) of sum(out dO) +
+    sum(s_final dS_T) by autograd of the token recurrence in ``dtype`` on
+    copies of ``ops``, in segments of ``K6_GRAD_SEGMENT`` tokens under
+    non-reentrant checkpoint (one segment's graph and the segments' end
+    states are kept)."""
+    from torch.utils.checkpoint import checkpoint
+
+    def segment(s, r, k, v, logw, u):
+        outs = []
+        for t in range(r.shape[1]):
+            kv = k[:, t, :, None] * v[:, t, None, :]
+            outs.append(torch.bmm(r[:, t, None], s + u[:, :, None] * kv)[:, 0])
+            s = torch.exp(logw[:, t])[..., None] * s + kv
+        return torch.stack(outs, 1), s
+
+    xs = [a.to(dtype, copy=True).requires_grad_() for a in ops]
+    r, k, v, logw, u, s = xs
+    outs = []
+    with torch.enable_grad():
+        for t0 in range(0, r.shape[1], K6_GRAD_SEGMENT):
+            t = slice(t0, t0 + K6_GRAD_SEGMENT)
+            o, s = checkpoint(segment, s, r[:, t], k[:, t], v[:, t], logw[:, t],
+                              u, use_reentrant=False, preserve_rng_state=False)
+            outs.append(o)
+        return list(torch.autograd.grad((torch.cat(outs, 1), s), xs,
+                                        (d_out.to(dtype), d_s.to(dtype))))
+
+
+def rows_bound(BH: int, T: int, D: int) -> tuple[float, str]:
+    """The least time for one key-row scan: x, y, z, logw and s0 read and
+    out written once (fp32), against its 2 BH T D^2 FMA (the read-out and
+    the decay-and-add; 4 flops) and one decay a (token, row) on the SFU."""
+    n_bytes = 4 * (5 * BH * T * D + BH * D * D)
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "operations": max(4 * BH * T * D * D / FP32_FLOP_PER_S,
+                               BH * T * D / EX2_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def k6_backward_bound(BH: int, T: int, D: int) -> tuple[float, str]:
+    """The least time for K6's whole backward: r, k, v, logw, dO read and
+    dr, dk, dv, dlogw written once, u, s0, s_final, dS_T read and du, ds0
+    written once (fp32), against the three scans' 12 BH T D^2 flops (K6's
+    read-out and rank-one update, each key-row scan's read-out and update;
+    the elementwise terms are not counted)."""
+    n_bytes = 4 * (9 * BH * T * D + 2 * BH * D + 4 * BH * D * D)
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "operations": 12 * BH * T * D * D / FP32_FLOP_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def k6_backward_checks(dev, kernels, ref, build_report, gen) -> tuple[dict, dict]:
+    """K6's gradient (``kernels.wkv6_scan``) at one time-mix layer's training
+    shape ``K6_TRAIN``: the key-row kernel against its plain version and
+    twice the same bits; one backward is one K6 and two key-row launches;
+    the six gradients against float64 autograd of the token recurrence
+    within ``K6_GRAD_REL_TOL`` of max|float64| (the fp32 autograd's
+    departure beside each); two backwards give the same bits.  Returns
+    (the backward's readings, the key-row kernel's row)."""
+    BH, T = K6_TRAIN
+    D = K6_D
+    ops, d_out, d_s = k6_train_ops(dev, gen, BH, T, K6_TRAIN_HEADS)
+    r, k, v, logw, u, s0 = ops
+    # The key-row kernel as the backward's forward launch calls it.
+    rows_ops = (k, v, d_out, logw, s0)
+    got = kernels.wkv6_rows(*rows_ops)
+    again = kernels.wkv6_rows(*rows_ops)
+    want = ref.wkv6_rows_ref(*rows_ops)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    lim = REL_TOL * float(want.abs().max())
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"key-row scan: got {tuple(got.shape)}, non-finite values")
+    check(err <= lim, f"key-row scan: |kernel - plain| {err} > {lim}")
+    check(same_bits(got, again), "key-row scan: two calls gave different bits")
+    del got, again, want
+
+    xs = [a.clone().requires_grad_() for a in ops]
+    with torch.enable_grad():
+        out, s_fin = kernels.wkv6_scan(*xs, chunk=K6_CHUNK)
+
+    def backward():
+        return torch.autograd.grad((out, s_fin), xs, (d_out, d_s),
+                                   retain_graph=True)
+
+    before = (kernels.wkv6_chunked.launches, kernels.wkv6_rows.launches)
+    grads = backward()
+    per_backward = (kernels.wkv6_chunked.launches - before[0],
+                    kernels.wkv6_rows.launches - before[1])
+    check(per_backward == (1, 2),
+          f"one backward launched K6 and the key-row scan {per_backward} times")
+    grads_again = backward()
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(grads, grads_again)),
+          "K6 backward: two calls gave different bits")
+    del grads_again
+    want64 = k6_grad_oracle(ops, d_out, d_s, torch.float64)
+    plain32 = k6_grad_oracle(ops, d_out, d_s, torch.float32)
+    readings = []
+    for name, g, w, p in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"),
+                             grads, want64, plain32):
+        scale = float(w.abs().max())
+        rel = float((g.double() - w).abs().max()) / scale
+        readings.append({"grad": name, "max_abs_fp64": scale,
+                         "kernel_rel": rel,
+                         "plain_fp32_rel": float((p.double() - w).abs().max())
+                         / scale,
+                         "limit_rel": K6_GRAD_REL_TOL})
+        check(bool(torch.isfinite(g).all()), f"K6 backward {name}: non-finite")
+        check(rel <= K6_GRAD_REL_TOL,
+              f"K6 backward {name}: |kernel - fp64| {rel} > {K6_GRAD_REL_TOL}"
+              f" of max|fp64| (fp32 autograd {readings[-1]['plain_fp32_rel']})")
+    del want64, plain32, grads
+    bwd_ms = cuda_p50(backward, 3, 2)
+    del out, s_fin, xs
+    run_k = lambda: kernels.wkv6_rows(*rows_ops)  # noqa: E731
+    run_p = lambda: ref.wkv6_rows_ref(*rows_ops)  # noqa: E731
+    runs = [graph_ms(run_k, 5, 10), cuda_p50(run_p, 2, 1),
+            graph_ms(run_k, 5, 10), cuda_p50(run_p, 2, 1)]
+    b, by = rows_bound(BH, T, D)
+    bb, bby = k6_backward_bound(BH, T, D)
+    ptxas = [ln.strip() for ln in build_report["wkv6_rows"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
+    row = {"max_abs_err": err, "ms": (runs[0] + runs[2]) / 2,
+           "plain_ms": (runs[1] + runs[3]) / 2, "library_ms": None,
+           "bound_ms": b, "bound_by": by, "runs_ms": runs,
+           "eager_ms": cuda_p50(run_k, 5, 10), "ptxas": ptxas,
+           "timed_shape": f"x/y/z/logw ({BH}, {T}, {D}) fp32, s0 ({BH}, {D}, {D})"}
+    backward_out = {"shape": [BH, T, D], "chunk": K6_CHUNK,
+                    "grads": readings,
+                    "launches_per_backward": {"wkv6_chunked": per_backward[0],
+                                              "wkv6_rows": per_backward[1]},
+                    "backward_ms": bwd_ms, "backward_bound_ms": bb,
+                    "backward_bound_by": bby,
+                    "rows_max_abs_err": err, "rows_limit": lim}
+    return backward_out, row
+
+
+def k6_checks(dev, kernels, ref, build_report) -> tuple[dict, dict]:
     """K6 against both plain versions (the chunked form and the token
     recurrence) on the card in fp32, at the prefill's width (D 64, chunk
     128) and the shapes of ``K6_CASES``, with the input distribution of the
     reference's wkv6 sweep and a nonzero s0; gates two calls giving the same
-    bits; returns its error and timing row (timed at ``K6_MAIN``, the
-    rwkv_path prefill's shape)."""
+    bits; then its backward (:func:`k6_backward_checks`).  Returns K6's
+    error and timing row (timed at ``K6_MAIN``, the rwkv_path prefill's
+    shape) and the key-row scan's."""
     from repro_torch.kernels import gemm
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1433,10 +1652,13 @@ def k6_checks(dev, kernels, ref, build_report) -> dict:
                          "smem_bytes": gemm.scan_smem_bytes(K6_D)},
                ptxas=ptxas, runs_ms=runs, per_case=per_case,
                t_sweep_ms=t_sweep, width_sweep_ms=width_sweep)
+    del timed, ops
+    release()
+    backward, rows_row = k6_backward_checks(dev, kernels, ref, build_report, gen)
     emit({"phase": "kernels_k6", "checks": len(checks),
           "worst": max(checks, key=lambda c: c["max_abs_err"] / c["limit"]),
-          "row": row})
-    return row
+          "row": row, "backward": backward, "rows_row": rows_row})
+    return row, rows_row
 
 
 # -- phases 6, 6a-6c and 10 (lm_path and its long-prompt, --mole off and phi3
@@ -1632,14 +1854,16 @@ def plain_gaps(model, params, prompts, final, dev):
     return gaps_in_ulps(logits, final)
 
 
-def step_profile(fn, step_ms: float) -> dict:
+def step_profile(fn, step_ms: float, track: tuple = ()) -> dict:
     """One call of ``fn`` under torch.profiler: device-busy time (the sum
     of the kernels' device time; CPU-side ops are left out, as they carry
     their kernels' time again), the number of kernel launches, the five
     kernels with the most device time, the eight CPU-side operations with
     the most device time of the kernels they launched themselves
     (``self_device_time_total``: an op's children count apart), and the
-    idle share of an unprofiled step of ``step_ms``."""
+    idle share of an unprofiled step of ``step_ms``.  For each name in
+    ``track``, the device time, launches and share of ``step_ms`` of the
+    kernels whose name contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1665,6 +1889,13 @@ def step_profile(fn, step_ms: float) -> dict:
                            for e in top[:5]],
         "top_ops_ms": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                        for e in ops[:8]],
+        "tracked_ms": {
+            name: {"ms": ms, "launches": sum(e.count for e in kern
+                                             if name in e.key),
+                   "share_of_step": ms / step_ms}
+            for name in track
+            for ms in [sum(e.self_device_time_total for e in kern
+                           if name in e.key) / 1e3]},
     }
 
 
@@ -2302,7 +2533,7 @@ class StepTap:
 def mole_off_path(dev, kernels, ctx) -> dict:
     """``serve --mode lm --mole off`` on the card with lm_long_prompt's
     weights and prompts (``run_lm``: no registry, no engine, one prefill of
-    the 4 raw prompts, greedy decode).  Gated: all six launch counters stay
+    the 4 raw prompts, greedy decode).  Gated: all seven launch counters stay
     0; the prompts are lm_long_prompt's; every token is the argmax of the
     plain logits it came from; and the tokens equal lm_long_prompt's lane
     generations over each request's decided prefix: the positions before
@@ -3314,7 +3545,8 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     morphed stream (``--mole token``); gates 1-4 of the module docstring
     (the twins of gate 3 are 2 layers: one group of a 2-kind pattern);
     step time, tokens/s, MFU, the peak (held at ``peak_limit_gb`` where
-    given) and a profiled step."""
+    given) and a profiled step.  An RWKV-6 stack's gate 2 counts K6 and
+    the key-row scan exactly (``scan_launches``)."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -3368,11 +3600,19 @@ def train_path(dev, kernels, *, phase: str = "train_path",
         params, opt, m = step(params, opt, batch)
         metrics.append(m)
 
-    prof = step_profile(profiled, p50)
+    prof = step_profile(profiled, p50, track=(
+        ("wkv6_columns", "wkv6_rows") if cfg.rwkv is not None else ()))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_limit_gb is not None:
         check(peak_gb <= peak_limit_gb,
               f"peak device memory {peak_gb:.2f} GB > {peak_limit_gb} GB")
+    # Gate 2 over the main run: exactly the scan's launches an RWKV-6 stack
+    # makes, no kernel otherwise.
+    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    want_launches = dict.fromkeys(KERNEL_NAMES, 0)
+    want_launches.update(scan_launches(cfg, micro, len(metrics)))
+    check(launches == want_launches,
+          f"gate 2: {phase} launched {launches}, expected {want_launches}")
     # Gate 1: finite loss and grad_norm at every step; count = steps run.
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
@@ -3386,7 +3626,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     # Gate 3: the raw params on the raw stream against the fused params on
     # the morphed stream, from one init, on a 2-layer twin at full width
     # (both runs do not fit beside each other at TRAIN_LAYERS), in fp32 and
-    # in bf16, beside the raw run in one microbatch.
+    # in bf16.
     fixed = len(cfg.prefix_pattern) + len(cfg.suffix_pattern)
     twin_groups = max(1, (TRAIN_TWIN_LAYERS - fixed) // len(cfg.block_pattern))
 
@@ -3408,16 +3648,12 @@ def train_path(dev, kernels, *, phase: str = "train_path",
 
         _, raw = run(model.init(SEED), raw_cfg, micro)
         release()
-        _, control = run(model.init(SEED), raw_cfg, 1)
-        release()
         fused = ParamTree(fuse_lm_params(
             model.init(SEED), twin,
             token_morpher=ProviderStage.for_model(twin).token_morpher))
         fused, morphed = run(fused, twin, micro)
-        out = {"raw": raw, "fused": morphed, "one_microbatch": control,
+        out = {"raw": raw, "fused": morphed,
                "fused_rel": [abs(a - b) / abs(a) for a, b in zip(raw, morphed)],
-               "one_microbatch_rel": [abs(a - b) / abs(a)
-                                      for a, b in zip(raw, control)],
                "gated_steps": TRAIN_GATED_STEPS[dtype]}
         check(max(out["fused_rel"][:out["gated_steps"]]) <= TRAIN_LOSS_RTOL,
               f"gate 3: {dtype} twin, raw against fused losses {out}")
@@ -3427,9 +3663,10 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     del fused
     release()
     twin_model, fused, twin_bf16 = twin_losses(cfg.dtype)
-    # Gate 2: no kernel on this path.
-    launches = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
-    check(not any(launches.values()), f"gate 2: train_path launched {launches}")
+    # Gate 2 over the twins: no kernel but the scan's.
+    others = {n: getattr(kernels, n).launches for n in KERNEL_NAMES
+              if n not in scan_launches(cfg, 1, 1)}
+    check(not any(others.values()), f"gate 2: {phase}'s twins launched {others}")
 
     # Gate 4: the trained tree serves without recording a graph: the decode
     # lane's admission prefill and batched decode step on it (K3 runs here,
@@ -3462,7 +3699,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     gen = torch.Generator(device=dev).manual_seed(SEED)
     B_, H, Hkv, hd = global_batch // micro, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kinds = cfg.layer_kinds()
-    attn_kinds = [k for k in kinds if B.mixer_of(k) != "rec"]
+    attn_kinds = [k for k in kinds if B.mixer_of(k) not in ("rec", "rwkv")]
     qkv = [torch.randn(B_, seq, h_, hd, generator=gen, device=dev)
            .to(cfg.adtype).requires_grad_() for h_ in (H, Hkv, Hkv)]
     go = torch.randn(B_, seq, H, hd, generator=gen, device=dev).to(cfg.adtype)
@@ -3483,7 +3720,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
         torch.autograd.grad(o, qkv, go.transpose(1, 2))
 
     flash_ms = {"shape": [B_, seq, H, hd], "kv_heads": Hkv,
-                "sdpa_forward_backward": cuda_ms(sdpa, 3)}
+                "sdpa_forward_backward": cuda_ms(sdpa, 3) if attn_kinds else None}
     share = 0.0
     for kind in sorted(set(attn_kinds)):
         window = cfg.sliding_window if kind == "local" else None
@@ -3496,10 +3733,13 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     del qkv, go
     release()
     scan_ms = None
-    n_rec = len(kinds) - len(attn_kinds)
+    n_rec, n_rwkv = kinds.count("rec"), kinds.count("rwkv")
     if n_rec:
         scan_ms = rec_scan_ms(dev, gen, (B_, seq, cfg.rnn.d_rnn or cfg.d_model))
-        scan_ms["share_of_step"] = micro * n_rec * (
+    if n_rwkv:
+        scan_ms = rwkv_scan_ms(dev, kernels, gen, B_, H, seq, cfg.rwkv)
+    if scan_ms is not None:
+        scan_ms["share_of_step"] = micro * (n_rec + n_rwkv) * (
             scan_ms["forward"] + scan_ms["forward_backward"]) / p50
 
     # Model flops a step (remat's recompute not counted): 6 N a token for
@@ -3510,7 +3750,8 @@ def train_path(dev, kernels, *, phase: str = "train_path",
     # a token and layer per attended position (12 H hd where q, k and v are
     # hd wide; MLA's q/k are qk_nope + qk_rope, its v v_head), the mean
     # attended context being (S + 1) / 2 causal and, in a window W, its
-    # mean over the S positions of min(p + 1, W).
+    # mean over the S positions of min(p + 1, W).  The recurrent scans
+    # (RG-LRU, RWKV-6) are not counted.
     tokens, d = global_batch * seq, cfg.d_model
     n_active = cfg.active_param_count()
     pos = np.arange(1, seq + 1)
@@ -3536,6 +3777,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
            "train_peak_gb": peak_gb, "peak_limit_gb": peak_limit_gb,
            "train_mfu": flops / (p50 / 1e3) / BF16_FLOP_PER_S,
            "flops_per_step": flops, "attended_context_per_token": ctx_sum,
+           "scan_flops_counted": False,
            "train_step_profile": prof, "flash_ms": flash_ms,
            "scan_ms": scan_ms,
            "mole_twin": {"layers": twin_groups * len(cfg.block_pattern) + fixed,
@@ -3543,6 +3785,44 @@ def train_path(dev, kernels, *, phase: str = "train_path",
                          "bf16": twin_bf16, "limit_rel": TRAIN_LOSS_RTOL},
            "phase_s": time.monotonic() - t_phase}
     emit(out)
+    return out
+
+
+def scan_launches(cfg, micro: int, steps: int) -> dict:
+    """The kernel launches ``steps`` train steps of ``micro`` microbatches
+    make: for an RWKV-6 stack, K6 three times a layer and microbatch
+    (remat's two forwards and the flipped launch of its backward) and the
+    key-row scan twice; none otherwise."""
+    if cfg.rwkv is None:
+        return {}
+    n = cfg.n_layers * micro * steps
+    return {"wkv6_chunked": 3 * n, "wkv6_rows": 2 * n}
+
+
+def rwkv_scan_ms(dev, kernels, gen, batch: int, heads: int, T: int,
+                 rwkv) -> dict:
+    """The time-mix scan (``kernels.wkv6_scan``) at one layer's microbatch
+    shape in fp32 on ``k6_train_ops``'s operands: forward alone (one K6
+    launch) and forward plus backward (two K6 and two key-row launches).
+    A train step runs it micro x layers times each way (remat runs each
+    block's forward twice)."""
+    BH = batch * heads
+    ops, d_out, d_s = k6_train_ops(dev, gen, BH, T, heads=heads)
+    xs = [a.requires_grad_() for a in ops]
+
+    def forward():
+        with torch.no_grad():
+            kernels.wkv6_scan(*xs, chunk=rwkv.chunk)
+
+    def forward_backward():
+        with torch.enable_grad():
+            out, s_fin = kernels.wkv6_scan(*xs, chunk=rwkv.chunk)
+            torch.autograd.grad((out, s_fin), xs, (d_out, d_s))
+
+    out = {"shape": [BH, T, rwkv.head_dim], "forward": cuda_ms(forward, 3),
+           "forward_backward": cuda_ms(forward_backward, 3)}
+    del xs, ops, d_out, d_s
+    release()
     return out
 
 
@@ -4009,7 +4289,7 @@ def frontend_path(dev, kernels, *, phase: str, arch: str, cfg, tenants: int,
     seed (``prepare(params, cfg)`` then sets what the init leaves dead and
     returns it): the token lane morphs the prompts, then one tenant at a
     time its fused params prefill its prompts beside all-zero patches or
-    frames and decode greedily.  Gated: no kernel launched (all six
+    frames and decode greedily.  Gated: no kernel launched (all seven
     counters 0); every prefill fed (rows, n_tokens, d_in) zero bf16 inputs;
     one fusion and one prefill a tenant and a decode step a generated token
     after the first; the generations' shape and range; the peak at
@@ -4651,7 +4931,8 @@ def main() -> None:
     release()
     vgg = vgg_path(dev, core, kernels)
     release()
-    rows["wkv6_chunked"] = k6_checks(dev, kernels, ref, report)
+    rows["wkv6_chunked"], rows["wkv6_rows"] = k6_checks(dev, kernels, ref,
+                                                        report)
     release()
     rwkv = lm_path(dev, kernels, phase="rwkv_path", arch=RWKV_ARCH,
                    prompt_len=RWKV_PROMPT)
@@ -4669,6 +4950,9 @@ def main() -> None:
     train_path(dev, kernels, phase="recurrentgemma_train", arch=RG_ARCH,
                peak_limit_gb=PEAK_LIMIT_GB, **RG_TRAIN)
     release()
+    rwkv_train = train_path(dev, kernels, phase="rwkv_train", arch=RWKV_ARCH,
+                            peak_limit_gb=PEAK_LIMIT_GB, **RWKV_TRAIN)
+    release()
     vlm_path(dev, kernels)
     release()
     vlm = vlm_train(dev, kernels)
@@ -4678,7 +4962,10 @@ def main() -> None:
     whisper = whisper_train(dev, kernels)
     release()
     launches = dict(main["launches"], grouped_row_gemm=lm["k3_launches"],
-                    wkv6_chunked=rwkv["k6_launches"], **vgg["launches"])
+                    wkv6_chunked=(rwkv["k6_launches"]
+                                  + rwkv_train["launches"]["wkv6_chunked"]),
+                    wkv6_rows=rwkv_train["launches"]["wkv6_rows"],
+                    **vgg["launches"])
     launches["block_diag_matmul"] += (vlm["launches"]["block_diag_matmul"]
                                       + whisper["launches"]["block_diag_matmul"])
     check(all(launches[n] > 0 for n in KERNEL_NAMES),
@@ -4694,6 +4981,11 @@ def main() -> None:
                               "src/repro/kernels/block_diag.py:45"),
         "aug_gemm": ("aug_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
         "wkv6_chunked": ("wkv6.cu", "src/repro/kernels/wkv6.py:71"),
+        # No Pallas kernel: the gradient JAX takes through the XLA chunked
+        # scan.
+        "wkv6_rows": ("wkv6_rows.cu",
+                      "src/repro/models/blocks.py:732 (_wkv_chunked's "
+                      "gradient; no Pallas kernel)"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = [

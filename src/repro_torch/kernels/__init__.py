@@ -10,7 +10,9 @@ and the RWKV-6 scan.
                and their ``_batched`` forms; the engine- and decode-facing
                grouped steps with their gidx clamp), and the LM gathers
   wkv6       — K6, the RWKV-6 chunked scan (``csrc/wkv6.cu``), on the
-               time-mix prefill of ``rwkv`` blocks
+               time-mix prefill of ``rwkv`` blocks, and its gradient
+               (``wkv6_scan``: K6 on flipped operands and the key-row scan
+               ``wkv6_rows``, ``csrc/wkv6_rows.cu``)
   gemm       — the ctypes binding of every entry point of ``csrc/``
                (``morph_gemm.cu``, the split-K morph kernel behind K1 and
                K4, with its split rule; ``aug_gemm.cu``, the tensor-core
@@ -39,7 +41,7 @@ from .ops import (
     token_morph_batched,
     token_morph_grouped,
 )
-from .wkv6 import wkv6_chunked
+from .wkv6 import wkv6_chunked, wkv6_rows, wkv6_scan
 from . import ref
 
 __all__ = [
@@ -61,5 +63,7 @@ __all__ = [
     "token_morph_batched",
     "token_morph_grouped",
     "wkv6_chunked",
+    "wkv6_rows",
+    "wkv6_scan",
     "ref",
 ]

@@ -29,6 +29,7 @@ SOURCES = {
     "morph_gemm": _CSRC / "morph_gemm.cu",
     "row_gemm": _CSRC / "row_gemm.cu",
     "wkv6": _CSRC / "wkv6.cu",
+    "wkv6_rows": _CSRC / "wkv6_rows.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -14,7 +14,9 @@ tables), its work split into column strips and per-warp slices of K by
 :func:`row_splits`.
 ``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6 scan as a
 state-column recurrence; :mod:`.wkv6`), its block width chosen by
-:func:`scan_width`.  Each wrapper counts its own launches; this module
+:func:`scan_width`; ``csrc/wkv6_rows.cu`` has ``wkv6_rows`` (the key-row
+scan of K6's gradient; :mod:`.wkv6`), bound through :func:`key_rows`.
+Each wrapper counts its own launches; this module
 counts none.  The libraries are built at first use (:mod:`.build`); nothing
 here runs at import.
 """
@@ -30,7 +32,7 @@ from . import build
 __all__ = ["MAX_GRID_YZ", "MORPH_BK", "check_operands", "aug",
            "aug_workspace_floats", "morph", "morph_splits", "sm_count", "rows",
            "row_splits", "scan", "scan_smem_bytes", "scan_width",
-           "scan_widths", "SCAN_SPLIT"]
+           "scan_widths", "SCAN_SPLIT", "key_rows"]
 
 MAX_GRID_YZ = 65535
 _BM = 64            # rows per block in morph_gemm.cu, at least in aug_gemm.cu
@@ -72,6 +74,8 @@ _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
     "wkv6_chunked": ("wkv6", [_P] * 8 + [_I] * 5 + [_P]),
     # D -> bytes
     "wkv6_smem_bytes": ("wkv6", [_I]),
+    # x, y, z, logw, s0, out, BH, T, D, device, stream
+    "wkv6_rows": ("wkv6_rows", [_P] * 6 + [_I] * 4 + [_P]),
 }
 
 
@@ -339,3 +343,16 @@ def scan(name: str, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           logw.data_ptr(), u.data_ptr(), s0.data_ptr(), out.data_ptr(),
           s_out.data_ptr(), BH, T, D, C)
     return out, s_out
+
+
+def key_rows(name: str, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+             logw: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
+    """The key-row scan on fp32 ``(BH, T, D)`` operands and an fp32
+    ``(BH, D, D)`` start state: ``out_t[i] = M[i, :] . z_t``, then ``M[i, :]
+    = e^{logw_t[i]} M[i, :] + x_t[i] y_t``.  One device launch.  Returns out
+    (BH, T, D) fp32."""
+    BH, T, D = x.shape
+    out = torch.empty_like(x)
+    _call(name, "wkv6_rows", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
+          logw.data_ptr(), s0.data_ptr(), out.data_ptr(), BH, T, D)
+    return out

@@ -20,6 +20,8 @@ recurrence (the semantic oracle, ``repro.kernels.ref.wkv6_ref``), and
 :func:`wkv6_chunked_ref`, the chunked form with the Pallas kernel's
 ``(BH, T, D)`` signature (``repro.kernels.wkv6.wkv6_chunked``), which is
 the CPU path of :func:`repro_torch.kernels.wkv6.wkv6_chunked`.
+:func:`wkv6_rows_ref` is the key-row scan of the scan's gradient, the CPU
+path of :func:`repro_torch.kernels.wkv6.wkv6_rows`.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ __all__ = [
     "lm_head_rows_batched_ref",
     "wkv6_ref",
     "wkv6_chunked_ref",
+    "wkv6_rows_ref",
 ]
 
 
@@ -222,3 +225,20 @@ def wkv6_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.exp(last)[:, :, None] * s + torch.bmm(k_dec.transpose(1, 2), vn)
         outs.append(out)
     return torch.cat(outs, dim=1).to(r.dtype), s
+
+
+def wkv6_rows_ref(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                  logw: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
+    """The key-row scan, token by token in fp32: x/y/z/logw (BH, T, D),
+    s0 (BH, D, D).  From M = s0, at each token
+
+      out_t[i] = M[i, :] . z_t;  then  M[i, :] = e^{logw_t[i]} M[i, :] + x_t[i] y_t
+
+    Returns out (BH, T, D) fp32."""
+    x, y, z, w = (a.float() for a in (x, y, z, torch.exp(logw.float())))
+    m = s0.float()
+    outs = []
+    for t in range(x.shape[1]):
+        outs.append(torch.bmm(m, z[:, t, :, None])[..., 0])
+        m = torch.addcmul(w[:, t, :, None] * m, x[:, t, :, None], y[:, t, None, :])
+    return torch.stack(outs, dim=1)

@@ -78,13 +78,10 @@ def make_train_step(model: Model, hp: TrainHParams):
     parameters' type).  With one microbatch the gradients stay in the
     parameters' type; AdamW casts them to fp32.
 
-    RWKV-6 stacks are refused: K6 has no backward yet.
+    Every stack of the registry trains; an RWKV-6 time-mix takes its scan's
+    gradient through :func:`repro_torch.kernels.wkv6.wkv6_scan` (K6 on
+    flipped operands and two key-row scans).
     """
-    if model.cfg.rwkv is not None:
-        raise NotImplementedError(
-            f"{model.cfg.name}: training RWKV-6 needs a backward for the "
-            f"wkv6 scan (K6), which is not written yet"
-        )
 
     def loss_fn(params, mb):
         return model.loss(params, mb, remat=hp.remat)

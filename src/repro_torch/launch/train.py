@@ -19,6 +19,8 @@ AdamW, periodic async checkpoints, auto-resume.  Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch whisper_tiny --smoke --steps 4 --mole embedding \
         --kappa 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch rwkv6_3b --smoke --device cpu --steps 2
 
 The flags are the reference's, plus ``--device``.  The step is
 :func:`repro_torch.launch.steps.make_train_step`, run eagerly: it updates
@@ -27,9 +29,10 @@ Checkpoints go to ``<ckpt-dir>/<arch>`` (three kept); ``--resume`` restores
 the latest one into the freshly built state and seeks the pipeline to the
 index saved with it.  Every arch of the registry trains, the hybrid
 ``recurrentgemma_2b`` (RG-LRU and local layers), the vision-language
-``llama32_vision_90b`` and the audio encoder-decoder ``whisper_tiny``
-included, but ``rwkv6_3b`` (its wkv6 kernel has no backward yet), which
-raises ``NotImplementedError``, as do names outside the registry.
+``llama32_vision_90b``, the audio encoder-decoder ``whisper_tiny`` and
+``rwkv6_3b`` (its scan's gradient through the hand-written kernels of
+``kernels/wkv6.py``) included; names outside the registry raise
+``NotImplementedError``.
 ``--mole embedding`` (``--kappa`` blocks of the core) morphs a vlm's patch
 stream or an audio model's frame stream in the pipeline's provider stage,
 through the morph kernel K4 on ``--device``; a model without a frontend
@@ -88,8 +91,7 @@ def build(args, cfg: ModelConfig | None = None):
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help=f"architecture to train: {', '.join(ARCHS)} "
-                         f"(rwkv6_3b raises: its wkv6 kernel has no backward)")
+                    help=f"architecture to train: {', '.join(ARCHS)}")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

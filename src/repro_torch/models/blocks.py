@@ -13,7 +13,9 @@ layers are assembled from these mixers in
 :mod:`repro_torch.models.stack`.  The expert-parallel MoE under a mesh
 (``_apply_moe_sharded``) belongs to a later slice.  The RWKV-6 time-mix
 runs its prefill scan through K6
-(:func:`repro_torch.kernels.wkv6.wkv6_chunked`); the reference's
+(:func:`repro_torch.kernels.wkv6.wkv6_chunked`), and in training through
+:func:`repro_torch.kernels.wkv6.wkv6_scan`, whose backward is hand-written
+kernels too; the reference's
 ``_wkv_intra_subchunked`` (an XLA form selected by ``subchunk > 0``) is not
 ported, since K6 replaces both of the reference's XLA forms on the card.
 
@@ -47,7 +49,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.wkv6 import wkv6_chunked
+from ..kernels.wkv6 import wkv6_chunked, wkv6_scan
 from .base import ModelConfig, ParamDef
 from . import layers as L
 
@@ -749,8 +751,10 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
     value].  Pads T at the end to a multiple of ``Lc = min(chunk, T)`` —
     exact: k = v = 0 add nothing, logw = 0 (decay 1) leaves the state as it
     is, and the r = 0 rows are sliced away — flattens (B, H), broadcasts
-    ``u`` to (B*H, D) and calls :func:`wkv6_chunked`.  Returns
-    (out (B, H, T, D), s_final (B, H, D, D))."""
+    ``u`` to (B*H, D) and calls :func:`wkv6_chunked`, or, where grad is
+    enabled and an operand requires it, :func:`wkv6_scan` (the same K6
+    forward, with its gradient; autograd sums ``u``'s over the batch).
+    Returns (out (B, H, T, D), s_final (B, H, D, D))."""
     B, H, T, D = r.shape
     Lc = min(chunk, T)
     pad = (-T) % Lc
@@ -761,7 +765,9 @@ def _wkv_chunked(r, k, v, logw, u, s0, chunk: int):
         return a.reshape(B * H, T + pad, D).contiguous()
 
     u_b = u.float()[None].expand(B, H, D).reshape(B * H, D).contiguous()
-    out, s_fin = wkv6_chunked(
+    grad = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (r, k, v, logw, u, s0))
+    out, s_fin = (wkv6_scan if grad else wkv6_chunked)(
         flat(r), flat(k), flat(v), flat(logw), u_b,
         s0.reshape(B * H, D, D).contiguous(), chunk=chunk,
     )

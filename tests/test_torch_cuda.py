@@ -18,7 +18,7 @@ from repro_torch.kernels import (  # noqa: E402
     aug_conv_forward, aug_conv_forward_batched, aug_conv_forward_grouped,
     aug_gemm, block_diag_matmul, grouped_aug_gemm, grouped_block_diag_matmul,
     grouped_row_gemm, lm_head_rows_grouped, morph_rows, morph_rows_batched,
-    morph_rows_grouped, ref, wkv6_chunked,
+    morph_rows_grouped, ref, wkv6_chunked, wkv6_rows, wkv6_scan,
 )
 from repro_torch.kernels import gemm  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -582,6 +582,145 @@ def test_rwkv_smoke_model_on_card_equals_cpu(rng, cuda):
         lc, cc = cpu.decode(params, tok, t, cc)
         lg, cg = card.decode(params_c, tok.to(cuda), t, cg)
         close(lg, lc)
+
+
+def _rows_ops(rng, BH, T, D, decay="ordinary"):
+    x, y, z, w = (_rand(rng, BH, T, D) for _ in range(4))
+    logw = {"ordinary": -torch.exp(w), "strong": -torch.exp(2 * w),
+            "weak": -torch.exp(w - 3)}[decay]
+    return x, y, z, logw, _rand(rng, BH, D, D, scale=0.1)
+
+
+@pytest.mark.parametrize("decay", ["ordinary", "strong", "weak"])
+@pytest.mark.parametrize("BH,T,D", [(3, 45, 16), (2, 100, 64), (4, 33, 64),
+                                    (80, 1, 64), (5, 1, 16), (80, 1000, 64)])
+def test_wkv6_rows_kernel_matches_plain(rng, cuda, BH, T, D, decay):
+    """The key-row scan (``csrc/wkv6_rows.cu``) against its plain version on
+    the same card operands, within 1e-4 * max|plain| (K6's bound: both
+    take the decays by ex2.approx or exp, and sum in another order), at
+    both head sizes, ragged T (the last tile partial), T = 1 and the
+    training shape's width (80 sequences); one launch a call."""
+    ops = [a.to(cuda) for a in _rows_ops(rng, BH, T, D, decay)]
+    want = ref.wkv6_rows_ref(*ops)
+    before = wkv6_rows.launches
+    got = wkv6_rows(*ops)
+    torch.cuda.synchronize()
+    assert wkv6_rows.launches == before + 1
+    assert got.shape == (BH, T, D) and bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("BH,T,D", [(80, 512, 64), (7, 70, 16)])
+def test_wkv6_rows_kernel_gives_same_bits_twice(rng, cuda, BH, T, D):
+    ops = [a.to(cuda) for a in _rows_ops(rng, BH, T, D)]
+    a, b = wkv6_rows(*ops), wkv6_rows(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _recurrence64(r, k, v, logw, u, s0):
+    """The token recurrence on (BH, T, D) operands in float64."""
+    s, outs = s0, []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        outs.append(torch.einsum("bd,bdv->bv", r[:, t], s + u[:, :, None] * kv))
+        s = torch.exp(logw[:, t])[..., None] * s + kv
+    return torch.stack(outs, 1), s
+
+
+@pytest.mark.parametrize("BH,T,D,chunk", [(8, 384, 64, 128), (6, 36, 16, 4),
+                                          (3, 100, 64, 20), (4, 1, 64, 128)])
+def test_wkv6_scan_backward_on_card_against_float64(rng, cuda, BH, T, D, chunk):
+    """``wkv6_scan`` on the card (forward K6; backward one K6 launch on
+    flipped operands and two key-row launches) against float64 autograd of
+    the token recurrence on the same inputs, nonzero s0 and dS_T: each of
+    the six gradients within 1e-4 of max|float64| (the CPU tests' bound,
+    tests/test_torch_wkv6_grad.py).  T is a multiple of the chunk, as
+    ``_wkv_chunked`` pads it; 36 and 100 end in a partial tile of the
+    key-row kernel."""
+    r, k, v, logw, u, s0 = _scan_ops(rng, BH, T, D)
+    d_out, d_s = _rand(rng, BH, T, D), _rand(rng, BH, D, D, scale=0.1)
+    ops64 = [a.double().requires_grad_() for a in (r, k, v, logw, u, s0)]
+    o64, s64 = _recurrence64(*ops64)
+    want = torch.autograd.grad((o64 * d_out.double()).sum()
+                               + (s64 * d_s.double()).sum(), ops64)
+    ops = [a.to(cuda).requires_grad_() for a in (r, k, v, logw, u, s0)]
+    before = (wkv6_chunked.launches, wkv6_rows.launches)
+    out, s_fin = wkv6_scan(*ops, chunk=chunk)
+    got = torch.autograd.grad((out * d_out.to(cuda)).sum()
+                              + (s_fin * d_s.to(cuda)).sum(), ops)
+    torch.cuda.synchronize()
+    assert (wkv6_chunked.launches, wkv6_rows.launches) == (before[0] + 2,
+                                                           before[1] + 2)
+    for name, g, w in zip(("r", "k", "v", "logw", "u", "s0"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g.cpu().double() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+
+
+def test_rwkv_train_step_on_card_equals_cpu(rng, cuda):
+    """One train step of the rwkv6_3b smoke model (fp32; 2 microbatches,
+    remat, sequences of 30 padded to the chunk of 4) on the card against the
+    same step on the CPU, with the bounds and the float64 rule of
+    ``test_hybrid_train_step_on_card_equals_cpu`` (the CPU's time-mix scan
+    is the plain chunked form, the card's the token recurrence).  K6 runs
+    three times a layer and microbatch (remat's two forwards, the flipped
+    launch of the backward), the key-row scan twice; no other kernel."""
+    import dataclasses
+
+    from repro_torch.launch.steps import TrainHParams, make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config("rwkv6_3b")
+    hp = TrainHParams(optimizer=adamw.AdamWConfig(warmup_steps=2), microbatch=2)
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    params_c = copy.deepcopy(params).to(cuda)
+    params_64 = copy.deepcopy(params).to(torch.float64)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 30)))
+             for k in ("tokens", "targets")}
+    kernels = (grouped_block_diag_matmul, grouped_aug_gemm, grouped_row_gemm,
+               block_diag_matmul, aug_gemm, wkv6_chunked, wkv6_rows)
+    _, want_opt, want = make_train_step(cpu, hp)(
+        params, adamw.init_state(params), batch)
+    cfg_64 = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+    _, opt_64, m_64 = make_train_step(Model(cfg_64, "cpu"), hp)(
+        params_64, adamw.init_state(params_64), batch)
+    before = [k.launches for k in kernels]
+    _, opt, got = make_train_step(Model(cfg, "cuda"), hp)(
+        params_c, adamw.init_state(params_c),
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    per = cfg.n_layers * 2
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        0, 0, 0, 0, 0, 3 * per, 2 * per]
+    assert int(opt["count"]) == 1
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-5)):
+        rtol = max(rtol, 4 * rel(want[k], m_64[k]))
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=rtol), k
+    lr, opt_cfg = float(want["lr"]), hp.optimizer
+    want_p = dict(adamw.named_leaves(params))
+    for name, p in adamw.named_leaves(params_c):
+        assert not p.requires_grad
+        tols = {}
+        for key, tol in (("m", 1e-4), ("v", 2e-4)):
+            w = want_opt[key][name]
+            tols[key] = max(tol, 4 * rel(w, opt_64[key][name]))
+            assert rel(opt[key][name], w) <= tols[key], (key, name)
+        g = want_opt["m"][name].double().abs() / (1 - opt_cfg.b1)
+        decided = g >= 1e-2 * g.max()
+        d = tols["m"] * g.max()
+        diff = (p.cpu() - want_p[name]).abs().double()
+        slack = 1e-6 * (float(want_p[name].abs().max()) + lr)
+        moved = lr * opt_cfg.eps * d / (g[decided] * (g[decided] - d))
+        assert bool((diff[decided] <= slack + moved).all()), name
+        assert float(diff.max()) <= 2 * lr + slack, name
 
 
 @pytest.mark.parametrize("S", [2, 40])

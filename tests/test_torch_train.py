@@ -54,6 +54,7 @@ from repro_torch.core.lm import TokenMorpher, fuse_aug_head  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     DataConfig, Pipeline, ProviderStage, SyntheticLM,
 )
+from repro_torch.kernels import wkv6_chunked  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     TrainHParams, make_batched_decode_step, make_row_prefill_step,
@@ -86,11 +87,19 @@ GRAD_TOL = 1e-4
 # 9.0e-5 (the port's local layers alone depart twice as far as the
 # reference's in grad_norm; its rec layers alone by 1e-6 of max|g|, as
 # the reference's).  Held at about four times the reference's departures.
-GRAD_TOLS = {"gemma2_27b": 2e-3, "recurrentgemma_2b": 1e-3}
+# The rwkv6_3b smoke stack, against the port in float64 on these tests'
+# inputs: the reference's gradients depart by up to 2.5e-5 of max|g| and
+# the port's by 3.4e-5 (both at blocks.0.mix.w0), held at about four times
+# that.  Its zero-initialised maa_x leaves have max|g| of 6.6e-5 at the
+# first step, so AdamW's eps moves g / (|g| + eps) of their decided
+# entries by more than 1e-6; the bound above GRAD_TOL counts that
+# (:func:`_hold_update`).
+GRAD_TOLS = {"gemma2_27b": 2e-3, "recurrentgemma_2b": 1e-3,
+             "rwkv6_3b": 1.4e-4}
 NORM_RTOLS = {"gemma2_27b": 2e-3, "recurrentgemma_2b": 1.2e-4}
 ADAM_RTOL = 1e-6
 ARCHS = ["deepseek_7b", "phi3_mini_3p8b", "command_r_35b", "gemma2_27b",
-         "recurrentgemma_2b"]
+         "recurrentgemma_2b", "rwkv6_3b"]
 FLASH = dict(dense_attn_max_seq=16, flash_block_kv=16)
 ATTENTION = {"dense": {}, "flash": FLASH}
 S = 64
@@ -473,18 +482,32 @@ def test_training_reduces_loss_on_learnable_data():
 
 
 def test_rwkv_train_step_raises():
-    """K6 has no backward: building the step refuses the config, and a
-    loss whose weights require grad ends in the kernel wrapper's error,
-    never in a detached scan."""
+    """RWKV-6 trains: ``make_train_step`` builds for the smoke stack and
+    lowers its loss on the synthetic grammar over 12 steps (2
+    microbatches, remat), the scan's gradient through ``wkv6_scan``; what
+    still raises is K6's own wrapper, handed an operand that requires grad
+    (it has no backward of its own)."""
     cfg = get_smoke_config("rwkv6_3b")
     model = Model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="backward"):
-        make_train_step(model, TrainHParams())
     params = model.init(0)
-    batch = _t(_batch(np.random.default_rng(0), cfg.vocab, S=16))
-    with pytest.raises(RuntimeError, match="has no backward"):
-        _grads(model, params, batch, remat=False)
+    opt = adamw.init_state(params)
+    step = make_train_step(model, TrainHParams(
+        optimizer=adamw.AdamWConfig(lr=3e-3, warmup_steps=3, decay_steps=24),
+        microbatch=2))
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8,
+                               seed=0), model_cfg=cfg)
+    losses = []
+    for _ in range(12):
+        params, opt, m = step(params, opt, _t(next(pipe)))
+        assert torch.isfinite(m["grad_norm"])
+        losses.append(float(m["loss"]))
+    assert int(opt["count"]) == 12
+    assert losses[-1] < losses[0] - 0.3, losses[::3]
     assert not any(p.requires_grad for p in params.parameters())
+    r = torch.zeros(2, 8, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        wkv6_chunked(r, r.detach(), r.detach(), r.detach(),
+                     torch.zeros(2, 16), torch.zeros(2, 16, 16), chunk=4)
 
 
 # -- MoLe in training ---------------------------------------------------------------

@@ -492,17 +492,55 @@ def test_train_main_recurrentgemma_resume_equals_clean_run(tmp_path, capsys):
     assert int(resumed["opt"]["count"]) == 6
 
 
+def test_train_main_rwkv_runs_as_the_reference_train_main(tmp_path, capsys,
+                                                      monkeypatch):
+    """``launch/train.py --arch rwkv6_3b --smoke`` (the time-mix scan's
+    gradient through ``wkv6_scan``; sequences of 30, which pad to the
+    chunk of 4) through the reference's ``main`` and the port's, with a
+    failure injected at step 3 after the checkpoint of step 2: the same
+    header (the parameter count included) and fault-tolerance lines word
+    for word, the same lines with the numbers taken out, and finite
+    losses.  The reference's saves are joined, as in
+    ``test_train_main_prints_the_reference_format``, so that both packages
+    restore the step-2 checkpoint."""
+    save = JManager.save
+
+    def joined(self, *args, **kwargs):
+        save(self, *args, **kwargs)
+        self.wait()
+
+    monkeypatch.setattr(JManager, "save", joined)
+    argv = ["--arch", "rwkv6_3b", "--smoke", "--mole", "token",
+            "--seq-len", "30", "--batch", "4", "--steps", "5",
+            "--ckpt-every", "2", "--inject-failures", "3", "--log-every", "1"]
+    jtrain.main(argv + ["--ckpt-dir", str(tmp_path / "ref")])
+    want = capsys.readouterr().out
+    _, hist = train.main(argv + ["--ckpt-dir", str(tmp_path / "port"),
+                                 "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _shape_of(got) == _shape_of(want)
+    keep = [line for line in want.splitlines()
+            if line.startswith(("arch=", "  [FT]"))]
+    assert len(keep) == 2 and keep == [
+        line for line in got.splitlines()
+        if line.startswith(("arch=", "  [FT]"))]
+    assert sorted(_losses(hist)) == [0, 1, 2, 3, 4]
+    assert all(np.isfinite(float(v)) for v in _losses(hist).values())
+
+
 @pytest.mark.parametrize("extra,error,match", [
-    (["--arch", "rwkv6_3b"], NotImplementedError, "wkv6"),
+    (["--arch", "rwkv6_3b", "--mole", "embedding"], ValueError,
+     "needs a frontend"),
     (["--arch", "deepseek_7b", "--mole", "embedding"], ValueError,
      "needs a frontend"),
     (["--arch", "no_such_arch"], NotImplementedError, "not ported"),
 ], ids=["rwkv6_3b", "mole_embedding", "unported_arch"])
 def test_train_main_refuses_what_the_port_does_not_train(tmp_path, extra,
                                                           error, match):
-    """RWKV-6 (K6 has no backward), embedding-mode MoLe on a model without
-    a frontend (nothing to morph; the reference asserts), and a name
-    outside the registry."""
+    """Embedding-mode MoLe on a model without a frontend (nothing to morph;
+    the reference asserts), RWKV-6's and an attention LM's, and a name
+    outside the registry.  RWKV-6 itself trains
+    (``test_train_main_rwkv_runs_as_the_reference_train_main``)."""
     with pytest.raises(error, match=match):
         train.main(["--smoke", "--device", "cpu", "--steps", "1",
                     "--ckpt-dir", str(tmp_path), *extra])

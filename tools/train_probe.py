@@ -12,6 +12,7 @@ power limit.
     python3 tools/train_probe.py recurrentgemma_train   # the hybrid, trained
     python3 tools/train_probe.py kernels_k45 vlm_path vlm_train   # the vlm
     python3 tools/train_probe.py whisper_path whisper_train   # whisper_tiny
+    python3 tools/train_probe.py kernels_k6 rwkv_train   # K6's gradient, rwkv6_3b
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -65,7 +66,13 @@ PHASES = {
     "vlm_train": cs.vlm_train,
     "whisper_path": cs.whisper_path,
     "whisper_train": cs.whisper_train,
+    "kernels_k6": lambda dev, kernels: cs.k6_checks(
+        dev, kernels, kernels.ref, REPORT),
+    "rwkv_train": lambda dev, kernels: cs.train_path(
+        dev, kernels, phase="rwkv_train", arch=cs.RWKV_ARCH,
+        peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.RWKV_TRAIN),
 }
+REPORT: dict = {}   # build.build_all()'s report: kernels_k6 prints ptxas's
 
 
 def main() -> None:
@@ -79,7 +86,7 @@ def main() -> None:
     from repro_torch.kernels import build
 
     dev = runtime.resolve_device(None)
-    build.build_all()
+    REPORT.update(build.build_all())
     for phase in phases:
         PHASES[phase](dev, kernels)
         cs.release()
