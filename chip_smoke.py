@@ -235,22 +235,24 @@ printing one JSON line; any failure raises and exits non-zero:
                 (4, 3072, 65536); ragged K5 (7, 33) x (33, 9).  Bound: fp32
                 max|kernel - plain| <= 1e-4 * max|plain|, bf16 two bf16
                 ulps of max|plain|.  Gated: K4 and K5 give the same bits on
-                two calls at their main shapes, fp32 and bf16; K5 fp32's
-                error against a float64 product on the card over the first
-                8,192 columns (``err_vs_fp64``, beside torch.matmul's)
-                within 1e-5 * max|fp64|.  K5 fp32's bound is the split
-                form's, the FFMA bound beside it; bf16 keeps the bf16
+                two calls at their main shapes, fp32 and bf16; K4 and K5
+                fp32's error against a float64 product on the card over the
+                first 8,192 columns (``err_vs_fp64``, beside torch.matmul's)
+                within 1e-5 * max|fp64|.  K4 and K5 fp32's bounds are the
+                split form's, the FFMA bound beside it (K4 in fp32 runs the
+                split-TF32 GEMM, split as ``gemm.tf32_splits`` says; the
+                route and split are printed); bf16 keeps the bf16
                 tensor-core bound.  Times kernel, plain version (in
                 fp32 that is one ``torch.matmul``) and one library call
                 (``torch.matmul`` in the operand dtype: cuBLAS, fp32 with
                 TF32 off, bf16 on the tensor cores) at the VGG-16 shapes,
-                and prints, not gated, K4's fp32 time at each split of K
-                and K5's product run on K4's FFMA kernel beside K5's own
-                (``on_morph_kernel``).  K4 also at vlm_train's and
-                whisper_train's provider morphs, (2048, 7680) x (7680,
-                7680) and (24000, 384) x (384, 384) fp32: against its plain
-                version, a float64 product (1e-5 * max|fp64|) and
-                torch.matmul, with its FFMA bound.
+                and prints, not gated, K5's product run on K4's FFMA
+                kernel beside K5's own (``on_morph_kernel``).  K4 also at
+                vlm_train's and whisper_train's provider morphs, (2048,
+                7680) x (7680, 7680) and (24000, 384) x (384, 384) fp32:
+                against its plain version, a float64 product (1e-5 *
+                max|fp64|) and torch.matmul.  K4's sweep over splits is
+                ``tools/k4_probe.py``'s.
   8. vgg_path   the paper's developer path at VGG-16/CIFAR width (13 convs
                 64..512, 32x32, 10 classes), random weights from a seeded
                 generator on the card: one provider (``DataProvider``,
@@ -279,17 +281,23 @@ printing one JSON line; any failure raises and exits non-zero:
                 and the token recurrence (``ref.wkv6_ref``), in fp32 at 40
                 heads of 64, chunk 128: T = 1024, T = 384 (300 padded),
                 160 heads at T = 128, T = 32 < chunk, and 80 heads at T =
-                4096 (rwkv_train's microbatch); inputs as the
-                reference's wkv6 sweep draws them, s0 nonzero.  Bound: out
-                and final state within 1e-4 * max|plain|.  Gated: two calls
-                at (40, 384) give the same bits.  Times kernel and plain
-                chunked version at (40, 384); no PyTorch call computes the
-                scan (library_ms null).  Prints, not gated: the kernel's
-                form floor (3 BH T D^2 FFMA-pipe instructions), its
-                geometry (G threads per state column, CPT columns per
-                thread, C columns a block) and shared memory, ptxas's
-                registers and spills, its time at T = 32, 128, 384, 1024
-                (BH = 40) and at every block width C.
+                4096 (rwkv_train's microbatch), there also under strong
+                decay (logw = -exp(N + 1), every chunk's product of w
+                underflowing); inputs as the reference's wkv6 sweep draws
+                them, s0 nonzero.  Bound: out and final state within 1e-4 *
+                max|plain|.  Gated: two calls at (40, 384) and at (80,
+                4096) give the same bits.  Prints the form and size
+                ``gemm.scan_form`` took at each shape (the columns form at
+                the prefill's, the time-chunked form at rwkv_train's) and
+                its graph-timed ms.  Times kernel and plain chunked
+                version at (40, 384); no PyTorch call computes the scan
+                (library_ms null).  Prints, not gated: the columns form's
+                floor (3 BH T D^2 FFMA-pipe instructions), its geometry (G
+                threads per state column, CPT columns per thread, C
+                columns a block) and shared memory, ptxas's registers and
+                spills, its time at T = 32, 128, 384, 1024 (BH = 40) and at
+                every block width C.  Sweeps over the chunk length are
+                ``tools/k6_probe.py``'s.
                 K6's times are device times from CUDA graphs of 10 calls
                 (``graph_ms``; the kernel runs shorter than its wrapper's
                 host time), the back-to-back time beside them.
@@ -498,7 +506,9 @@ printing one JSON line; any failure raises and exits non-zero:
      on bf16 tables, its fp32-table numbers beside them under
      ``fp32_tables``; K4's at the vlm and whisper providers' morphs, with
      vlm_train's and whisper_train's launches, beside its own under
-     ``vlm_provider`` and ``whisper_provider``), the card's name and power
+     ``vlm_provider`` and ``whisper_provider``; K6's at rwkv_train's
+     microbatch, graph-timed in its time-chunked form, with rwkv_train's
+     calls, beside its own under ``rwkv_train``), the card's name and power
      limit, and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -597,6 +607,14 @@ RWKV_ARCH, RWKV_PROMPT = "rwkv6_3b", 300
 K6_D, K6_CHUNK = 64, 128
 K6_CASES = [(40, 1024), (40, 384), (160, 128), (40, 32),   # (BH, T)
             (80, 4096)]         # the last: rwkv_train's microbatch
+# K6 at rwkv_train's shape under strong decay: logw = -exp(N + 1), so that
+# every chunk's product of w underflows to 0 in fp32 (the chain carries no
+# start state past a chunk).  At -exp(2 N) the plain chunked form itself
+# departs 9.9e-5 of max|out| from the token recurrence at this T (its
+# cumulative sums of logw), too close to REL_TOL to hold the kernel to it;
+# at -exp(N + 1) it departs 2.7e-5 (both on the CPU, 2 sequences).  The card
+# tests hold the kernel to the recurrence at -exp(2 N).
+K6_STRONG = (80, 4096)
 K6_MAIN = (40, 384)             # the prefill's shape: B = 1, T = 300 padded
 K6_T_SWEEP = (32, 128, 384, 1024)   # K6's time against T at BH = 40
 # K6's gradient (kernels_k6) at one time-mix layer's shape in rwkv_train: a
@@ -1581,14 +1599,16 @@ def k6_checks(dev, kernels, ref, build_report) -> tuple[dict, dict]:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def scan_ops(BH, T):
+    def scan_ops(BH, T, shift=0.0):
         r, k, v = randn(BH, T, K6_D), randn(BH, T, K6_D), randn(BH, T, K6_D)
-        logw = -torch.exp(randn(BH, T, K6_D))
+        logw = -torch.exp(randn(BH, T, K6_D) + shift)
         return r, k, v, logw, randn(BH, K6_D), randn(BH, K6_D, K6_D) * 0.1
 
+    sms = gemm.sm_count(dev)
     timed, per_case = None, {}
-    for BH, T in K6_CASES:
-        ops = scan_ops(BH, T)
+    for BH, T, decay in [*((bh, t, "ordinary") for bh, t in K6_CASES),
+                         (*K6_STRONG, "strong")]:
+        ops = scan_ops(BH, T, 1.0 if decay == "strong" else 0.0)
         got_o, got_s = kernels.wkv6_chunked(*ops, chunk=K6_CHUNK)
         torch.cuda.synchronize()
         chunked = ref.wkv6_chunked_ref(*ops, chunk=K6_CHUNK)
@@ -1599,23 +1619,27 @@ def k6_checks(dev, kernels, ref, build_report) -> tuple[dict, dict]:
             for tag, got, want in (("out", got_o, want_o), ("state", got_s, want_s)):
                 err = float((got - want).abs().max())
                 lim = REL_TOL * float(want.abs().max())
-                case = f"BH{BH}_T{T}/{tag}_vs_{plain}"
+                case = f"BH{BH}_T{T}_{decay}/{tag}_vs_{plain}"
                 checks.append({"case": case, "max_abs_err": err, "limit": lim})
                 check(got.shape == want.shape and got.dtype == torch.float32,
                       f"K6 {case}: got {tuple(got.shape)} {got.dtype}")
                 check(bool(torch.isfinite(got).all()), f"K6 {case}: non-finite")
                 check(err <= lim, f"K6 {case}: |kernel - plain| {err} > {lim}")
                 row["max_abs_err"] = max(row["max_abs_err"], err)
-        if (BH, T) == K6_MAIN:
-            timed = ops
+        form, size = gemm.scan_form(BH, T, K6_D, sms)
+        if (BH, T) in (K6_MAIN, K6_TRAIN) and decay == "ordinary":
             again_o, again_s = kernels.wkv6_chunked(*ops, chunk=K6_CHUNK)
             check(same_bits(got_o, again_o) and same_bits(got_s, again_s),
-                  f"K6 {K6_MAIN}: two calls gave different bits")
-        per_case[f"BH{BH}_T{T}"] = {
+                  f"K6 ({BH}, {T}), {form} {size}: two calls gave different bits")
+            del again_o, again_s
+        if (BH, T) == K6_MAIN:
+            timed = ops
+        per_case[f"BH{BH}_T{T}" + ("_strong" if decay == "strong" else "")] = {
             "ms": graph_ms(lambda: kernels.wkv6_chunked(*ops, chunk=K6_CHUNK),
                            5, 10),
-            "bound_ms": k6_bound(BH, T, K6_D)[0]}
-        del chunked, o, s
+            "bound_ms": k6_bound(BH, T, K6_D)[0],
+            "form": form, "C" if form == "columns" else "L": size}
+        del chunked, o, s, got_o, got_s
     # Timed at the prefill's shape, kernel and plain chunked version in
     # turns: the kernel in CUDA graphs (device time; it runs shorter than
     # its wrapper's host time), and back to back as a caller sees it.  No
@@ -1639,14 +1663,15 @@ def k6_checks(dev, kernels, ref, build_report) -> tuple[dict, dict]:
                                3, 10)
                    for c in gemm.scan_widths(K6_D)}
     G, CPT = gemm.SCAN_SPLIT[K6_D]
-    C = gemm.scan_width(BH, K6_D, gemm.sm_count(dev))
+    C = gemm.scan_width(BH, K6_D, sms)
     ptxas = [ln.strip() for ln in build_report["wkv6"]["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     row.update(ms=(runs[0] + runs[2]) / 2, plain_ms=(runs[1] + runs[3]) / 2,
                library_ms=None, bound_ms=b, bound_by=by,
                form_floor_ms=k6_form_floor_ms(BH, T, K6_D), eager_ms=eager,
                timed_shape=f"r/k/v/logw ({BH}, {T}, {K6_D}) fp32, chunk {K6_CHUNK}",
-               geometry={"G": G, "CPT": CPT, "C": C,
+               geometry={"form": gemm.scan_form(BH, T, K6_D, sms), "G": G,
+                         "CPT": CPT, "C": C,
                          "blocks": BH * -(-K6_D // C),
                          "consumer_threads": C // CPT * G,
                          "smem_bytes": gemm.scan_smem_bytes(K6_D)},
@@ -3189,6 +3214,22 @@ def features_path(dev, core, runtime, kernels, ref) -> dict:
 
 # -- phase 7 ------------------------------------------------------------------
 
+def k4_split_form(gemm, dev, M: int, q: int, x, core, got=None) -> dict:
+    """An fp32 K4 row's split-TF32 readings at ``x (M, q) @ core (q, q)``:
+    the bound of the split form (3 x flops of TF32, or the bytes) with the
+    FFMA bound beside it, the split the rule took, and the kernel and
+    ``torch.matmul`` against a float64 product (gated: ``err_vs_fp64``)."""
+    from repro_torch.kernels import block_diag_matmul
+
+    if got is None:
+        got = block_diag_matmul(x, core, 1)
+    return {**split_tf32_bound(4 * (2 * M * q + q * q), 2 * M * q * q),
+            "splits": gemm.tf32_splits(1, M, q, q, gemm.sm_count(dev)),
+            "err_vs_fp64": err_vs_fp64("block_diag_matmul", x.view(1, M, q),
+                                       core[None], got.view(1, M, q),
+                                       torch.matmul(x.view(M, q), core)[None])}
+
+
 def k45_checks(dev, kernels, ref) -> dict:
     """K4 and K5 vs their plain versions in fp32 and bf16 at the VGG-16
     shapes, the benchmark shapes and ragged ones; returns their error and
@@ -3254,14 +3295,14 @@ def k45_checks(dev, kernels, ref) -> dict:
                       f"block_diag_matmul {dtype}: two calls on the same inputs differ")
                 row["deterministic"] = True
                 del first, second
+                row["route"] = gemm.morph_route(dtype, 1, R * kappa, q, q)
                 if dtype == torch.float32:
                     row["plain_is"] = "one torch.matmul (fp32, TF32 off)"
-                    row["splits"] = gemm.morph_splits(1, R * kappa, q, q,
-                                                      gemm.sm_count(dev))
-                    row["split_sweep_ms"] = split_sweep(
-                        gemm, "block_diag_matmul", xv[None], None, core[None])
+                    row.update(k4_split_form(gemm, dev, R * kappa, q, xv, core))
                     rows["block_diag_matmul"].update(row)
                 else:
+                    row["splits"] = gemm.morph_splits(1, R * kappa, q, q,
+                                                      gemm.sm_count(dev))
                     rows["block_diag_matmul"]["bf16"] = row
     G, Bg, F = K4_BATCHED
     x32, cores32 = randn(G, Bg, F), randn(G, F, F, scale=F ** -0.5)
@@ -3291,12 +3332,10 @@ def k45_checks(dev, kernels, ref) -> dict:
               f"block_diag_matmul at the {tag} shape: two calls differ")
         row.update(
             timed_shape=f"x({R},{kappa * q}) core({q},{q}) kappa={kappa}",
-            deterministic=True,
+            deterministic=True, route=gemm.morph_route(x.dtype, 1, R * kappa, q, q),
             max_abs_err=float((got - ref.block_diag_matmul_ref(
                 x, core, kappa)).abs().max()),
-            splits=gemm.morph_splits(1, R * kappa, q, q, gemm.sm_count(dev)),
-            err_vs_fp64=err_vs_fp64("block_diag_matmul", x[None], core[None],
-                                    got[None], torch.matmul(x, core)[None]))
+            **k4_split_form(gemm, dev, R * kappa, q, x, core, got))
         rows["block_diag_matmul"][tag] = row
         del x, core, got
         torch.cuda.empty_cache()
@@ -3601,7 +3640,7 @@ def train_path(dev, kernels, *, phase: str = "train_path",
         metrics.append(m)
 
     prof = step_profile(profiled, p50, track=(
-        ("wkv6_columns", "wkv6_rows") if cfg.rwkv is not None else ()))
+        ("wkv6_columns", "wkv6_chunks", "wkv6_rows") if cfg.rwkv is not None else ()))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_limit_gb is not None:
         check(peak_gb <= peak_limit_gb,
@@ -4977,7 +5016,9 @@ def main() -> None:
                                       "src/repro/kernels/grouped.py:80"),
         "grouped_aug_gemm": ("aug_gemm.cu", "src/repro/kernels/grouped.py:157"),
         "grouped_row_gemm": ("row_gemm.cu", "src/repro/kernels/grouped.py:206"),
-        "block_diag_matmul": ("morph_gemm.cu",
+        # K4 in fp32 (every main path's) on the split-TF32 GEMM; in bf16
+        # and small fp32 products on morph_gemm.cu (gemm.morph_route).
+        "block_diag_matmul": ("aug_gemm.cu",
                               "src/repro/kernels/block_diag.py:45"),
         "aug_gemm": ("aug_gemm.cu", "src/repro/kernels/aug_gemm.py:41"),
         "wkv6_chunked": ("wkv6.cu", "src/repro/kernels/wkv6.py:71"),
@@ -5010,6 +5051,15 @@ def main() -> None:
         k4[tag] = dict(
             {k: row[k] for k in keys + ("max_abs_err", "timed_shape")},
             launches=run["launches"]["block_diag_matmul"])
+    # K6's figures are at the prefill's shape (the columns form); at
+    # rwkv_train's microbatch (the time-chunked form) they stand beside them,
+    # graph-timed, with rwkv_train's calls.
+    k6 = line[list(kernel_rows).index("wkv6_chunked")]
+    train_case = rows["wkv6_chunked"]["per_case"]["BH{}_T{}".format(*K6_TRAIN)]
+    k6["rwkv_train"] = dict(train_case, bound_by=k6_bound(*K6_TRAIN, K6_D)[1],
+                            launches=rwkv_train["launches"]["wkv6_chunked"],
+                            timed_shape="r/k/v/logw ({}, {}, {}) fp32".format(
+                                *K6_TRAIN, K6_D))
     emit({"kernels": line})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -4,15 +4,23 @@ Replaces the Pallas kernel ``block_diag_matmul``
 (``repro/kernels/block_diag.py:45``): ``y = x @ blockdiag(core x kappa)``
 without materialising the block-diagonal matrix.  ``x (R, kappa*q)`` viewed
 as ``(R*kappa, q)`` times the ``(q, q)`` core is that product, so
-:func:`block_diag_matmul` launches the morph kernel (:func:`.gemm.morph`,
-the ``morph_gemm_typed`` entry point of ``csrc/morph_gemm.cu``, K1's
-kernel) on that view with one group (or, for ``x (G, B, kappa*q)`` and
-``cores (G, q, q)``, one core per group: the reference's ``vmap`` over the
-group axis as a grid axis).  The sum over q is split into slices by
-:func:`.gemm.morph_splits` so that the narrow product fills the card.  fp32
-or bf16 operands of one dtype, fp32 accumulation, each output rounded once
-to the operand dtype; every ragged edge is masked, so any shape runs (no
-tileability route).
+:func:`block_diag_matmul` runs one GEMM on that view with one group (or,
+for ``x (G, B, kappa*q)`` and ``cores (G, q, q)``, one core per group: the
+reference's ``vmap`` over the group axis as a grid axis).  The kernel is
+:func:`.gemm.morph_route`'s for the dtype:
+
+  * fp32 (all the main paths' shapes): the split-TF32 GEMM of
+    ``csrc/aug_gemm.cu`` (K5's, entry point ``aug_sgemm_split``,
+    :func:`.gemm.morph_tf32`): each operand a sum of two TF32 values, three
+    passes on the tensor cores, a fresh accumulator per 32 k added in fp32;
+    the sum over q split into slices by :func:`.gemm.tf32_splits` where the
+    output tiles leave SMs idle;
+  * bf16, and fp32 products too small for the split form to pay: the FFMA
+    morph kernel (``morph_gemm_typed`` of ``csrc/morph_gemm.cu``, K1's
+    kernel, :func:`.gemm.morph`), split by :func:`.gemm.morph_splits`.
+
+fp32 accumulation, each output rounded once to the operand dtype; every
+ragged edge is masked, so any shape runs (no tileability route).
 
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref.py``.
@@ -55,8 +63,11 @@ def block_diag_matmul(
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
     G = x.shape[0] if batched else 1
-    a = x.view(G, -1, q)
-    out = gemm.morph(name, a, None, core.view(G, q, q))
+    a, b = x.view(G, -1, q), core.view(G, q, q)
+    if gemm.morph_route(x.dtype, *a.shape, q) == "tf32":
+        out = gemm.morph_tf32(name, a, b)
+    else:
+        out = gemm.morph(name, a, None, b)
     block_diag_matmul.launches += 1
     return out.view_as(x)
 

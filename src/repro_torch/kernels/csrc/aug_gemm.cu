@@ -1,12 +1,12 @@
-// Aug-Conv GEMM: MoLe's wide Aug-Conv products K2 and K5 on Hopper's tensor
-// cores (sm_90a).
+// Aug-Conv GEMM: MoLe's wide Aug-Conv products K2 and K5, and the morph K4
+// in fp32, on Hopper's tensor cores (sm_90a).
 //
 //   out[g] = a[g] @ b[slot(g)],  slot(g) = clamp(gidx[g], 0, S - 1), or g
 //                                when gidx is null
 //   a (G, M, K), b (S, K, N), out (G, M, N), gidx (G,) int32 or null;
 //   row-major and contiguous; a, b and out of one element type T.
 //
-// Replaces two TPU kernels of the reference, through two entry points:
+// Replaces three TPU kernels of the reference, through three entry points:
 //   * grouped_aug_gemm (src/repro/kernels/grouped.py:157), K2:
 //     aug_sgemm_grouped, fp32, slot-indexed.  a = t (G, B, K), b = the
 //     stacked Aug-Conv matrices c_acs (S, K, N).  Each block reads its own
@@ -15,6 +15,16 @@
 //   * aug_gemm (src/repro/kernels/aug_gemm.py:41), K5: aug_gemm_typed, gidx
 //     null (slot = group index), fp32 or bf16: the developer's T @ C^{ac},
 //     or t (G, B, K) @ c_acs (G, K, N).
+//   * block_diag_matmul (src/repro/kernels/block_diag.py:45), K4 in fp32:
+//     aug_sgemm_split, gidx null, fp32 only: x (R, kappa q) viewed as
+//     (R kappa, q) @ the core (q, q), the provider's morph.  Its sum over K
+//     may be split into slices (below).  K4 takes this route where its
+//     product is large enough (kernels/gemm.py morph_route): the split form
+//     reaches the tensor cores' 495 TFLOP/s of TF32 where the FFMA loop of
+//     morph_gemm.cu tops out at 67 TFLOP/s of fp32, and cuBLAS's fp32 SGEMM
+//     already ran at 73% of that.  K4 in bf16, and fp32 morphs too small to
+//     pay for this route's split pass and extra launch, stay on
+//     morph_gemm.cu.
 //
 // The arithmetic.  The reference sums fp32 products in fp32.  One TF32
 // tensor-core pass keeps about three decimal digits (3e-4 of max|out| at
@@ -46,7 +56,15 @@
 //      against 3.291 GB (each group's own 805 MB C^{ac}, read once),
 //      0.982 ms: bound by bytes.
 //
-// Design, fp32: two launches, split_t_kernel then sgemm_kernel.
+// K4 at its main-path shapes (fp32; 3 x its flops of TF32 at 495 TFLOP/s):
+//   vlm provider (2048, 7680) @ (7680, 7680): 3 x 241.6 GFLOP, 1.464 ms,
+//      against 0.36 GB, 0.11 ms: bound by operations.
+//   VGG-16 (256, 3072) @ (3072, 3072): 3 x 4.83 GFLOP, 0.029 ms.
+//   whisper (24000, 384) @ (384, 384): 3 x 7.08 GFLOP, 0.043 ms, against
+//      74 MB, 0.022 ms.
+//
+// Design, fp32: two launches, split_t_kernel then sgemm_kernel (K4: a third
+// where K is split).
 //   * The MMA: wgmma in the swapped form out^T = C^{ac}^T T^T.  wgmma takes
 //     tf32 operands from shared memory only K-major, and C^{ac} (K, N) is
 //     N-major, so C^{ac}^T is wgmma's A operand, from registers: each
@@ -73,6 +91,19 @@
 //     have released it (an mbarrier per slot).  Apart from that the
 //     warpgroups run their stages on their own, so one's wgmmas can keep
 //     the tensor cores busy while the other adds its stage sum.
+//   * Grid order: rows fastest, so that the row tiles of a column tile run
+//     side by side and share its C^{ac} tile through L2; columns fastest
+//     where one group's C^{ac} fits in COLS_FASTEST_BYTES (whisper's K4: a
+//     0.6 MB core against 74 MB of split frames, read once instead of
+//     three times).
+//   * Split K (K4's narrow outputs: VGG-16's 48 tiles on 132 SMs): slice j
+//     of `splits` runs stages [j kt_slice, (j + 1) kt_slice) into an fp32
+//     partial (splits, G, M, N) that the caller allocates, and
+//     split_reduce_kernel adds the slices in the fixed order 0 .. splits -
+//     1: no atomics, the same bits on every call.  It is a programmatic
+//     dependent launch, so its launch overlaps the GEMM's tail.  The rule
+//     (kernels/gemm.py tf32_splits) takes one slice where the tiles give
+//     every SM one: the vlm provider's 960 and whisper's 564.
 // Design, bf16 (hgemm_kernel): mma.sync m16n8k16 from ldmatrix fragments
 // (ldmatrix.trans for the N-major b), warps of 64 x 32, cp.async stages of
 // 64 k; it is K5's bf16 form only, off every main path.
@@ -80,9 +111,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
+
+constexpr int REDUCE_THREADS = 256;
 
 // 16-byte asynchronous copy global -> shared; `in` false zero-fills the
 // destination and reads nothing (src is then any valid address).
@@ -338,11 +372,17 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
         "@!done bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
 }
 
+// Block (x, y, z): a row tile and a column tile (rows fastest, or columns
+// fastest where `cols_fastest`), group g = z % G and slice z / G of the
+// stages: slice j sums stages [j * kt_slice, min(ktiles, (j + 1) * kt_slice))
+// and, with partial non-null, writes its fp32 sums to partial (slices, G, M,
+// N) for split_reduce_kernel; with partial null (one slice) to out.
 template <int NR>
 __global__ void __launch_bounds__(256, 1)
 sgemm_kernel(const float* __restrict__ ws, const int* __restrict__ gidx,
-             const float* __restrict__ b, float* __restrict__ out, int M,
-             int N, int K, int S, int m_pad) {
+             const float* __restrict__ b, float* __restrict__ out,
+             float* __restrict__ partial, int G, int M, int N, int K, int S,
+             int m_pad, int kt_slice, int cols_fastest) {
     using W = SgemmTile<NR>;
     constexpr int BK = W::BK, STAGES = W::STAGES, C_LD = W::C_LD;
     // [STAGES][T hi, T lo, C^{ac} half tiles of warpgroups 0 and 1], then
@@ -353,17 +393,21 @@ sgemm_kernel(const float* __restrict__ ws, const int* __restrict__ gidx,
     uint64_t* const full = reinterpret_cast<uint64_t*>(smem_f + STAGES * W::STAGE_FLOATS);
     uint64_t* const empty = full + STAGES;
 
-    const int g = blockIdx.z;
-    const int row0 = blockIdx.x * NR;
+    const int g = blockIdx.z % G, slice = blockIdx.z / G;
+    const int row0 = (cols_fastest ? blockIdx.y : blockIdx.x) * NR;
     const int tid = threadIdx.x;
     // Warpgroup wg owns C^{ac} columns col0 + [0, 64); within it, warp v
     // the wgmma rows 16 v + [0, 16); lane (q, tq) = (lane / 4, lane % 4).
     const int wg = tid >> 7, wtid = tid & 127;
     const int v = wtid >> 5, q = (tid & 31) >> 2, tq = tid & 3;
-    const int col0 = blockIdx.y * W::BN + 64 * wg;
+    const int col0 = (cols_fastest ? blockIdx.x : blockIdx.y) * W::BN + 64 * wg;
     const float* B = b + (size_t)clamp_slot(gidx, g, S) * K * N;
     const bool b_vec = aligned(b, 16) && N % 4 == 0;
-    const int ktiles = (K + BK - 1) / BK;
+    // This slice's stages t0 + [0, ktiles) of the group's kt_all; the
+    // wrapper leaves no slice empty.
+    const int kt_all = (K + BK - 1) / BK;
+    const int t0 = slice * kt_slice;
+    const int ktiles = min(kt_all, t0 + kt_slice) - t0;
     auto c_tile = [&](int s) { return t_tile(s) + 2 * W::T_FLOATS + wg * W::C_FLOATS; };
 
     if (tid == 0) {
@@ -375,19 +419,21 @@ sgemm_kernel(const float* __restrict__ ws, const int* __restrict__ gidx,
     }
     __syncthreads();
 
-    // The warpgroup's half of stage t's C^{ac} tile, by its own cp.async.
+    // The warpgroup's half of the slice's stage t's C^{ac} tile, by its
+    // own cp.async.
     auto load_c = [&](int t) {
-        load_tile<float, BK, 64, 128>(c_tile(t % STAGES), C_LD, B, K, N, t * BK, col0,
-                                      b_vec, wtid);
+        load_tile<float, BK, 64, 128>(c_tile(t % STAGES), C_LD, B, K, N, (t0 + t) * BK,
+                                      col0, b_vec, wtid);
     };
-    // Stage t's split T tiles, one bulk copy each (the async proxy, which
-    // wgmma reads), counted on full[t % STAGES]; by thread 0.
+    // The slice's stage t's split T tiles, one bulk copy each (the async
+    // proxy, which wgmma reads), counted on full[t % STAGES]; by thread 0.
     auto load_t = [&](int t) {
         const int s = t % STAGES;
         const unsigned bar = smem_addr(full + s);
         asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                      :: "r"(bar), "r"(2 * W::T_BYTES) : "memory");
-        const float* src = ws + ((size_t)g * ktiles + t) * 2 * m_pad * 32 + (size_t)row0 * 32;
+        const float* src = ws + ((size_t)g * kt_all + t0 + t) * 2 * m_pad * 32
+                           + (size_t)row0 * 32;
 #pragma unroll
         for (int h = 0; h < 2; ++h)
             asm volatile(
@@ -475,7 +521,8 @@ sgemm_kernel(const float* __restrict__ ws, const int* __restrict__ gidx,
     // acc[4j + e] is out^T (col, row): col = 16 v + q (+ 8 for e >= 2) of
     // the half tile, row = 8 j + 2 tq (+ 1 for odd e).  A warp's store
     // covers four rows of eight consecutive floats: whole 32-byte sectors.
-    float* C = out + (size_t)g * M * N;
+    float* C = (partial != nullptr ? partial + (size_t)slice * G * M * N : out)
+               + (size_t)g * M * N;
     const int c_lo = col0 + 16 * v + q, c_hi = c_lo + 8;
 #pragma unroll
     for (int j = 0; j < NR / 8; ++j) {
@@ -651,12 +698,58 @@ cudaError_t opt_in(Kernel kernel, int bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// out[i] = part[0][i] + part[1][i] + ... + part[splits-1][i], in that order;
+// four consecutive outputs per thread (16-byte loads of each slice) when n
+// is a multiple of 4, else one.  Launched as a programmatic dependent of the
+// GEMM: it may start while the GEMM drains, and waits here until the GEMM
+// has finished and its stores are visible.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+split_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, size_t n,
+                    int splits) {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    const size_t stride = (size_t)gridDim.x * REDUCE_THREADS;
+    const size_t first = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+    if (n % 4 == 0) {
+        const float4* w = reinterpret_cast<const float4*>(part);
+        float4* o = reinterpret_cast<float4*>(out);
+        for (size_t i = first; i < n / 4; i += stride) {
+            float4 s = w[i];
+            for (int j = 1; j < splits; ++j) {
+                const float4 x = w[j * (n / 4) + i];
+                s = make_float4(s.x + x.x, s.y + x.y, s.z + x.z, s.w + x.w);
+            }
+            o[i] = s;
+        }
+    } else {
+        for (size_t i = first; i < n; i += stride) {
+            float s = part[i];
+            for (int j = 1; j < splits; ++j) s += part[j * n + i];
+            out[i] = s;
+        }
+    }
+}
+
+// Columns fastest where one group's C^{ac} is at most this many bytes, so
+// that it stays in L2 while the column tiles of a row tile, adjacent in the
+// grid, share that row tile's split T (whisper's K4: a 0.6 MB core against
+// 74 MB of split frames).  Else rows fastest: the row tiles of a column
+// tile run side by side and share its C^{ac} tile (K5: an 805 MB C^{ac}).
+constexpr size_t COLS_FASTEST_BYTES = size_t(8) << 20;
+
+// The fp32 GEMM in `splits` slices of K (part: splits * G * M * N floats
+// where splits > 1): split_t_kernel, sgemm_kernel, and split_reduce_kernel
+// where splits > 1.
 template <int NR>
 cudaError_t launch_sgemm(const float* a, const int* gidx, const float* b, float* out,
-                         float* ws, int G, int M, int N, int K, int S, cudaStream_t st) {
+                         float* ws, float* part, int G, int M, int N, int K, int S,
+                         int splits, cudaStream_t st) {
     using W = SgemmTile<NR>;
     const int m_pad = (M + NR - 1) / NR * NR;   // split_floats' rows
     const int ktiles = (K + W::BK - 1) / W::BK;
+    const int kt_slice = (ktiles + splits - 1) / splits;
+    if (splits < 1 || (splits - 1) * kt_slice >= ktiles || (size_t)G * splits > 65535
+            || (splits > 1 && part == nullptr))
+        return cudaErrorInvalidValue;
     const size_t chunks = (size_t)G * ktiles * m_pad * 8;
     split_t_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, st>>>(
         a, ws, M, K, m_pad, ktiles, chunks);
@@ -664,9 +757,29 @@ cudaError_t launch_sgemm(const float* a, const int* gidx, const float* b, float*
     if (err != cudaSuccess) return err;
     err = opt_in(sgemm_kernel<NR>, W::SMEM);
     if (err != cudaSuccess) return err;
-    // Row blocks fastest: the row blocks of one column tile run side by side.
-    const dim3 grid(m_pad / NR, (N + W::BN - 1) / W::BN, G);
-    sgemm_kernel<NR><<<grid, W::THREADS, W::SMEM, st>>>(ws, gidx, b, out, M, N, K, S, m_pad);
+    const int rows = m_pad / NR, cols = (N + W::BN - 1) / W::BN;
+    const int cols_fastest = (size_t)K * N * sizeof(float) <= COLS_FASTEST_BYTES;
+    const dim3 grid(cols_fastest ? cols : rows, cols_fastest ? rows : cols, G * splits);
+    sgemm_kernel<NR><<<grid, W::THREADS, W::SMEM, st>>>(
+        ws, gidx, b, out, splits > 1 ? part : nullptr, G, M, N, K, S, m_pad, kt_slice,
+        cols_fastest);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return err;
+    const size_t n = (size_t)G * M * N;
+    const size_t items = n % 4 == 0 ? n / 4 : n;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(
+        std::min<size_t>((items + REDUCE_THREADS - 1) / REDUCE_THREADS, 8192)));
+    cfg.blockDim = dim3(REDUCE_THREADS);
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, split_reduce_kernel, static_cast<const float*>(part), out,
+                             n, splits);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
@@ -682,7 +795,8 @@ cudaError_t launch_hgemm(const __nv_bfloat16* a, const __nv_bfloat16* b,
 }
 
 int launch_f32(const void* a, const void* gidx, const void* b, void* out, void* ws,
-               int G, int M, int N, int K, int S, int device, void* stream) {
+               void* part, int G, int M, int N, int K, int S, int splits, int device,
+               void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto* fa = static_cast<const float*>(a);
@@ -690,9 +804,11 @@ int launch_f32(const void* a, const void* gidx, const void* b, void* out, void* 
     const auto* fb = static_cast<const float*>(b);
     auto* fo = static_cast<float*>(out);
     auto* fw = static_cast<float*>(ws);
+    auto* fp = static_cast<float*>(part);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    err = row_tile(M) == 128 ? launch_sgemm<128>(fa, ig, fb, fo, fw, G, M, N, K, S, st)
-                             : launch_sgemm<64>(fa, ig, fb, fo, fw, G, M, N, K, S, st);
+    err = row_tile(M) == 128
+              ? launch_sgemm<128>(fa, ig, fb, fo, fw, fp, G, M, N, K, S, splits, st)
+              : launch_sgemm<64>(fa, ig, fb, fo, fw, fp, G, M, N, K, S, splits, st);
     return static_cast<int>(err);
 }
 
@@ -714,7 +830,7 @@ extern "C" size_t aug_workspace_floats(int G, int M, int K) {
 extern "C" int aug_sgemm_grouped(const void* a, const void* gidx, const void* b,
                                  void* out, void* ws, int G, int M, int N, int K,
                                  int S, int device, void* stream) {
-    return launch_f32(a, gidx, b, out, ws, G, M, N, K, S, device, stream);
+    return launch_f32(a, gidx, b, out, ws, nullptr, G, M, N, K, S, 1, device, stream);
 }
 
 // K5: one matrix per group (b has G slots, slot = group index); fp32 or
@@ -722,7 +838,8 @@ extern "C" int aug_sgemm_grouped(const void* a, const void* gidx, const void* b,
 extern "C" int aug_gemm_typed(const void* a, const void* b, void* out, void* ws,
                               int G, int M, int N, int K, int bf16, int device,
                               void* stream) {
-    if (!bf16) return launch_f32(a, nullptr, b, out, ws, G, M, N, K, G, device, stream);
+    if (!bf16)
+        return launch_f32(a, nullptr, b, out, ws, nullptr, G, M, N, K, G, 1, device, stream);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto* ha = static_cast<const __nv_bfloat16*>(a);
@@ -732,6 +849,17 @@ extern "C" int aug_gemm_typed(const void* a, const void* b, void* out, void* ws,
     err = M > 64 ? launch_hgemm<Wide>(ha, hb, ho, G, M, N, K, st)
                  : launch_hgemm<Narrow>(ha, hb, ho, G, M, N, K, st);
     return static_cast<int>(err);
+}
+
+// K4 in fp32: one matrix per group (b has G slots), its sum over K in
+// `splits` slices of ceil(ceil(K / 32) / splits) stages, none empty (the
+// caller's rule, kernels/gemm.py tf32_splits), added in slice order by a
+// third launch into out; part holds splits * G * M * N floats where splits
+// > 1 (ignored, may be null, for one slice).
+extern "C" int aug_sgemm_split(const void* a, const void* b, void* out, void* ws,
+                               void* part, int G, int M, int N, int K, int splits,
+                               int device, void* stream) {
+    return launch_f32(a, nullptr, b, out, ws, part, G, M, N, K, G, splits, device, stream);
 }
 
 extern "C" const char* aug_gemm_error_string(int code) {

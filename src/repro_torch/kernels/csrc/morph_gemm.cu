@@ -1,4 +1,5 @@
-// Morph GEMM: MoLe's narrow, deep morph products K1 and K4 (sm_90a).
+// Morph GEMM: MoLe's narrow, deep morph products K1 and K4 in bf16 or small
+// fp32 (sm_90a), on the fp32 FFMA pipe.
 //
 //   out[g] = a[g] @ b[slot(g)],  slot(g) = clamp(gidx[g], 0, S - 1), or g
 //                                when gidx is null
@@ -11,20 +12,25 @@
 //     (G, B*kappa, q), b = the stacked cores (S, q, q): reshape(x[g], (B,
 //     kappa, q)) @ core is that product.  Each block reads its own gidx[g]
 //     and clamps it (memory safety: a slot past S-1 reads out of bounds).
+//     K1 keeps this route for now; aug_gemm.cu's split-TF32 GEMM is the
+//     candidate, as it is for K4.
 //   * block_diag_matmul (src/repro/kernels/block_diag.py:45), K4:
-//     morph_gemm_typed, gidx null (slot = group index), fp32 or bf16.
-//     bf16 is converted to fp32 when read from shared memory, the products
-//     are fp32 FFMA into fp32 sums, and each output is rounded to T once
-//     (__float2bfloat16_rn), as einsum(..., preferred_element_type=f32)
-//     .astype(bf16) in the reference.
+//     morph_gemm_typed, gidx null (slot = group index), bf16, and fp32
+//     products under 3 GFLOP (kernels/gemm.py morph_route): larger fp32
+//     morphs, every main path's, run on aug_gemm.cu's split-TF32 GEMM
+//     (aug_sgemm_split), whose tensor cores outrun this loop's 67 TFLOP/s
+//     ceiling; below that size its split pass and extra launch cost more
+//     than they save.  bf16 is converted to fp32 when read from shared
+//     memory, the products are fp32 FFMA into fp32 sums, and each output is
+//     rounded to T once (__float2bfloat16_rn), as einsum(...,
+//     preferred_element_type=f32).astype(bf16) in the reference.
 //
-// What bounds it on an H100.  At the main-path shapes (K4: x (256, 3072) @
-// core (3072, 3072); K1: x (4, 64, 3072) @ 4 cores (3072, 3072)), q = K = N
-// = 3072 and 256 rows in all: 4.83 GFLOP of fp32 FFMA (0.072 ms at 67
-// TFLOP/s, TF32 off as the reference accumulates in fp32), against 38 MB
-// (K4) or 151 MB (K1: four cores, more than the 50 MB L2; 0.045 ms) of
-// reads.  Both are bound by FFMA issue, provided the card is full and K1's
-// core reads stay in flight while the FMAs run.  The output is narrow (96
+// What bounds it on an H100.  At K1's main-path shape (x (4, 64, 3072) @ 4
+// cores (3072, 3072)), q = K = N = 3072 and 256 rows in all: 4.83 GFLOP of
+// fp32 FFMA (0.072 ms at 67 TFLOP/s, TF32 off as the reference accumulates
+// in fp32), against 151 MB of reads (four cores, more than the 50 MB L2;
+// 0.045 ms): bound by FFMA issue, provided the card is full and the core
+// reads stay in flight while the FMAs run.  The output is narrow (96
 // tiles of 64 x 128) and the reduction long, so tiles alone leave most SMs
 // idle: a plain tiled FFMA GEMM (64 x 128 tiles, 96 blocks of 4 warps) ran
 // at 27% of the FFMA peak here.

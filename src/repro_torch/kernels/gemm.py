@@ -5,16 +5,21 @@ wrappers share.
 (fp32 in split TF32, bf16 in one bf16 pass): ``aug_sgemm_grouped`` (K2,
 slot-indexed, fp32; :mod:`.grouped`) and ``aug_gemm_typed`` (K5 in
 :mod:`.aug_gemm`: one matrix per group, fp32 or bf16), both bound through
-:func:`aug`.  ``csrc/morph_gemm.cu`` serves the morph, narrow and deep:
-``morph_sgemm`` (K1, slot-indexed, fp32; :mod:`.grouped`) and
-``morph_gemm_typed`` (K4 in :mod:`.block_diag`, fp32 or bf16), its sum over
-K split into slices by :func:`morph_splits`.  ``csrc/row_gemm.cu`` has
-``row_gemm`` (K3; :mod:`.grouped`: fp32 or bf16 h against fp32 or bf16
+:func:`aug`; and ``aug_sgemm_split`` (K4 in fp32, :mod:`.block_diag`), its
+sum over K split into slices by :func:`tf32_splits`, bound through
+:func:`morph_tf32`.  ``csrc/morph_gemm.cu`` serves the morph on the FFMA
+pipe: ``morph_sgemm`` (K1, slot-indexed, fp32; :mod:`.grouped`) and
+``morph_gemm_typed`` (K4 in bf16 and in small fp32 products,
+:func:`morph_route`), its sum over K split into slices by
+:func:`morph_splits`, bound through :func:`morph`.  ``csrc/row_gemm.cu``
+has ``row_gemm`` (K3; :mod:`.grouped`: fp32 or bf16 h against fp32 or bf16
 tables), its work split into column strips and per-warp slices of K by
 :func:`row_splits`.
-``csrc/wkv6.cu`` has ``wkv6_chunked`` (K6, the RWKV-6 scan as a
-state-column recurrence; :mod:`.wkv6`), its block width chosen by
-:func:`scan_width`; ``csrc/wkv6_rows.cu`` has ``wkv6_rows`` (the key-row
+``csrc/wkv6.cu`` has K6, the RWKV-6 scan (:mod:`.wkv6`), in two forms that
+:func:`scan_form` picks from: ``wkv6_chunked``, a state-column recurrence in
+blocks of :func:`scan_width` columns, and ``wkv6_time_chunks``, the same
+recurrence in chunks of time run in parallel and chained; both bound
+through :func:`scan`.  ``csrc/wkv6_rows.cu`` has ``wkv6_rows`` (the key-row
 scan of K6's gradient; :mod:`.wkv6`), bound through :func:`key_rows`.
 Each wrapper counts its own launches; this module
 counts none.  The libraries are built at first use (:mod:`.build`); nothing
@@ -29,10 +34,12 @@ import torch
 
 from . import build
 
-__all__ = ["MAX_GRID_YZ", "MORPH_BK", "check_operands", "aug",
-           "aug_workspace_floats", "morph", "morph_splits", "sm_count", "rows",
-           "row_splits", "scan", "scan_smem_bytes", "scan_width",
-           "scan_widths", "SCAN_SPLIT", "key_rows"]
+__all__ = ["MAX_GRID_YZ", "MORPH_BK", "TF32_BK", "check_operands", "aug",
+           "aug_workspace_floats", "morph", "morph_route", "morph_splits",
+           "morph_tf32", "tf32_splits", "sm_count", "rows", "row_splits",
+           "scan", "scan_form", "scan_smem_bytes", "scan_sync_words",
+           "scan_width", "scan_widths",
+           "SCAN_SPLIT", "SCAN_CHUNKS", "key_rows"]
 
 MAX_GRID_YZ = 65535
 _BM = 64            # rows per block in morph_gemm.cu, at least in aug_gemm.cu
@@ -43,6 +50,15 @@ _MORPH_RESIDENT = 3     # morph_gemm.cu blocks that fit one SM (launch bounds)
 _MORPH_MIN_SLICE = 8    # k-steps per slice at least
 _MORPH_FILL = 2         # k-steps a block spends filling its pipeline (STAGES - 1)
 _MORPH_MAX_SPLITS = 16
+# aug_gemm.cu's fp32 GEMM (split TF32), K4's fp32 route through
+# aug_sgemm_split: k per stage, row tile by M, one block per SM; the modelled
+# stages a block spends filling its pipeline, and the stages' worth of time
+# that one slice's partial tile costs (written by the GEMM, read by the sum).
+TF32_BK = 32
+_TF32_FILL = 2
+_TF32_PART = 2
+_TF32_MAX_SPLITS = 16
+_TF32_MIN_FLOP = 3e9            # morph_route: smaller fp32 products on FFMA
 # row_gemm.cu (K3): a block of _ROW_WARPS warps takes one row and one strip
 # of _ROW_STRIP_BYTES of each table row; its warps split K into slices of
 # whole batches of _ROW_U table rows.
@@ -54,6 +70,12 @@ _ROW_U = 4
 # block at most.
 SCAN_SPLIT = {16: (4, 1), 64: (16, 4)}
 _SCAN_MAX_THREADS = 256
+# wkv6.cu's time-chunked form: the chunk lengths scan_form picks from (it
+# takes whole tiles of 16 tokens, at most 256); scan_form's thresholds.
+SCAN_CHUNKS = (32, 64, 128, 256)
+_SCAN_CHUNK_MIN_WARPS = 2       # columns-form consumer warps an SM
+_SCAN_CHUNK_MIN_WAVES = 8       # chunk blocks per SM
+_SCAN_CHUNK_MAX = 64            # longer chunks measured slower
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
@@ -63,6 +85,8 @@ _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
     "aug_sgemm_grouped": ("aug_gemm", [_P] * 5 + [_I] * 6 + [_P]),
     # a, b, out, ws, G, M, N, K, bf16, device, stream
     "aug_gemm_typed": ("aug_gemm", [_P] * 4 + [_I] * 6 + [_P]),
+    # a, b, out, ws, part, G, M, N, K, splits, device, stream
+    "aug_sgemm_split": ("aug_gemm", [_P] * 5 + [_I] * 6 + [_P]),
     # a, gidx, b, out, ws, G, M, N, K, S, splits, kslice, device, stream
     "morph_sgemm": ("morph_gemm", [_P] * 5 + [_I] * 8 + [_P]),
     # a, b, out, ws, G, M, N, K, bf16, splits, kslice, device, stream
@@ -72,6 +96,11 @@ _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
     "row_gemm": ("row_gemm", [_P] * 4 + [_I] * 8 + [_P]),
     # r, k, v, logw, u, s0, out, s_out, BH, T, D, C, device, stream
     "wkv6_chunked": ("wkv6", [_P] * 8 + [_I] * 5 + [_P]),
+    # r, k, v, logw, u, s0, out, s_out, states, sync, BH, T, D, L, device,
+    # stream
+    "wkv6_time_chunks": ("wkv6", [_P] * 10 + [_I] * 5 + [_P]),
+    # BH, T, L -> words
+    "wkv6_chunk_sync_words": ("wkv6", [_I] * 3, ctypes.c_size_t),
     # D -> bytes
     "wkv6_smem_bytes": ("wkv6", [_I]),
     # x, y, z, logw, s0, out, BH, T, D, device, stream
@@ -163,6 +192,91 @@ def aug(name: str, a: torch.Tensor, gidx: torch.Tensor | None,
     else:
         _call(name, "aug_sgemm_grouped", a, a.data_ptr(), gidx.data_ptr(),
               b.data_ptr(), out.data_ptr(), ws_ptr, G, M, N, K, b.shape[0])
+    return out
+
+
+def _tf32_tiles(G: int, M: int, N: int) -> int:
+    """Output tiles of aug_gemm.cu's fp32 GEMM: 128 columns by 64 rows where
+    M <= 64, else by 128."""
+    nr = 128 if M > 64 else 64
+    return G * -(-M // nr) * -(-N // _AUG_BN)
+
+
+# Memoised like morph_splits: a pure function of a few ints.
+@functools.lru_cache(maxsize=256)
+def tf32_splits(G: int, M: int, N: int, K: int, sms: int) -> int:
+    """How many slices of K aug_gemm.cu's split-TF32 GEMM sums separately
+    for K4's ``G`` groups of ``(M, K) @ (K, N)`` on a card of ``sms`` SMs.
+
+    1 where the output tiles give every SM one (one block fits an SM).
+    Otherwise the split s that minimises the modelled time: the waves of
+    blocks, ``ceil(tiles * s / sms)``, times a slice's stages of 32 k plus
+    the 2 that fill the pipeline, plus 2 stages' worth for each slice's
+    partial tile an SM writes and the sum reads back.  Ties go to the
+    smaller s.  Only an s whose slices are all non-empty is taken.  At
+    VGG-16's K4 (256, 3072) @ (3072, 3072) on 132 SMs (48 tiles, 96 stages)
+    this is 5: 240 blocks of 20 stages, the last slice 16; the vlm
+    provider's (960 tiles) and whisper's (564) are one slice."""
+    tiles = _tf32_tiles(G, M, N)
+    steps = -(-K // TF32_BK)
+    if tiles >= sms:
+        return 1
+    best, best_cost = 1, None
+    for s in range(1, min(_TF32_MAX_SPLITS, steps) + 1):
+        per = -(-steps // s)
+        if -(-steps // per) != s or G * s > MAX_GRID_YZ:
+            continue
+        cost = (-(-tiles * s // sms) * (per + _TF32_FILL)
+                + (_TF32_PART * s * tiles / sms if s > 1 else 0.0))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def morph_route(dtype: torch.dtype, G: int, M: int, N: int, K: int) -> str:
+    """K4's kernel for ``G`` groups of ``(M, K) @ (K, N)`` in ``dtype``: fp32
+    products of at least ``_TF32_MIN_FLOP`` take aug_gemm.cu's split-TF32
+    GEMM (``"tf32"``, :func:`morph_tf32`: three TF32 passes on the tensor
+    cores, 495 TFLOP/s, where FFMA tops out at 67); smaller fp32 products
+    and bf16 take morph_gemm.cu's FFMA loop (``"ffma"``, :func:`morph`; no
+    main path runs K4 in bf16).  Below the threshold the split form's three
+    launches and split pass cost more than its tensor cores save: on an
+    H100 (256, 3072) @ (3072, 3072) (4.8 GFLOP) took 0.073 ms split against
+    0.121 on FFMA, (768, 1024) @ (1024, 1024) (1.6 GFLOP) 0.066 against
+    0.053 (``tools/k4_probe.py routes``)."""
+    if dtype != torch.float32 or 2 * G * M * N * K < _TF32_MIN_FLOP:
+        return "ffma"
+    return "tf32"
+
+
+def morph_tf32(name: str, a: torch.Tensor, b: torch.Tensor,
+               splits: int | None = None) -> torch.Tensor:
+    """``out[g] = a[g] (M, K) @ b[g] (K, N)`` in fp32 on ``csrc/aug_gemm.cu``
+    (K4's fp32 route): split TF32 as K5 runs it, its sum over K in
+    ``splits`` slices of ``ceil(ceil(K / 32) / splits)`` stages, by default
+    :func:`tf32_splits` of the shape and the card's SMs.  The device
+    launches: ``a`` split into a workspace allocated here
+    (:func:`aug_workspace_floats`), the GEMM, and with splits > 1 the sum of
+    the slices' fp32 partials (an fp32 ``(splits, G, M, N)`` workspace
+    allocated here) in slice order: two launches, or three."""
+    G, M, K = a.shape
+    N = b.shape[-1]
+    _check_rows(name, M)
+    if splits is None:
+        splits = tf32_splits(G, M, N, K, sm_count(a.device))
+    steps = -(-K // TF32_BK)
+    per = -(-steps // max(splits, 1))
+    if splits < 1 or (splits - 1) * per >= steps or G * splits > MAX_GRID_YZ:
+        raise ValueError(f"{name}: {splits} slices of K = {K} leave one empty "
+                         f"or exceed the grid")
+    out = torch.empty((G, M, N), dtype=a.dtype, device=a.device)
+    ws = torch.empty(aug_workspace_floats(G, M, K), dtype=torch.float32,
+                     device=a.device)
+    part = (torch.empty((splits, G, M, N), dtype=torch.float32, device=a.device)
+            if splits > 1 else None)
+    _call(name, "aug_sgemm_split", a, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+          ws.data_ptr(), None if part is None else part.data_ptr(), G, M, N, K,
+          splits)
     return out
 
 
@@ -321,6 +435,48 @@ def scan_width(BH: int, D: int, sms: int) -> int:
     return min(scan_widths(D), key=cost)
 
 
+# Memoised like morph_splits: a pure function of four ints.
+@functools.lru_cache(maxsize=256)
+def scan_form(BH: int, T: int, D: int, sms: int) -> tuple[str, int]:
+    """K6's form for ``BH`` sequences of ``T`` tokens at head size ``D`` on
+    a card of ``sms`` SMs: ``("columns", C)``, the state-column recurrence
+    in blocks of C columns (:func:`scan_width`), each walking all T tokens;
+    or ``("chunks", L)``, the time-chunked form, a block per sequence and
+    chunk of L tokens (``SCAN_CHUNKS``) owning every column.
+
+    The columns form's blocks each run T tokens in series, so where BH
+    sequences leave the card's schedulers short of warps its time grows
+    with T.  The chunked form takes where the columns form would put fewer
+    than ``_SCAN_CHUNK_MIN_WARPS`` consumer warps on an SM and there are at
+    least ``_SCAN_CHUNK_MIN_WAVES`` chunk blocks an SM at the longest L up
+    to ``_SCAN_CHUNK_MAX``: it pays a local pass, a chain of chunk states
+    and a correction of each token's read-out, which the many blocks hide.
+    On an H100 (``tools/k6_probe.py time``): at the prefill's (40, 384) the
+    columns form took 0.026 ms, the chunked form 0.037 at best; at (40,
+    1024) and (160, 128) the columns form won too; at (80, 4096) the columns
+    form took 0.95-0.97 ms, the chunked form 0.395 at L = 64 (three blocks
+    an SM, each keeping its chunk's read-outs in shared memory), 0.437 at
+    128 (two), 0.52 at 32 and 0.59 at 256."""
+    C = scan_width(BH, D, sms)
+    G, CPT = SCAN_SPLIT[D]
+    blocks = BH * -(-D // C)
+    warps = min(blocks, sms) * (C // CPT * G // 32) / sms
+    if warps >= _SCAN_CHUNK_MIN_WARPS:
+        return "columns", C
+    for L in sorted((L for L in SCAN_CHUNKS if L <= _SCAN_CHUNK_MAX), reverse=True):
+        if BH * -(-T // L) >= _SCAN_CHUNK_MIN_WAVES * sms:
+            return "chunks", L
+    return "columns", C
+
+
+def scan_sync_words(BH: int, T: int, L: int) -> int:
+    """int32 words of the zeroed sync buffer that K6's time-chunked form
+    takes for ``BH`` sequences of ``T`` tokens in chunks of ``L``: the
+    library's own count, since the flags' layout is its own."""
+    fn, _ = _entry("wkv6_chunk_sync_words")
+    return fn(BH, T, L)
+
+
 def scan_smem_bytes(D: int) -> int:
     """Bytes of shared memory a K6 block takes at head size ``D``: the
     library's own count, since the layout is its own."""
@@ -330,18 +486,33 @@ def scan_smem_bytes(D: int) -> int:
 
 def scan(name: str, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
-         width: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The RWKV-6 scan on fp32 ``(BH, T, D)`` operands as a state-column
-    recurrence (K6), blocks of ``width`` columns, by default
-    :func:`scan_width` of the shape and the card's SMs.  One device
-    launch.  Returns (out (BH, T, D), s_final (BH, D, D)), both fp32."""
+         width: int | None = None, tokens: int | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 scan on fp32 ``(BH, T, D)`` operands (K6) in the form
+    :func:`scan_form` picks for the shape and the card's SMs, or the one
+    given: ``width`` C, the columns form in blocks of C columns (one device
+    launch); ``tokens`` L, the time-chunked form in chunks of L tokens (two
+    device launches: the zeroed sync words, then the kernel; the chunks'
+    start states go to a workspace allocated here).  Returns (out (BH, T,
+    D), s_final (BH, D, D)), both fp32."""
     BH, T, D = r.shape
-    C = width or scan_width(BH, D, sm_count(r.device))
+    if width is not None:
+        form, size = "columns", width
+    elif tokens is not None:
+        form, size = "chunks", tokens
+    else:
+        form, size = scan_form(BH, T, D, sm_count(r.device))
     out = torch.empty_like(r)
     s_out = torch.empty_like(s0)
-    _call(name, "wkv6_chunked", r, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-          logw.data_ptr(), u.data_ptr(), s0.data_ptr(), out.data_ptr(),
-          s_out.data_ptr(), BH, T, D, C)
+    ptrs = [a.data_ptr() for a in (r, k, v, logw, u, s0, out, s_out)]
+    if form == "columns":
+        _call(name, "wkv6_chunked", r, *ptrs, BH, T, D, size)
+        return out, s_out
+    nc = -(-T // size)
+    states = r.new_empty(max(nc - 1, 1) * BH * D * D)
+    sync = r.new_zeros(scan_sync_words(BH, T, size), dtype=torch.int32)
+    _call(name, "wkv6_time_chunks", r, *ptrs, states.data_ptr(),
+          sync.data_ptr(), BH, T, D, size)
     return out, s_out
 
 

@@ -5,13 +5,22 @@ the RWKV-6 recurrence ``out_t = r_t (S_{t-1} + diag(u) k_t v_t^T)``,
 ``S_t = diag(e^{logw_t}) S_{t-1} + k_t v_t^T`` for each of ``BH`` (batch x
 head) sequences.  :func:`wkv6_chunked` launches the hand-written kernel in
 ``csrc/wkv6.cu`` (bound in :mod:`.gemm`), which runs that recurrence column
-by column of the ``(D, D)`` state: the columns are independent, each one's
-rows are split over a few threads that keep them in registers, and the
-blocks of one sequence share nothing (the source says why and what bounds
-it; :func:`.gemm.scan_width` picks the blocks' width).  ``chunk`` is
-validated as the Pallas kernel asserts it, but the kernel's result does not
-depend on it beyond rounding; the CPU path computes the chunked form at
-``chunk``.
+by column of the ``(D, D)`` state, each column's rows split over a few
+threads that keep them in registers, in the form :func:`.gemm.scan_form`
+picks for the shape (the source says why and what bounds each):
+
+  * the columns form: blocks of :func:`.gemm.scan_width` columns, each
+    walking the whole sequence; one device launch a call (the prefill's
+    shapes);
+  * the time-chunked form: a block per sequence and chunk of L tokens runs
+    the recurrence from a zero state, the chunks' start states are chained
+    in order, and each token's read-out is corrected by its chunk's start
+    state; two device launches a call, the zeroed sync words and the kernel
+    (``rwkv_train``'s (80, 4096)).
+
+``chunk`` is validated as the Pallas kernel asserts it, but the kernel's
+result does not depend on it, nor on the form, beyond rounding; the CPU path
+computes the chunked form at ``chunk``.
 
 The kernel computes in fp32.  bf16 operands are converted to fp32 before
 the launch and ``out`` is rounded back to ``r.dtype`` (what the Pallas
@@ -21,7 +30,8 @@ tokens have a kernel; others raise on the card.
 
 The device of the tensors picks the implementation: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs :func:`.ref.wkv6_chunked_ref`.
-Launches are counted in ``wkv6_chunked.launches``.  :func:`wkv6_chunked`
+Calls are counted in ``wkv6_chunked.launches``, one a call whatever the
+form's device launches.  :func:`wkv6_chunked`
 takes no operand that requires grad (it raises, as the Pallas kernel has no
 backward); gradients go through :func:`wkv6_scan`, the autograd Function
 :class:`WKV6Scan`.

@@ -1391,3 +1391,128 @@ def test_provider_stage_launches_k4_on_frames(cuda):
         scale = float(want["frames"].abs().max())
         assert float((got["frames"].cpu() - want["frames"]).abs().max()) \
             <= 1e-5 * scale
+
+
+# -- K4's fp32 route: aug_gemm.cu's split-TF32 GEMM, split K ----------------
+
+def _fp64_rel(got, a, b):
+    """max|got - a @ b in float64| over max|float64|, (G, M, K) @ (G, K, N)."""
+    want = torch.bmm(a.double(), b.double())
+    return float((got.double() - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("G,M,q", [(1, 256, 3072), (1, 24000, 384), (1, 111, 100),
+                                   (3, 70, 70), (2, 9, 130), (1, 130, 384),
+                                   (1, 8192, 960)])
+def test_k4_fp32_route_holds_fp64_bound(rng, cuda, G, M, q):
+    """K4 in fp32 through its wrapper (the split-TF32 GEMM at the rule's
+    split), at VGG-16's and whisper's shapes and ragged or unaligned ones:
+    within 1e-5 of max|fp64| and 1e-4 of max|plain|; one launch each."""
+    a = _rand(rng, G, M, q).to(cuda)
+    b = _rand(rng, G, q, q, scale=q ** -0.5).to(cuda)
+    before = block_diag_matmul.launches
+    got = block_diag_matmul(a, b, 1)
+    torch.cuda.synchronize()
+    assert block_diag_matmul.launches == before + 1
+    assert _fp64_rel(got, a, b) <= 1e-5
+    _hold(got, ref.block_diag_matmul_batched_ref(a, b, 1), torch.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16])
+def test_k4_fp32_every_split_at_vgg(rng, cuda, splits):
+    """The split-TF32 GEMM at VGG-16's K4 shape through its binding at a
+    range of splits (the slices' partials added in slice order): within
+    1e-5 of max|fp64|, and the same bits on two calls."""
+    a = _rand(rng, 1, 256, 3072).to(cuda)
+    b = _rand(rng, 1, 3072, 3072, scale=3072 ** -0.5).to(cuda)
+    first = gemm.morph_tf32("block_diag_matmul", a, b, splits)
+    second = gemm.morph_tf32("block_diag_matmul", a, b, splits)
+    torch.cuda.synchronize()
+    assert _fp64_rel(first, a, b) <= 1e-5
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def test_k4_fp32_route_gives_same_bits_twice(rng, cuda):
+    """K4 through its wrapper at VGG-16's shape (split by the rule) and at
+    whisper's (one slice): two calls, the same bits."""
+    for M, q in ((256, 3072), (24000, 384)):
+        x = _rand(rng, M, q).to(cuda)
+        core = _rand(rng, q, q, scale=q ** -0.5).to(cuda)
+        first, second = block_diag_matmul(x, core, 1), block_diag_matmul(x, core, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def test_k4_fp32_refuses_an_empty_slice_on_card(rng, cuda):
+    """A split that would leave a slice empty is refused by the binding
+    before any launch."""
+    a = _rand(rng, 1, 8, 100).to(cuda)
+    b = _rand(rng, 1, 100, 16).to(cuda)
+    with pytest.raises(ValueError, match="leave one empty"):
+        gemm.morph_tf32("block_diag_matmul", a, b, 5)
+
+
+# -- K6's time-chunked form ---------------------------------------------------
+
+@pytest.mark.parametrize("BH,T,D", [(4, 100, 16), (3, 20, 64), (2, 300, 64),
+                                    (5, 257, 16), (40, 1024, 64)])
+def test_wkv6_chunk_form_every_length(rng, cuda, BH, T, D):
+    """The time-chunked form at every chunk length it takes, through the
+    binding: T a multiple of none, T below L, both head sizes; out and final
+    state against the token recurrence within 1e-4 of max.  A length it
+    does not take (40: not whole tiles of 16) is refused at launch."""
+    ops = [a.to(cuda) for a in _scan_ops(rng, BH, T, D)]
+    for L in gemm.SCAN_CHUNKS:
+        got_o, got_s = gemm.scan("wkv6_chunked", *ops, tokens=L)
+        _scan_vs_recurrence(ops, got_o, got_s)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gemm.scan("wkv6_chunked", *ops, tokens=40)
+
+
+@pytest.mark.parametrize("BH,T,L,words", [(80, 4096, 64, 1 + 8 * 64 * 80),
+                                          (3, 100, 32, 1 + 8 * 4 * 3),
+                                          (2, 20, 256, 1 + 8 * 2)])
+def test_chunk_sync_words_are_a_ticket_and_a_flag_a_warp(cuda, BH, T, L, words):
+    """The library's sync buffer for the time-chunked form: the ticket, then
+    8 flags (one a consumer warp, at most 8) for each (chunk, sequence)."""
+    assert gemm.scan_sync_words(BH, T, L) == words
+
+
+@pytest.mark.parametrize("decay", ["ordinary", "strong", "none"])
+def test_wkv6_at_the_train_shape(rng, cuda, decay):
+    """K6 through its wrapper at rwkv_train's (80, 4096, 64), in the form
+    the rule takes there (the time-chunked one), against the token
+    recurrence within 1e-4 of max: logw = -exp(N), -exp(2 N) (every chunk's
+    product underflows) and 0 (the state only grows); the same bits twice."""
+    r, k, v, logw, u, s0 = (a.to(cuda) for a in _scan_ops(rng, 80, 4096, 64))
+    z = logw if decay == "ordinary" else _rand(rng, 80, 4096, 64).to(cuda)
+    logw = {"ordinary": logw, "strong": -torch.exp(2 * z),
+            "none": torch.zeros_like(z)}[decay]
+    ops = (r, k, v, logw, u, s0)
+    assert gemm.scan_form(80, 4096, 64, gemm.sm_count(cuda))[0] == "chunks"
+    got_o, got_s = wkv6_chunked(*ops, chunk=128)
+    again_o, again_s = wkv6_chunked(*ops, chunk=128)
+    _scan_vs_recurrence(ops, got_o, got_s)
+    assert torch.equal(got_o.view(torch.int32), again_o.view(torch.int32))
+    assert torch.equal(got_s.view(torch.int32), again_s.view(torch.int32))
+
+
+def test_wkv6_chunk_form_backward_against_float64(rng, cuda, monkeypatch):
+    """``wkv6_scan``'s gradient with both K6 launches (the forward and the
+    backward's on flipped operands) in the time-chunked form, at (8, 1000,
+    64) with L = 64 forced through the rule: the six gradients within 1e-4
+    of max|float64| of the token recurrence's autograd."""
+    ops = [a.to(cuda) for a in _scan_ops(rng, 8, 1000, 64)]
+    d_out = _rand(rng, 8, 1000, 64).to(cuda)
+    d_s = _rand(rng, 8, 64, 64, scale=0.1).to(cuda)
+    monkeypatch.setattr(gemm, "scan_form", lambda *a: ("chunks", 64))
+    xs = [a.clone().requires_grad_() for a in ops]
+    before = wkv6_chunked.launches
+    out, s_fin = wkv6_scan(*xs, chunk=40)
+    grads = torch.autograd.grad((out, s_fin), xs, (d_out, d_s))
+    assert wkv6_chunked.launches == before + 2
+    x64 = [a.double().requires_grad_() for a in ops]
+    o, s = ref.wkv6_ref(*(a[None] for a in x64[:4]), x64[4], x64[5][None])
+    want = torch.autograd.grad((o[0], s[0]), x64, (d_out.double(), d_s.double()))
+    for g, w in zip(grads, want):
+        assert float((g.double() - w).abs().max()) <= 1e-4 * float(w.abs().max())

@@ -110,6 +110,45 @@ def test_one_truncating_accumulator_misses_fp64_bound(M, K, N):
     assert _rel_err(split_matmul(a, b, 3, stage=None), a, b) > FP64_REL_TOL
 
 
+def split_k_matmul(a: torch.Tensor, b: torch.Tensor, splits: int,
+                   stage: int | None = STAGE) -> torch.Tensor:
+    """K4's fp32 route (``aug_sgemm_split``): K in ``splits`` slices of
+    ``ceil(ceil(K / 32) / splits)`` stages of 32 k, the last taking the
+    rest; each slice summed as :func:`split_matmul` sums (a fresh
+    accumulator a stage, or one truncating accumulator over the slice with
+    ``stage=None``) into an fp32 partial, and the partials added in slice
+    order in fp32, rounded to nearest (``split_reduce_kernel``)."""
+    K = a.shape[1]
+    per = -(-(-(-K // STAGE)) // splits) * STAGE
+    assert (splits - 1) * per < K, "a slice would be empty"
+    total = None
+    for j in range(splits):
+        ks = slice(j * per, min(K, (j + 1) * per))
+        part = split_matmul(a[:, ks], b[ks], 3, stage)
+        total = part if total is None else (total.double() + part.double()).float()
+    return total
+
+
+@pytest.mark.parametrize("M,K,N,splits", [(16, 96, 16, 2), (33, 300, 17, 3),
+                                          (8, 1000, 64, 5), (64, 3072, 128, 5),
+                                          (20, 640, 40, 10)])
+def test_split_k_holds_fp64_bound(M, K, N, splits):
+    """K4's split form: the split-TF32 sum in slices of K, added in slice
+    order, within 1e-5 of max|fp64| (the bound ``chip_smoke.py`` holds K4
+    to on the card), at every split the kernel takes here."""
+    a, b = _operands(M * K + N + splits, M, K, N)
+    assert _rel_err(split_k_matmul(a, b, splits), a, b) <= FP64_REL_TOL
+
+
+def test_split_k_with_one_truncating_accumulator_misses_fp64_bound():
+    """Slicing K does not spare the per-stage accumulators: two slices of
+    1,536 k, each summed into one truncating accumulator, keep the bias of
+    their 1,152 truncations toward zero in all, and miss the bound."""
+    M, K, N = 64, 3072, 128
+    a, b = _operands(M * K + N, M, K, N)
+    assert _rel_err(split_k_matmul(a, b, 2, stage=None), a, b) > FP64_REL_TOL
+
+
 def test_tf32_rounding_and_split():
     """tf32_rna rounds to 10 mantissa bits, ties away from zero, on both
     signs; hi + lo recovers x to within 2^-21 of |x|."""

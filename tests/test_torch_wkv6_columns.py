@@ -215,13 +215,23 @@ def test_scan_geometry_fills_the_card_at_the_prefill():
     assert consumer_warps <= 4        # one warp on each scheduler it uses
 
 
-@pytest.mark.parametrize("BH,want", [(1, 8), (160, 16)])
-def test_scan_geometry_off_the_prefill(BH, want):
-    """One sequence: one warp of 8 columns a block, 8 blocks.  160
-    sequences: C = 16, 640 blocks, 5 on the busiest SM (10 consumer warps,
-    3 on its busiest scheduler, the fewest any width gives; 80 columns an
-    SM, as at C = 8, in half the blocks)."""
-    assert gemm.scan_width(BH, 64, 132) == want
+@pytest.mark.parametrize("BH,T,want", [(1, 384, ("columns", 8)),
+                                       (160, 128, ("columns", 16)),
+                                       (80, 4096, ("chunks", 64))])
+def test_scan_geometry_off_the_prefill(BH, T, want):
+    """One sequence: the columns form, one warp of 8 columns a block, 8
+    blocks.  160 sequences of 128: the columns form at C = 16, 640 blocks,
+    5 on the busiest SM (10 consumer warps, 3 on its busiest scheduler, the
+    fewest any width gives; 80 columns an SM, as at C = 8, in half the
+    blocks).  rwkv_train's 80 sequences of 4096: the width rule would give
+    C = 8, one consumer warp an SM for 4096 tokens in series, so
+    ``scan_form`` takes the time-chunked form (chunks of 64, 5,120
+    blocks)."""
+    assert gemm.scan_form(BH, T, 64, 132) == want
+    if want[0] == "columns":
+        assert gemm.scan_width(BH, 64, 132) == want[1]
+    else:
+        assert gemm.scan_width(BH, 64, 132) == 8
 
 
 # -- what the wrapper hands the kernel -------------------------------------
@@ -259,8 +269,10 @@ def _card_ops(BH, T, D, dtype=torch.float32):
                                           (160, 128, 64, 128), (8, 100, 16, 20),
                                           (40, 4096, 64, 128)])
 def test_wrapper_hands_the_kernel_its_operands(launches, BH, T, D, chunk):
-    """fp32: one ``wkv6_chunked`` launch with the operands' own pointers,
-    the outputs', BH, T, D and the rule's width C for 132 SMs; counted."""
+    """fp32, at shapes that take the columns form: one ``wkv6_chunked``
+    launch with the operands' own pointers, the outputs', BH, T, D and the
+    rule's width C for 132 SMs; counted."""
+    assert gemm.scan_form(BH, T, D, 132) == ("columns", gemm.scan_width(BH, D, 132))
     ops = _card_ops(BH, T, D)
     before = wkv6_chunked.launches
     out, s_fin = wkv6_chunked(*ops, chunk=chunk)

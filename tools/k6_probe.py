@@ -6,9 +6,13 @@ calls) and ``cuda_p50`` (10 calls back to back, the host's time included).
 
     PYTHONPATH=<checkout>/src python3 tools/k6_probe.py time
         K6 through the wrapper of the ``repro_torch`` on the path, at
-        (BH, T) = (40, 384) and (40, 1024), both ways.  Run it on two
-        checkouts in one call (parent, change, change, parent) to compare
-        them.
+        (BH, T) = (40, 384), (40, 1024), (160, 128) and (80, 4096), both
+        ways; on a checkout with the time-chunked form also each form
+        through the binding (the columns form at the width rule's C, the
+        chunked form at every L of ``gemm.SCAN_CHUNKS``), held to the token
+        recurrence, graph-timed in turns: the measurements behind
+        ``gemm.scan_form``.  Run it on two checkouts in one call (parent,
+        change, change, parent) to compare them.
     PYTHONPATH=src python3 tools/k6_probe.py variants
         Copies of this checkout's wkv6.cu, each built with nvcc and called
         through its C entry on the same inputs, held to the repo's kernel
@@ -18,11 +22,20 @@ calls) and ``cuda_p50`` (10 calls back to back, the host's time included).
         loads (token t + 1's shared-memory loads issued before token t's
         arithmetic).
     PYTHONPATH=src python3 tools/k6_probe.py profile
-        A copy of wkv6.cu whose block stamps ``%globaltimer`` per tile (thread
-        0 for the consumers, producer thread 0 for the producers), at
-        (40, 384) at the rule's width and at 16 and 32 columns: per tile,
+        The form ``gemm.scan_form`` takes at (40, 384) and at (80, 4096),
+        from a copy of wkv6.cu whose blocks stamp ``%globaltimer``.  The
+        columns form: per tile (thread 0 for the consumers, producer thread
+        0 for the producers), at the rule's width and at 16 and 32 columns,
         the consumers' wait for a prepared slot, the producers' preparation
-        and the consumers' recurrence, in ns.
+        and the consumers' recurrence, in ns.  The time-chunked form: per
+        block, its local pass, its wait for the previous chunk's state and
+        its state step, and its correction, in ns.
+    PYTHONPATH=src python3 tools/k6_probe.py chunk_variants
+        Copies of wkv6.cu with the time-chunked form's compile-time knobs
+        changed (``CHUNK_VARIANTS``: the split G, CPT of a block's 64
+        columns, ring slots, producer warps, resident blocks), held to the
+        token recurrence at (80, 4096) and graph-timed at L 64, 128 and 256
+        beside the repo's kernel at the rule's L.
 
 Builds go to ``build/probe/`` (listed in ``.gitignore``).
 """
@@ -42,6 +55,9 @@ import chip_smoke as cs  # noqa: E402
 
 OUT = ROOT / "build" / "probe"
 D = 64
+# The prefill's shape, a longer prompt, the short-sequence sweep's widest
+# case and rwkv_train's microbatch (BH, T).
+TIME_SHAPES = ((40, 384), (40, 1024), (160, 128), (80, 4096))
 SPLIT_64 = "template <> struct Split<64> { static constexpr int G = 16, CPT = 4; };"
 
 # The consumer loop's per-token body, and the same with token t + 1's
@@ -162,17 +178,53 @@ def widths(G, CPT):
             and c // CPT * G <= 256]
 
 
+def held_to_recurrence(got, ops, tag):
+    """out and s_final within chip_smoke.REL_TOL of max|token recurrence|."""
+    from repro_torch.kernels import ref
+
+    r, k, v, logw, u, s0 = ops
+    want = ref.wkv6_ref(r[None], k[None], v[None], logw[None], u, s0[None])
+    for g, w in zip(got, (want[0][0], want[1][0])):
+        err = float((g - w).abs().max())
+        if not err <= cs.REL_TOL * float(w.abs().max()):
+            raise RuntimeError(f"{tag}: |kernel - recurrence| {err}")
+
+
 def probe_time(dev):
+    """K6 through the wrapper at each TIME_SHAPES shape; on a checkout with
+    the time-chunked form, also each form through the binding (the columns
+    form at the width rule's C, the chunked form at every L), held to the
+    token recurrence and graph-timed in turns with the wrapper."""
     import repro_torch
-    from repro_torch.kernels import build, wkv6_chunked
+    from repro_torch.kernels import build, gemm, wkv6_chunked
 
     build.build_all()
-    for BH, T in ((40, 384), (40, 1024)):
+    forms = hasattr(gemm, "scan_form")
+    for BH, T in TIME_SHAPES:
         ops = scan_ops(dev, BH, T)
         run = lambda: wkv6_chunked(*ops, chunk=cs.K6_CHUNK)  # noqa: E731
-        cs.emit({"probe": "time", "package": repro_torch.__file__, "BH": BH,
-                 "T": T, "graph_ms": cs.graph_ms(run, 5, 10),
-                 "eager_ms": cs.cuda_p50(run, 5, 10)})
+        row = {"probe": "time", "package": repro_torch.__file__, "BH": BH,
+               "T": T, "graph_ms": cs.graph_ms(run, 5, 10),
+               "eager_ms": cs.cuda_p50(run, 5, 10),
+               "bound_ms": cs.k6_bound(BH, T, D)[0]}
+        if forms:
+            sms = gemm.sm_count(dev)
+            row["rule"] = gemm.scan_form(BH, T, D, sms)
+            calls = {f"columns_C{gemm.scan_width(BH, D, sms)}": lambda: gemm.scan(
+                "wkv6_chunked", *ops, width=gemm.scan_width(BH, D, sms))}
+            for L in gemm.SCAN_CHUNKS:
+                calls[f"chunks_L{L}"] = (lambda L=L: gemm.scan(
+                    "wkv6_chunked", *ops, tokens=L))
+            for tag, call in calls.items():
+                held_to_recurrence(call(), ops, f"({BH}, {T}) {tag}")
+            first = {tag: cs.graph_ms(call, 3, 10) for tag, call in calls.items()}
+            second = {tag: cs.graph_ms(call, 3, 10)
+                      for tag, call in reversed(calls.items())}
+            row["forms_graph_ms"] = {t: (first[t] + second[t]) / 2 for t in calls}
+            row["forms_runs_ms"] = {t: [first[t], second[t]] for t in calls}
+        cs.emit(row)
+        del ops
+        torch.cuda.empty_cache()
 
 
 def probe_variants(dev):
@@ -225,18 +277,106 @@ def probe_variants(dev):
                          [cs.graph_ms(f, 5, 10) for f in (base, run, base, run)]})
 
 
-def probe_profile(dev):
-    from repro_torch.kernels import build, gemm
+_CLOCK = ("namespace {\n", "namespace {\n__device__ unsigned long long* g_prof;\n"
+          "__device__ __forceinline__ unsigned long long clk() { unsigned long long c;"
+          " asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(c)); return c; }\n")
+_SET_PROF = ('\nextern "C" int wkv6_set_prof(void* p) {\n'
+             '    return (int)cudaMemcpyToSymbol(g_prof, &p, sizeof(p));\n}\n')
+
+
+def profile_chunks(dev, BH, T, L):
+    """The time-chunked form at (BH, T) in chunks of L: a copy of wkv6.cu
+    whose blocks stamp ``%globaltimer`` (consumer thread 0) after taking
+    their ticket, after the local pass, after the look-back and at the end;
+    per block the local pass, the wait for the previous chunk's state and
+    the state step, and the correction, in ns, and the blocks' spread."""
+    from repro_torch.kernels import build
 
     src = build.SOURCES["wkv6"].read_text()
     stamps = [
-        ("namespace {\n", "namespace {\n__device__ unsigned long long* g_prof;\n"
-         "__device__ __forceinline__ unsigned long long clk() { unsigned long long c;"
-         " asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(c)); return c; }\n"),
-        ("    const size_t seq = (size_t)bh * T * D;\n",
+        _CLOCK,
+        ("    const int ticket = *ticket_s;\n",
+         "    const int ticket = *ticket_s;\n"
+         "    unsigned long long* const pr = g_prof + (size_t)ticket * 4;\n"
+         "    if (tid == 0) pr[0] = clk();\n"),
+        ("    const float* start = s0 + (size_t)bh * D * D;\n",
+         "    if (tid == 0) pr[1] = clk();\n"
+         "    const float* start = s0 + (size_t)bh * D * D;\n"),
+        ("    // The correction: out_t = the local read-out + (r_t A_{t-1}) .\n",
+         "    if (tid == 0) pr[2] = clk();\n"
+         "    // The correction: out_t = the local read-out + (r_t A_{t-1}) .\n"),
+        ("                store_n<CPT>(dst, o);\n            }\n        }\n    }\n}\n",
+         "                store_n<CPT>(dst, o);\n            }\n        }\n    }\n"
+         "    if (tid == 0) pr[3] = clk();\n}\n"),
+    ]
+    for old, new in stamps:
+        src = patched(src, old, new)
+    lib, _ = build_copies({"profile_chunks": src + _SET_PROF})["profile_chunks"]
+    lib.wkv6_set_prof.argtypes = [ctypes.c_void_p]
+    fn = lib.wkv6_time_chunks
+    from repro_torch.kernels import gemm
+    fn.argtypes = gemm._ENTRIES["wkv6_time_chunks"][1]
+    ops = scan_ops(dev, BH, T)
+    nc = -(-T // L)
+    blocks = BH * nc
+    prof = torch.zeros(blocks * 4, dtype=torch.int64, device=dev)
+    if lib.wkv6_set_prof(prof.data_ptr()):
+        raise RuntimeError("cudaMemcpyToSymbol failed")
+    run = chunk_caller(fn, ops, L)
+    for _ in range(3):
+        out, s_out = run()
+    torch.cuda.synchronize()
+    held_to_recurrence((out, s_out), ops, f"profiled chunks ({BH}, {T}) L {L}")
+    a = prof.cpu().numpy().reshape(blocks, 4).astype(np.int64)
+    chunk = np.arange(blocks) // BH
+    later = chunk > 0
+    cs.emit({"probe": "profile", "form": "chunks", "shape": [BH, T, D], "L": L,
+             "blocks": blocks,
+             "kernel_span_ns": int(a[:, 3].max() - a[:, 0].min()),
+             "block_ns_mean": float((a[:, 3] - a[:, 0]).mean()),
+             "per_block_ns": {
+                 "local_pass": float((a[:, 1] - a[:, 0]).mean()),
+                 "wait_and_state": float((a[:, 2] - a[:, 1]).mean()),
+                 "wait_and_state_past_chunk_0": float((a[later, 2] - a[later, 1]).mean()),
+                 "correction": float((a[:, 3] - a[:, 2]).mean())},
+             "wait_and_state_p90_ns": float(np.percentile(a[:, 2] - a[:, 1], 90)),
+             "start_spread_ns": int(a[:, 0].max() - a[:, 0].min())})
+
+
+def probe_profile(dev):
+    """The form the rule takes at the prefill's (40, 384) and at
+    rwkv_train's (80, 4096): the columns kernel's per-tile stamps, or the
+    chunked kernel's per-phase stamps (:func:`profile_chunks`)."""
+    from repro_torch.kernels import gemm
+
+    for BH, T in ((40, 384), (80, 4096)):
+        form, size = gemm.scan_form(BH, T, D, gemm.sm_count(dev))
+        if form == "chunks":
+            profile_chunks(dev, BH, T, size)
+        else:
+            profile_columns(dev, BH, T, size)
+
+
+_CHUNKS_PART = "// The time-chunked form: a block per"
+
+
+def profile_columns(dev, BH, T, rule_width):
+    """The columns form at (BH, T): a copy of wkv6.cu whose blocks stamp
+    ``%globaltimer`` per tile (thread 0 for the consumers, producer thread
+    0 for the producers), at the rule's width and at 16 and 32 columns."""
+    from repro_torch.kernels import build
+
+    full_src = build.SOURCES["wkv6"].read_text()
+    cut = full_src.index(_CHUNKS_PART)
+    src, rest = full_src[:cut], full_src[cut:]
+    stamps = [
+        _CLOCK,
+        ("    const size_t seq = (size_t)bh * T * D;\n"
+         "    // The last block of a sequence",
          "    const size_t seq = (size_t)bh * T * D;\n"
          "    unsigned long long* const pr = g_prof + (size_t)(blockIdx.y * gridDim.x"
-         " + blockIdx.x) * (2 + 4 * n_tiles);\n    if (tid == 0) pr[0] = clk();\n"),
+         " + blockIdx.x) * (2 + 4 * n_tiles);\n    if (tid == 0) pr[0] = clk();\n"
+         "    // The last block of a sequence"),
         ("            mbar_wait(smem_addr(full + s), (i / STAGES) & 1);\n",
          "            mbar_wait(smem_addr(full + s), (i / STAGES) & 1);\n"
          "            if (pt == 0) pr[2 + 4 * i + 1] = clk();\n"),
@@ -254,15 +394,12 @@ def probe_profile(dev):
     ]
     for old, new in stamps:
         src = patched(src, old, new)
-    src += ('\nextern "C" int wkv6_set_prof(void* p) {\n'
-            '    return (int)cudaMemcpyToSymbol(g_prof, &p, sizeof(p));\n}\n')
-    lib, _ = build_copies({"profile": src})["profile"]
+    lib, _ = build_copies({"profile": src + rest + _SET_PROF})["profile"]
     lib.wkv6_set_prof.argtypes = [ctypes.c_void_p]
     fn = entry(lib)
-    BH, T = 40, 384
     ops = scan_ops(dev, BH, T)
     n_tiles = -(-T // 32)
-    for c in sorted({gemm.scan_width(BH, D, gemm.sm_count(dev)), 16, 32}):
+    for c in sorted({rule_width, 16, 32}):
         blocks = BH * -(-D // c)
         prof = torch.zeros(blocks * (2 + 4 * n_tiles), dtype=torch.int64, device=dev)
         if lib.wkv6_set_prof(prof.data_ptr()):
@@ -275,7 +412,7 @@ def probe_profile(dev):
         tiles = a[:, 2:].reshape(blocks, n_tiles, 4)
         top, full_seen, prepped, ready_seen = (tiles[:, :, i] for i in range(4))
         end_of = np.concatenate([top[:, 1:], a[:, 1:2]], 1)
-        cs.emit({"probe": "profile", "shape": [BH, T, D], "width": c,
+        cs.emit({"probe": "profile", "form": "columns", "shape": [BH, T, D], "width": c,
                  "blocks": blocks,
                  "kernel_span_ns": int(a[:, 1].max() - a[:, 0].min()),
                  "block_ns_mean": float((a[:, 1] - a[:, 0]).mean()),
@@ -287,13 +424,110 @@ def probe_profile(dev):
                  "tiles_ready_before_consumers": float((prepped <= top)[:, 1:].mean())})
 
 
+# The chunked form's compile-time knobs in wkv6.cu, and the variants timed:
+# (G, CPT) of ChunkSplit<64>, tokens a tile, ring slots, producer warps,
+# resident blocks.
+_CHUNK_KNOBS = ("template <> struct ChunkSplit<64> { static constexpr int G = 8, CPT = 4; };",
+                "constexpr int CHUNK_TILE = 16;", "constexpr int CHUNK_STAGES = 2;",
+                "constexpr int CHUNK_PRODUCER_WARPS = 2;", "constexpr int CHUNK_MIN_BLOCKS = 3;")
+CHUNK_VARIANTS = [(16, 4, 32, 2, 2, 2), (8, 4, 32, 2, 2, 2), (8, 4, 16, 3, 2, 3),
+                  (8, 4, 16, 2, 1, 3), (8, 4, 16, 2, 2, 4)]
+
+
+def chunk_caller(fn, ops, L):
+    """A call of a ``wkv6_time_chunks`` C entry on ``ops`` in chunks of L,
+    its outputs and workspaces allocated by each call as ``gemm.scan``
+    allocates them (one zeroed sync buffer reused by the calls of one CUDA
+    graph, zeroed by ``zero_`` between them, faulted on replay at L 64)."""
+    from repro_torch.kernels import gemm
+
+    BH, T, _ = ops[0].shape
+    nc = -(-T // L)
+
+    def run():
+        out, s_out = torch.empty_like(ops[0]), torch.empty_like(ops[5])
+        states = ops[0].new_empty(max(nc - 1, 1) * BH * D * D)
+        sync = ops[0].new_zeros(gemm.scan_sync_words(BH, T, L), dtype=torch.int32)
+        err = fn(*[a.data_ptr() for a in (*ops, out, s_out, states, sync)],
+                 BH, T, D, L, ops[0].device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"wkv6_time_chunks refused L {L}: {err}")
+        return out, s_out
+    return run
+
+
+def probe_chunk_variants(dev):
+    """Copies of wkv6.cu with the chunked form's knobs changed (the
+    columns' G and CPT of ChunkSplit<64>, ring slots, producer warps,
+    resident blocks in the launch bounds), each held to the token
+    recurrence at rwkv_train's (80, 4096) and graph-timed at L 64, 128 and
+    256 in turns with the repo's kernel at the rule's L."""
+    from repro_torch.kernels import build, gemm
+
+    src = build.SOURCES["wkv6"].read_text()
+    sources = {}
+    for g, cpt, tile, stages, pw, mb in CHUNK_VARIANTS:
+        v = src
+        for old, new in zip(_CHUNK_KNOBS, (
+                f"template <> struct ChunkSplit<64> {{ static constexpr int G = {g}, CPT = {cpt}; }};",
+                f"constexpr int CHUNK_TILE = {tile};",
+                f"constexpr int CHUNK_STAGES = {stages};",
+                f"constexpr int CHUNK_PRODUCER_WARPS = {pw};",
+                f"constexpr int CHUNK_MIN_BLOCKS = {mb};")):
+            v = patched(v, old, new)
+        sources[f"G{g}_CPT{cpt}_T{tile}_S{stages}_P{pw}_B{mb}"] = v
+    libs = build_copies(sources)
+    for tag, (_, ptxas) in libs.items():
+        cs.emit({"probe": "chunk_variants", "build": tag, "ptxas": ptxas})
+    # One process a variant, so that a fault names its variant and leaves
+    # the others' timings.
+    for tag in libs:
+        proc = subprocess.run([sys.executable, __file__, "chunk_variant", tag],
+                              capture_output=True, text=True, timeout=600)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode:
+            cs.emit({"probe": "chunk_variants", "variant": tag, "failed": proc.returncode,
+                     "stderr": proc.stderr[-1500:]})
+
+
+def probe_chunk_variant(dev, tag):
+    """One built variant of ``chunk_variants`` (``build/probe/wkv6_<tag>.so``)
+    at rwkv_train's (80, 4096), L 64, 128 and 256, in turns with the repo's
+    kernel at the rule's L."""
+    from repro_torch.kernels import build, gemm
+
+    BH, T = 80, 4096
+    ops = scan_ops(dev, BH, T)
+    rule = gemm.scan_form(BH, T, D, gemm.sm_count(dev))
+    repo_fn = build.load("wkv6").wkv6_time_chunks
+    repo_fn.argtypes = gemm._ENTRIES["wkv6_time_chunks"][1]
+    base = chunk_caller(repo_fn, ops, rule[1])
+    held_to_recurrence(base(), ops, "repo chunks")
+    times = {"repo_before": cs.graph_ms(base, 3, 10)}
+    fn = ctypes.CDLL(str(OUT / f"wkv6_{tag}.so")).wkv6_time_chunks
+    fn.argtypes = repo_fn.argtypes
+    for L in (64, 128, 256):
+        run = chunk_caller(fn, ops, L)
+        held_to_recurrence(run(), ops, f"{tag} L {L}")
+        times[f"L{L}_once"] = "held"
+        times[f"L{L}"] = cs.graph_ms(run, 3, 10)
+    times["repo_after"] = cs.graph_ms(base, 3, 10)
+    cs.emit({"probe": "chunk_variants", "variant": tag, "shape": [BH, T, D],
+             "rule": rule, "graph_ms": times})
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
-    probes = {"time": probe_time, "variants": probe_variants, "profile": probe_profile}
-    if mode not in probes:
-        sys.exit(f"usage: k6_probe.py {{{'|'.join(probes)}}}")
+    probes = {"time": probe_time, "variants": probe_variants, "profile": probe_profile,
+              "chunk_variants": probe_chunk_variants}
     if not torch.cuda.is_available():
         sys.exit("k6_probe.py: no CUDA device")
+    if mode == "chunk_variant" and len(sys.argv) == 3:
+        probe_chunk_variant(torch.device("cuda", 0), sys.argv[2])
+        return
+    if mode not in probes:
+        sys.exit(f"usage: k6_probe.py {{{'|'.join(probes)}}}")
     probes[mode](torch.device("cuda", 0))
 
 
