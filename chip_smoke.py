@@ -313,9 +313,14 @@ printing one JSON line; any failure raises and exits non-zero:
                 segments of 128 tokens) within 1e-4 * max|float64|, the
                 fp32 autograd of the same recurrence's departure printed
                 beside it; two backward calls give the same bits.  Timed:
-                the key-row kernel (``graph_ms``) beside its plain version
-                and its bound, and the whole backward (``cuda_p50``) beside
-                its bound.
+                the key-row kernel (``graph_ms``; chunks of time in
+                parallel, chained, of the library's ``gemm.rows_chunk``
+                tokens) beside its plain version, its bound and, under
+                ``bounds``, its form's floor (four FMA-pipe instructions
+                per token, row and column), with ptxas's report, and the
+                whole backward (``cuda_p50``) beside its bound.  Sweeps
+                over the kernel's geometry are ``tools/k6_probe.py
+                rows``'s.
  10. rwkv_path  ``serve --mode lm`` at rwkv6_3b FULL width (32 layers,
                 d_model 2560, 40 heads of 64, vocab 65536, bf16), random
                 weights from a seeded generator on the card: 4 tenants at
@@ -1483,6 +1488,15 @@ def rows_bound(BH: int, T: int, D: int) -> tuple[float, str]:
     return times[by] * 1e3, by
 
 
+def rows_form_floor_ms(BH: int, T: int, D: int) -> float:
+    """The floor of the key-row kernel's own form, beside its bound: per
+    (token, row, column) the chunked form issues four fp32 instructions on
+    the FMA pipe (the local pass's read-out FMA, the product x_t[i] y_t[j]
+    and the decay-and-add FMA, the correction's FMA), 4 BH T D^2 in all,
+    each one lane-slot of the 128 an SM issues per clock."""
+    return 4 * BH * T * D * D / (FP32_FLOP_PER_S / 2) * 1e3
+
+
 def k6_backward_bound(BH: int, T: int, D: int) -> tuple[float, str]:
     """The least time for K6's whole backward: r, k, v, logw, dO read and
     dr, dk, dv, dlogw written once, u, s0, s_final, dS_T read and du, ds0
@@ -1504,6 +1518,8 @@ def k6_backward_checks(dev, kernels, ref, build_report, gen) -> tuple[dict, dict
     within ``K6_GRAD_REL_TOL`` of max|float64| (the fp32 autograd's
     departure beside each); two backwards give the same bits.  Returns
     (the backward's readings, the key-row kernel's row)."""
+    from repro_torch.kernels import gemm
+
     BH, T = K6_TRAIN
     D = K6_D
     ops, d_out, d_s = k6_train_ops(dev, gen, BH, T, K6_TRAIN_HEADS)
@@ -1570,9 +1586,11 @@ def k6_backward_checks(dev, kernels, ref, build_report, gen) -> tuple[dict, dict
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     row = {"max_abs_err": err, "ms": (runs[0] + runs[2]) / 2,
            "plain_ms": (runs[1] + runs[3]) / 2, "library_ms": None,
-           "bound_ms": b, "bound_by": by, "runs_ms": runs,
-           "eager_ms": cuda_p50(run_k, 5, 10), "ptxas": ptxas,
-           "timed_shape": f"x/y/z/logw ({BH}, {T}, {D}) fp32, s0 ({BH}, {D}, {D})"}
+           "bound_ms": b, "bound_by": by,
+           "bounds": {"form_floor_ms": rows_form_floor_ms(BH, T, D)},
+           "runs_ms": runs, "eager_ms": cuda_p50(run_k, 5, 10), "ptxas": ptxas,
+           "timed_shape": f"x/y/z/logw ({BH}, {T}, {D}) fp32, s0 ({BH}, {D}, {D}),"
+                          f" chunks of {gemm.rows_chunk()} tokens"}
     backward_out = {"shape": [BH, T, D], "chunk": K6_CHUNK,
                     "grads": readings,
                     "launches_per_backward": {"wkv6_chunked": per_backward[0],

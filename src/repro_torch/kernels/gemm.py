@@ -20,7 +20,8 @@ tables), its work split into column strips and per-warp slices of K by
 blocks of :func:`scan_width` columns, and ``wkv6_time_chunks``, the same
 recurrence in chunks of time run in parallel and chained; both bound
 through :func:`scan`.  ``csrc/wkv6_rows.cu`` has ``wkv6_rows`` (the key-row
-scan of K6's gradient; :mod:`.wkv6`), bound through :func:`key_rows`.
+scan of K6's gradient; :mod:`.wkv6`, in chunks of time run in parallel and
+chained, as K6's time-chunked form), bound through :func:`key_rows`.
 Each wrapper counts its own launches; this module
 counts none.  The libraries are built at first use (:mod:`.build`); nothing
 here runs at import.
@@ -39,7 +40,8 @@ __all__ = ["MAX_GRID_YZ", "MORPH_BK", "TF32_BK", "check_operands", "aug",
            "morph_tf32", "tf32_splits", "sm_count", "rows", "row_splits",
            "scan", "scan_form", "scan_smem_bytes", "scan_sync_words",
            "scan_width", "scan_widths",
-           "SCAN_SPLIT", "SCAN_CHUNKS", "key_rows"]
+           "SCAN_SPLIT", "SCAN_CHUNKS", "key_rows", "rows_chunk",
+           "rows_sync_words"]
 
 MAX_GRID_YZ = 65535
 _BM = 64            # rows per block in morph_gemm.cu, at least in aug_gemm.cu
@@ -103,8 +105,12 @@ _ENTRIES = {   # symbol -> (library, argtypes[, restype; default int])
     "wkv6_chunk_sync_words": ("wkv6", [_I] * 3, ctypes.c_size_t),
     # D -> bytes
     "wkv6_smem_bytes": ("wkv6", [_I]),
-    # x, y, z, logw, s0, out, BH, T, D, device, stream
-    "wkv6_rows": ("wkv6_rows", [_P] * 6 + [_I] * 4 + [_P]),
+    # x, y, z, logw, s0, out, states, sync, BH, T, D, device, stream
+    "wkv6_rows": ("wkv6_rows", [_P] * 8 + [_I] * 4 + [_P]),
+    # -> L, the chunk length it was built with
+    "wkv6_rows_chunk": ("wkv6_rows", []),
+    # BH, T -> words
+    "wkv6_rows_sync_words": ("wkv6_rows", [_I] * 2, ctypes.c_size_t),
 }
 
 
@@ -516,14 +522,34 @@ def scan(name: str, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, s_out
 
 
+def rows_chunk() -> int:
+    """The key-row scan's chunk length L, a constant of ``wkv6_rows.cu``:
+    the library's own, since it was built with it."""
+    fn, _ = _entry("wkv6_rows_chunk")
+    return fn()
+
+
+def rows_sync_words(BH: int, T: int) -> int:
+    """int32 words of the zeroed sync buffer that the key-row scan takes for
+    ``BH`` sequences of ``T`` tokens: the library's own count, since the
+    flags' layout is its own."""
+    fn, _ = _entry("wkv6_rows_sync_words")
+    return fn(BH, T)
+
+
 def key_rows(name: str, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
              logw: torch.Tensor, s0: torch.Tensor) -> torch.Tensor:
     """The key-row scan on fp32 ``(BH, T, D)`` operands and an fp32
     ``(BH, D, D)`` start state: ``out_t[i] = M[i, :] . z_t``, then ``M[i, :]
-    = e^{logw_t[i]} M[i, :] + x_t[i] y_t``.  One device launch.  Returns out
+    = e^{logw_t[i]} M[i, :] + x_t[i] y_t``, in chunks of :func:`rows_chunk`
+    tokens.  Two device launches: the zeroed sync words, then the kernel;
+    the chunks' start states go to a workspace allocated here.  Returns out
     (BH, T, D) fp32."""
     BH, T, D = x.shape
     out = torch.empty_like(x)
-    _call(name, "wkv6_rows", x, x.data_ptr(), y.data_ptr(), z.data_ptr(),
-          logw.data_ptr(), s0.data_ptr(), out.data_ptr(), BH, T, D)
+    states = x.new_empty(max(-(-T // rows_chunk()) - 1, 1) * BH * D * D)
+    sync = x.new_zeros(rows_sync_words(BH, T), dtype=torch.int32)
+    _call(name, "wkv6_rows", x, *(a.data_ptr() for a in (x, y, z, logw, s0, out,
+                                                          states, sync)),
+          BH, T, D)
     return out

@@ -619,6 +619,75 @@ def test_wkv6_rows_kernel_gives_same_bits_twice(rng, cuda, BH, T, D):
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def _rows_ops_on(cuda, seed, BH, T, D, decay="ordinary"):
+    """``_rows_ops``'s distributions drawn on the card, for shapes whose
+    draw on the host would take long."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, y, z, w = (torch.randn((BH, T, D), generator=gen, device=cuda)
+                  for _ in range(4))
+    logw = {"ordinary": -torch.exp(w), "strong": -torch.exp(2 * w)}[decay]
+    return x, y, z, logw, 0.1 * torch.randn((BH, D, D), generator=gen, device=cuda)
+
+
+def _rows_held_twice(ops):
+    """The key-row kernel within 1e-4 * max|plain| of its plain version,
+    finite, one launch a call, the same bits twice."""
+    want = ref.wkv6_rows_ref(*ops)
+    before = wkv6_rows.launches
+    got, again = wkv6_rows(*ops), wkv6_rows(*ops)
+    torch.cuda.synchronize()
+    assert wkv6_rows.launches == before + 2
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("dT", [-1, 0, 1])
+@pytest.mark.parametrize("D", [16, 64])
+def test_wkv6_rows_kernel_around_one_chunk(rng, cuda, D, dT):
+    """T = L - 1, L and L + 1 for the kernel's chunk L (``gemm.rows_chunk``):
+    one chunk ending in a partial tile, one whole chunk, and a second chunk
+    of one token."""
+    _rows_held_twice([a.to(cuda) for a in _rows_ops(rng, 6, gemm.rows_chunk() + dT, D)])
+
+
+@pytest.mark.parametrize("BH,T,decay", [(1, 8192, "ordinary"), (80, 4096, "strong"),
+                                        (80, 65536, "ordinary")])
+def test_wkv6_rows_kernel_long_chains(cuda, BH, T, decay):
+    """(1, 8192): one sequence, a chain of 128 chunks; rwkv_train's (80,
+    4096) under strong decay (chunk products underflow to 0); (80, 65536):
+    81,920 blocks, some 200 times what the card holds at once, which finish
+    because a block waits only on a block that took its ticket earlier."""
+    _rows_held_twice(_rows_ops_on(cuda, BH + T, BH, T, 64, decay))
+
+
+@pytest.mark.parametrize("BH,T,D", [(5, 300, 64), (3, 70, 16)])
+def test_wkv6_rows_binding_refuses_other_head_sizes(rng, cuda, BH, T, D):
+    """Through the binding, the kernel against the plain version within
+    1e-4 * max; a head size it was not built for (32) is refused at
+    launch."""
+    ops = [a.to(cuda) for a in _rows_ops(rng, BH, T, D)]
+    want = ref.wkv6_rows_ref(*ops)
+    got = gemm.key_rows("wkv6_rows", *ops)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+    wide = [a.to(cuda) for a in _rows_ops(rng, BH, T, 32)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gemm.key_rows("wkv6_rows", *wide)
+
+
+@pytest.mark.parametrize("BH,T,words", [(80, 4096, 1 + 8 * 64 * 80),
+                                        (3, 100, 1 + 8 * 2 * 3),
+                                        (2, 20, 1 + 8 * 2)])
+def test_rows_sync_words_are_a_ticket_and_a_flag_a_warp(cuda, BH, T, words):
+    """The library's chunk length (64) and sync buffer for the key-row scan:
+    the ticket, then 8 flags (one a consumer warp, at most 8) for each
+    (chunk, sequence)."""
+    assert gemm.rows_chunk() == 64
+    assert gemm.rows_sync_words(BH, T) == words
+
+
 def _recurrence64(r, k, v, logw, u, s0):
     """The token recurrence on (BH, T, D) operands in float64."""
     s, outs = s0, []

@@ -36,8 +36,30 @@ calls) and ``cuda_p50`` (10 calls back to back, the host's time included).
         columns, ring slots, producer warps, resident blocks), held to the
         token recurrence at (80, 4096) and graph-timed at L 64, 128 and 256
         beside the repo's kernel at the rule's L.
+    PYTHONPATH=src python3 tools/k6_probe.py rows time [OLD_WKV6_ROWS_CU]
+        The key-row scan of K6's gradient (``csrc/wkv6_rows.cu``) at
+        rwkv_train's (80, 4096, 64) and at head size 16's (80, 4096, 16)
+        and (7, 70, 16): through its wrapper and, given the source of the
+        token recurrence it replaced (a ``wkv6_rows.cu`` from before the
+        chunked form, e.g. unpacked from that commit by ``git archive``),
+        that kernel through its C entry; each held to ``ref.wkv6_rows_ref`` within
+        1e-4 * max, then graph-timed in turns (in order, then in reverse).
+    PYTHONPATH=src python3 tools/k6_probe.py rows variants
+        Copies of wkv6_rows.cu with its compile-time knobs changed
+        (``ROWS_VARIANTS``: the split G, RPT of ``RowSplit<64>``, the chunk
+        length L, tokens a tile, ring slots, producer warps, resident
+        blocks), each in a process of its own, held to the plain version at
+        (80, 4096, 64) and graph-timed in turns with the repo's kernel.
+    PYTHONPATH=src python3 tools/k6_probe.py rows profile
+        The key-row scan at (80, 4096, 64) in chunks of the repo's L and of
+        128, from copies of wkv6_rows.cu whose blocks stamp
+        ``%globaltimer`` (consumer thread 0) after taking their ticket,
+        after the local pass, after the chain (the wait for the previous
+        chunk's state and the state step) and at the end: per block each
+        phase in ns, and the kernel's span.
 
-Builds go to ``build/probe/`` (listed in ``.gitignore``).
+Every ``rows`` reading prints the card's name and power limit.  Builds go
+to ``build/probe/`` (listed in ``.gitignore``).
 """
 from __future__ import annotations
 
@@ -517,18 +539,247 @@ def probe_chunk_variant(dev, tag):
              "rule": rule, "graph_ms": times})
 
 
+# -- the key-row scan (csrc/wkv6_rows.cu) ------------------------------------
+
+# rwkv_train's shape and head size 16's twins, (BH, T, D).
+ROWS_SHAPES = ((80, 4096, 64), (80, 4096, 16), (7, 70, 16))
+# The knobs of wkv6_rows.cu and the variants timed: (G, RPT) of
+# RowSplit<64>, tokens a chunk, tokens a tile, ring slots, producer warps,
+# resident blocks.  The repo's geometry at other chunk lengths, then other
+# geometries at its chunk length.
+_ROWS_KNOBS = ("template <> struct RowSplit<64> { static constexpr int G = 8, RPT = 4; };",
+               "constexpr int CHUNK = 64; ", "constexpr int TILE = 16; ",
+               "constexpr int STAGES = 2; ", "constexpr int PRODUCER_WARPS = 2;",
+               "constexpr int MIN_BLOCKS = 3; ")
+ROWS_VARIANTS = [(8, 4, 16, 16, 2, 2, 3), (8, 4, 32, 16, 2, 2, 3),
+                 (8, 4, 128, 16, 2, 2, 3), (8, 4, 256, 16, 2, 2, 3),
+                 (4, 4, 64, 16, 2, 2, 3), (16, 4, 64, 16, 2, 2, 2),
+                 (8, 2, 64, 16, 2, 2, 2), (8, 8, 64, 16, 2, 2, 3),
+                 (8, 4, 64, 32, 2, 2, 2), (8, 4, 64, 16, 2, 1, 3),
+                 (8, 4, 64, 16, 3, 2, 3), (8, 4, 64, 16, 2, 2, 4)]
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def rows_ops(dev, BH, T, D):
+    """x, y, z ~ N(0, 1), logw = -exp(N(0, 1)), s0 ~ 0.1 N(0, 1), from
+    chip_smoke.py's seed."""
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 39)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x, y, z = randn(BH, T, D), randn(BH, T, D), randn(BH, T, D)
+    return x, y, z, -torch.exp(randn(BH, T, D)), 0.1 * randn(BH, D, D)
+
+
+def held_to_plain(got, ops, tag):
+    from repro_torch.kernels import ref
+
+    want = ref.wkv6_rows_ref(*ops)
+    err = float((got - want).abs().max())
+    if not err <= cs.REL_TOL * float(want.abs().max()):
+        raise RuntimeError(f"{tag}: |kernel - plain| {err}")
+
+
+def rows_caller(lib, ops):
+    """A call of a built copy of wkv6_rows.cu (``lib``) on ``ops``, its
+    output and workspaces allocated by each call as ``gemm.key_rows``
+    allocates them, by the copy's own chunk length and sync-word count."""
+    from repro_torch.kernels import gemm
+
+    fn = lib.wkv6_rows
+    fn.argtypes = gemm._ENTRIES["wkv6_rows"][1]
+    words = lib.wkv6_rows_sync_words
+    words.argtypes, words.restype = [ctypes.c_int] * 2, ctypes.c_size_t
+    BH, T, D = ops[0].shape
+    nc = -(-T // lib.wkv6_rows_chunk())
+
+    def run():
+        out = torch.empty_like(ops[0])
+        states = ops[0].new_empty(max(nc - 1, 1) * BH * D * D)
+        sync = ops[0].new_zeros(words(BH, T), dtype=torch.int32)
+        err = fn(*[a.data_ptr() for a in (*ops, out, states, sync)], BH, T, D,
+                 ops[0].device.index, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"wkv6_rows refused: {err}")
+        return out
+    return run
+
+
+def old_rows_caller(fn, ops):
+    """A call of the token-recurrence kernel's ``wkv6_rows`` C entry (x,
+    y, z, logw, s0, out, BH, T, D, device, stream)."""
+    BH, T, D = ops[0].shape
+
+    def run():
+        out = torch.empty_like(ops[0])
+        err = fn(*[a.data_ptr() for a in (*ops, out)], BH, T, D, ops[0].device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the old wkv6_rows refused: {err}")
+        return out
+    return run
+
+
+def probe_rows_time(dev, old_source=None):
+    from repro_torch.kernels import build, gemm, wkv6_rows
+
+    build.build_all()
+    old = None
+    if old_source is not None:
+        lib, ptxas = build_copies({"rows_old": Path(old_source).read_text()})["rows_old"]
+        old = lib.wkv6_rows
+        old.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        cs.emit({"probe": "rows_time", "build": "old", "source": old_source,
+                 "ptxas": ptxas})
+    for BH, T, D in ROWS_SHAPES:
+        ops = rows_ops(dev, BH, T, D)
+        calls = {"wrapper": lambda: wkv6_rows(*ops)}
+        if old is not None:
+            calls["old"] = old_rows_caller(old, ops)
+        for tag, call in calls.items():
+            held_to_plain(call(), ops, f"({BH}, {T}, {D}) {tag}")
+        first = {tag: cs.graph_ms(call, 3, 10) for tag, call in calls.items()}
+        second = {tag: cs.graph_ms(call, 3, 10) for tag, call in reversed(calls.items())}
+        cs.emit({"probe": "rows_time", "card": card(), "shape": [BH, T, D],
+                 "rows_chunk": gemm.rows_chunk(),
+                 "graph_ms": {t: (first[t] + second[t]) / 2 for t in calls},
+                 "runs_ms": {t: [first[t], second[t]] for t in calls},
+                 "wrapper_eager_ms": cs.cuda_p50(calls["wrapper"], 5, 10),
+                 "bound_ms": cs.rows_bound(BH, T, D)[0],
+                 "form_floor_ms": cs.rows_form_floor_ms(BH, T, D)})
+        del ops
+        torch.cuda.empty_cache()
+
+
+def probe_rows_variants(dev):
+    from repro_torch.kernels import build
+
+    src = build.SOURCES["wkv6_rows"].read_text()
+    sources = {}
+    for g, rpt, L, tile, stages, pw, mb in ROWS_VARIANTS:
+        v = src
+        for old, new in zip(_ROWS_KNOBS, (
+                f"template <> struct RowSplit<64> {{ static constexpr int G = {g}, RPT = {rpt}; }};",
+                f"constexpr int CHUNK = {L}; ", f"constexpr int TILE = {tile}; ",
+                f"constexpr int STAGES = {stages}; ", f"constexpr int PRODUCER_WARPS = {pw};",
+                f"constexpr int MIN_BLOCKS = {mb}; ")):
+            v = patched(v, old, new)
+        sources[f"rows_G{g}_R{rpt}_L{L}_T{tile}_S{stages}_P{pw}_B{mb}"] = v
+    libs = build_copies(sources)
+    for tag, (_, ptxas) in libs.items():
+        cs.emit({"probe": "rows_variants", "build": tag, "ptxas": ptxas})
+    for tag in libs:
+        proc = subprocess.run([sys.executable, __file__, "rows_variant", tag],
+                              capture_output=True, text=True, timeout=600)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode:
+            cs.emit({"probe": "rows_variants", "variant": tag, "failed": proc.returncode,
+                     "stderr": proc.stderr[-1500:]})
+
+
+def probe_rows_variant(dev, tag):
+    """One built variant of ``rows variants`` (``build/probe/wkv6_<tag>.so``)
+    at (80, 4096, 64), in turns with the repo's kernel."""
+    from repro_torch.kernels import build
+
+    ops = rows_ops(dev, 80, 4096, 64)
+    base = rows_caller(build.load("wkv6_rows"), ops)
+    held_to_plain(base(), ops, "repo")
+    times = {"repo_before": cs.graph_ms(base, 3, 10)}
+    run = rows_caller(ctypes.CDLL(str(OUT / f"wkv6_{tag}.so")), ops)
+    held_to_plain(run(), ops, tag)
+    times["variant"] = cs.graph_ms(run, 3, 10)
+    times["repo_after"] = cs.graph_ms(base, 3, 10)
+    cs.emit({"probe": "rows_variants", "variant": tag, "card": card(),
+             "shape": [80, 4096, 64], "graph_ms": times})
+
+
+def probe_rows_profile(dev):
+    from repro_torch.kernels import build, gemm
+
+    src = build.SOURCES["wkv6_rows"].read_text()
+    stamps = [
+        _CLOCK,
+        ("    const int ticket = *ticket_s;\n",
+         "    const int ticket = *ticket_s;\n"
+         "    unsigned long long* const pr = g_prof + (size_t)ticket * 4;\n"
+         "    if (tid == 0) pr[0] = clk();\n"),
+        ("    const float* start = s0 + (size_t)bh * D * D;\n",
+         "    if (tid == 0) pr[1] = clk();\n"
+         "    const float* start = s0 + (size_t)bh * D * D;\n"),
+        ("    // The correction: out_t = the local read-out + a_{t-1} (S_start(c) .\n",
+         "    if (tid == 0) pr[2] = clk();\n"
+         "    // The correction: out_t = the local read-out + a_{t-1} (S_start(c) .\n"),
+        ("            store_n<RPT>(o_seq + (size_t)t * D + row0, o);\n        }\n    }\n}\n",
+         "            store_n<RPT>(o_seq + (size_t)t * D + row0, o);\n        }\n    }\n"
+         "    if (tid == 0) pr[3] = clk();\n}\n"),
+    ]
+    for old, new in stamps:
+        src = patched(src, old, new)
+    chunks = sorted({gemm.rows_chunk(), 128})
+    libs = build_copies({f"rows_profile_L{L}": patched(
+        src, _ROWS_KNOBS[1], f"constexpr int CHUNK = {L}; ") + _SET_PROF for L in chunks})
+    BH, T, D = 80, 4096, 64
+    ops = rows_ops(dev, BH, T, D)
+    for L in chunks:
+        lib, _ = libs[f"rows_profile_L{L}"]
+        lib.wkv6_set_prof.argtypes = [ctypes.c_void_p]
+        blocks = BH * -(-T // L)
+        prof = torch.zeros(blocks * 4, dtype=torch.int64, device=dev)
+        if lib.wkv6_set_prof(prof.data_ptr()):
+            raise RuntimeError("cudaMemcpyToSymbol failed")
+        run = rows_caller(lib, ops)
+        for _ in range(3):
+            out = run()
+        torch.cuda.synchronize()
+        held_to_plain(out, ops, f"profiled rows L {L}")
+        a = prof.cpu().numpy().reshape(blocks, 4).astype(np.int64)
+        later = np.arange(blocks) >= BH
+        span = int(a[:, 3].max() - a[:, 0].min())
+        cs.emit({"probe": "rows_profile", "card": card(), "shape": [BH, T, D], "L": L,
+                 "blocks": blocks, "kernel_span_ns": span,
+                 "block_ns_mean": float((a[:, 3] - a[:, 0]).mean()),
+                 "per_block_ns": {
+                     "local_pass": float((a[:, 1] - a[:, 0]).mean()),
+                     "chain": float((a[:, 2] - a[:, 1]).mean()),
+                     "chain_past_chunk_0": float((a[later, 2] - a[later, 1]).mean()),
+                     "correction": float((a[:, 3] - a[:, 2]).mean())},
+                 "chain_p90_ns": float(np.percentile(a[:, 2] - a[:, 1], 90)),
+                 "chain_share_of_block_time": float((a[:, 2] - a[:, 1]).sum()
+                                                    / (a[:, 3] - a[:, 0]).sum()),
+                 "start_spread_ns": int(a[:, 0].max() - a[:, 0].min())})
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     probes = {"time": probe_time, "variants": probe_variants, "profile": probe_profile,
               "chunk_variants": probe_chunk_variants}
+    rows = {"time": probe_rows_time, "variants": probe_rows_variants,
+            "profile": probe_rows_profile}
     if not torch.cuda.is_available():
         sys.exit("k6_probe.py: no CUDA device")
+    dev = torch.device("cuda", 0)
     if mode == "chunk_variant" and len(sys.argv) == 3:
-        probe_chunk_variant(torch.device("cuda", 0), sys.argv[2])
+        probe_chunk_variant(dev, sys.argv[2])
+        return
+    if mode == "rows_variant" and len(sys.argv) == 3:
+        probe_rows_variant(dev, sys.argv[2])
+        return
+    if mode == "rows":
+        sub = sys.argv[2] if len(sys.argv) > 2 else ""
+        if sub not in rows or (len(sys.argv) > 3 and sub != "time") or len(sys.argv) > 4:
+            sys.exit(f"usage: k6_probe.py rows {{{'|'.join(rows)}}} (time [OLD_WKV6_ROWS_CU])")
+        rows[sub](dev, *sys.argv[3:])
         return
     if mode not in probes:
-        sys.exit(f"usage: k6_probe.py {{{'|'.join(probes)}}}")
-    probes[mode](torch.device("cuda", 0))
+        sys.exit(f"usage: k6_probe.py {{{'|'.join(probes)}|rows}}")
+    probes[mode](dev)
 
 
 if __name__ == "__main__":
