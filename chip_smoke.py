@@ -67,6 +67,33 @@ printing one JSON line; any failure raises and exits non-zero:
                 launched, no other kernel.  Printed:
                 requests/s, p50/p95, shed/expired/reconnect/duplicate
                 counts, retries and hedges.
+ 3c. sharded_path the port's sharding (``repro_torch.sharding``,
+                ``launch/mesh.py``) on a one-rank NCCL group and a (1, 1)
+                ("data", "model") mesh on the card (NCCL refuses two ranks
+                on one device: the multi-rank runs are the CPU tests', on
+                gloo).  All seven launch counters reset first.  (a) Under
+                ``mesh_context``, one round of main_path's 256 requests on
+                main_path's registry through a fresh engine: its delivered
+                images bit-equal to an unsharded engine's on the same
+                registry and round, K1 and K2 launched once a microbatch
+                as there, and ``_execute`` returns a DTensor placed
+                ``Shard(0)`` on "data"; (b) ``compressed_psum`` of 2^20
+                normals over "data" within the reference's 0.05, int8 on
+                the wire; (c) the train step at deepseek_7b's published
+                width in fp32, 2 layers (1.24 B parameters), 2 sequences
+                of 256 in 2 microbatches, parameters and moments placed by
+                ``param_rules`` / ``opt_state_rules``, against the same
+                step unsharded: loss and grad norm within 1e-5 relative,
+                each gradient leaf within 1e-5 of its max|g|; (d)
+                ``_apply_moe_sharded`` on one deepseek_moe_16b MoE layer at
+                published widths (d 2048, 64 routed experts of 1408, 2
+                shared, top-6) in fp32 on 4 x 512 tokens, the rank's own
+                rows with the weights placed by ``param_rules`` and viewed
+                as the train step views them, against the dense
+                ``apply_moe`` (one rank: its tokens and experts are all of
+                them, at the same capacity) within 1e-5 of max.  No other
+                kernel runs.  Prints each reading beside its limit, the
+                steps' times, the peak device memory and the phase's time.
   4. churn      6 tenants at capacity 4 (alpha=3, beta=16, m=16), so slots
                 are evicted inside one flush round and the engine's
                 copy-on-write of the secret stacks runs; every result must
@@ -703,6 +730,19 @@ RESUME_KEEP = 3                 # launch/train.py's CheckpointManager(keep=3)
 # 16.78 GB stacks: 37.75 GB, so 40 layers need about 94 GB.  22 layers
 # peaked at 69.25 GB (same card), so 23 (70.7 predicted) is the most.
 PEAK_LIMIT_GB = 72.0
+# sharded_path: the train step at deepseek_7b's published width in fp32, 2
+# layers: embed and head 2 x 102400 x 4096 = 0.839 B parameters, a layer
+# 0.2025 B, 1.24 B in all; 20 GB of state at 16 B a parameter (fp32
+# params, microbatch sum and two moments), so the unsharded and the sharded
+# run with their captured gradients stay near 40 GB.  One MoE layer of
+# deepseek_moe_16b in fp32: 0.55 B parameters, 2.2 GB.
+SHARDED_TRAIN = dict(arch="deepseek_7b", groups=2, seq=256, global_batch=2,
+                     micro=2)
+SHARDED_MOE = dict(arch="deepseek_moe_16b", batch=4, seq=512)
+SHARDED_REL = 1e-5      # loss, grad norm (relative); a gradient leaf, of max|g|
+SHARDED_MOE_REL = 1e-5  # of max|dense apply_moe|
+PSUM_ABS = 0.05         # compressed_psum: the reference's bound
+PSUM_N = 1 << 20
 GEMMA2_ARCH, GEMMA2_PROMPT, GEMMA2_GROUPS = "gemma2_27b", 6144, 18
 COMMAND_R_ARCH, COMMAND_R_PROMPT, COMMAND_R_LAYERS = "command_r_35b", 512, 23
 # K3 at their decode shapes on bf16 tables (the lane's stacks; fp32 tables
@@ -1686,7 +1726,8 @@ def k6_checks(dev, kernels, ref, build_report) -> tuple[dict, dict]:
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     row.update(ms=(runs[0] + runs[2]) / 2, plain_ms=(runs[1] + runs[3]) / 2,
                library_ms=None, bound_ms=b, bound_by=by,
-               form_floor_ms=k6_form_floor_ms(BH, T, K6_D), eager_ms=eager,
+               bounds={"form_floor_ms": k6_form_floor_ms(BH, T, K6_D)},
+               eager_ms=eager,
                timed_shape=f"r/k/v/logw ({BH}, {T}, {K6_D}) fp32, chunk {K6_CHUNK}",
                geometry={"form": gemm.scan_form(BH, T, K6_D, sms), "G": G,
                          "CPT": CPT, "C": C,
@@ -2991,6 +3032,246 @@ def served_path(dev, runtime, kernels, ctx) -> dict:
            "chaos_rate": SERVED_CHAOS_RATE,
            "launches": vision_launches(kernels, "served_path"),
            "clean": clean, "chaos": chaos}
+    emit(out)
+    return out
+
+
+def _leaf_grads(step, params, opt, batch):
+    """One train step, and the gradients ``adamw.apply`` received in it
+    (whole tensors, copied)."""
+    from repro_torch.optim import adamw
+
+    seen = {}
+    real = adamw.apply
+
+    def capture(cfg, p, grads, state):
+        seen.update({n: (g.full_tensor() if hasattr(g, "full_tensor") else g)
+                     .detach().clone() for n, g in grads.items()})
+        return real(cfg, p, grads, state)
+
+    adamw.apply = capture
+    try:
+        out = step(params, opt, batch)
+    finally:
+        adamw.apply = real
+    return out, seen
+
+
+def sharded_path(dev, core, runtime, kernels, ctx) -> dict:
+    """Phase 3c (module docstring): the sharded vision flush, compressed_psum,
+    the sharded train step and expert-parallel MoE on a (1, 1) mesh."""
+    import dataclasses
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_context, single_device_mesh
+    from repro_torch.launch.steps import (TrainHParams, make_train_step,
+                                          shard_train_state)
+    from repro_torch.models import Model, blocks as B
+    from repro_torch.models.base import init_params, param_axes
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import compressed_psum
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import spmd
+
+    t_phase = time.monotonic()
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = single_device_mesh(dev.type)
+        out = {"phase": "sharded_path", "backend": backend,
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+
+        # (a) the vision flush on main_path's registry, sharded and not
+        reg, requests, _ = ctx
+
+        def one_round(engine):
+            rids = [engine.submit(q) for q in requests]
+            engine.flush()
+            return [engine.take(r) for r in rids]
+
+        k12 = ("grouped_block_diag_matmul", "grouped_aug_gemm")
+        plain_engine = runtime.MoLeDeliveryEngine(reg, dev)
+        want = one_round(plain_engine)
+        plain_launches = {n: getattr(kernels, n).launches for n in k12}
+        plain_mb = plain_engine.stats.microbatches
+        del plain_engine
+        release()
+        engine = runtime.MoLeDeliveryEngine(reg, dev)
+        t0 = time.monotonic()
+        with mesh_context(mesh):
+            got = one_round(engine)
+            flush_s = time.monotonic() - t0
+            sharded_launches = {n: getattr(kernels, n).launches
+                                - plain_launches[n] for n in k12}
+            for q in requests:
+                engine.submit(q)
+            mb = engine.queue.coalesce(reg.slot_for, max_groups=reg.capacity)
+            placed = engine._execute(mb.x, mb.group_tenant,
+                                     engine._refresh_plan())
+        check(isinstance(placed, DTensor), "sharded_path: _execute did not "
+              "return a DTensor")
+        placements = [str(p) for p in placed.placements]
+        check(placements == ["S(0)", "R"],
+              f"sharded_path: _execute placed {placements}")
+        check(len(got) == len(want) and all(
+            a.shape == b.shape and np.array_equal(a, b)
+            for a, b in zip(got, want)),
+            "sharded_path: sharded images differ from the unsharded engine's")
+        check(plain_launches == dict.fromkeys(k12, plain_mb)
+              and sharded_launches == plain_launches,
+              f"sharded_path: K1/K2 launched {sharded_launches} sharded, "
+              f"{plain_launches} unsharded, for {plain_mb} microbatches")
+        out["vision"] = {
+            "requests": len(requests), "microbatch": list(mb.x.shape),
+            "microbatches": plain_mb, "launches": sharded_launches,
+            "bit_equal": True, "execute_placements": placements,
+            "sharded_flush_s": flush_s}
+        del engine, placed, got, want, mb
+        release()
+
+        # (b) compressed_psum over "data"
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(PSUM_N, generator=gen, device=dev)
+        wire = []
+        real_gather = dist.all_gather
+
+        def gather(tensors, t, group=None, **kw):
+            wire.append(str(t.dtype))
+            return real_gather(tensors, t, group=group, **kw)
+
+        dist.all_gather = gather
+        try:
+            summed = compressed_psum(x, "data", mesh)
+        finally:
+            dist.all_gather = real_gather
+        err = float((summed - x).abs().max())
+        check(err < PSUM_ABS, f"compressed_psum: {err} >= {PSUM_ABS}")
+        check(wire == ["torch.int8", "torch.float32"],
+              f"compressed_psum: the wire carried {wire}")
+        out["compressed_psum"] = {"n": PSUM_N, "max_abs_err": err,
+                                  "limit": PSUM_ABS, "wire": wire}
+        del x, summed
+
+        # (c) the train step, sharded against unsharded
+        tr = SHARDED_TRAIN
+        cfg = dataclasses.replace(get_config(tr["arch"]),
+                                  n_groups=tr["groups"], dtype="float32",
+                                  param_dtype="float32")
+        model = Model(cfg, dev)
+        step = make_train_step(model, TrainHParams(microbatch=tr["micro"]))
+        rng = np.random.default_rng(SEED)
+        batch = {k: torch.as_tensor(
+            rng.integers(0, cfg.vocab, (tr["global_batch"], tr["seq"])),
+            dtype=torch.int32, device=dev) for k in ("tokens", "targets")}
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, (time.monotonic() - t0) * 1e3
+
+        params = model.init(SEED)
+        (ref_run, ref_g), ref_ms = timed(
+            lambda: _leaf_grads(step, params, adamw.init_state(params), batch))
+        ref_m = ref_run[2]
+        del params, ref_run
+        release()
+        params = model.init(SEED)
+        sp, so = shard_train_state(model, params, adamw.init_state(params),
+                                   mesh)
+        del params
+        with mesh_context(mesh):
+            ((sp, so, sh_m), sh_g), sh_ms = timed(
+                lambda: _leaf_grads(step, sp, so, batch))
+        leaf_rel = {n: float((sh_g[n] - g).abs().max()
+                             / g.abs().max().clamp_min(1e-30))
+                    for n, g in ref_g.items()}
+        worst = max(leaf_rel, key=leaf_rel.get)
+        loss = (float(ref_m["loss"]), float(sh_m["loss"]))
+        norm = (float(ref_m["grad_norm"]), float(sh_m["grad_norm"]))
+        loss_rel = abs(loss[1] - loss[0]) / abs(loss[0])
+        norm_rel = abs(norm[1] - norm[0]) / norm[0]
+        out["train"] = {
+            "arch": tr["arch"], "layers": cfg.n_layers,
+            "params": model.param_count(), "dtype": "float32",
+            "batch": [tr["global_batch"], tr["seq"]],
+            "microbatches": tr["micro"],
+            "head_placements": [str(p) for p in
+                                dict(adamw.named_leaves(sp))["head"].placements],
+            "loss_unsharded": loss[0], "loss_sharded": loss[1],
+            "loss_rel": loss_rel, "grad_norm_unsharded": norm[0],
+            "grad_norm_sharded": norm[1], "grad_norm_rel": norm_rel,
+            "worst_grad_leaf": worst, "worst_grad_rel": leaf_rel[worst],
+            "limit_rel": SHARDED_REL,
+            "step_ms_unsharded": ref_ms, "step_ms_sharded": sh_ms}
+        check(np.isfinite(loss).all() and np.isfinite(norm).all(),
+              f"sharded train step: non-finite {loss} {norm}")
+        check(loss_rel <= SHARDED_REL and norm_rel <= SHARDED_REL,
+              f"sharded train step: loss {loss}, grad norm {norm} beyond "
+              f"{SHARDED_REL} relative")
+        check(leaf_rel[worst] <= SHARDED_REL,
+              f"sharded train step: gradient {worst} {leaf_rel[worst]} of "
+              f"max|g| > {SHARDED_REL}")
+        del sp, so, ref_g, sh_g, model, step, batch
+        release()
+
+        # (d) expert-parallel MoE against the dense form
+        mo = SHARDED_MOE
+        mcfg = dataclasses.replace(get_config(mo["arch"]), dtype="float32",
+                                   param_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        p = init_params(B.schema_moe(mcfg), torch.float32, gen, dev)
+        x = torch.randn((mo["batch"], mo["seq"], mcfg.d_model),
+                        generator=gen, device=dev)
+        # the weights placed by the rules and viewed as the train step
+        # views an MoE FFN; x is this rank's own tokens (all of them)
+        placed = R.shard_tree(R.param_rules(mesh, fsdp=True),
+                              param_axes(B.schema_moe(mcfg)), p)
+        with torch.no_grad():
+            dense, dense_ms = timed(lambda: B.apply_moe(p, x, mcfg))
+            view = spmd.in_use(spmd.Deferred(placed, mesh, True))
+            y, moe_ms = timed(lambda: B.apply_moe(view, x, mcfg))
+        moe_rel = float((y - dense).abs().max() / dense.abs().max())
+        out["moe"] = {
+            "arch": mo["arch"], "tokens": [mo["batch"], mo["seq"]],
+            "d_model": mcfg.d_model, "experts": mcfg.moe.n_routed,
+            "d_ff_expert": mcfg.moe.d_ff_expert, "shared": mcfg.moe.n_shared,
+            "top_k": mcfg.moe.top_k,
+            "capacity": B.moe_capacity(mo["batch"] * mo["seq"], mcfg),
+            "compared_with": "dense apply_moe (one rank holds every token "
+                             "and expert at the dense form's capacity)",
+            "max_rel_err": moe_rel, "limit_rel": SHARDED_MOE_REL,
+            "bit_equal": bool(torch.equal(y, dense)),
+            "ms_dense": dense_ms, "ms_sharded": moe_ms}
+        check(bool(torch.isfinite(y).all()), "sharded MoE: non-finite")
+        check(moe_rel <= SHARDED_MOE_REL,
+              f"sharded MoE: {moe_rel} of max > {SHARDED_MOE_REL}")
+        del p, placed, view, x, y, dense
+    finally:
+        dist.destroy_process_group()
+    counts = {n: getattr(kernels, n).launches for n in KERNEL_NAMES}
+    want_counts = dict.fromkeys(KERNEL_NAMES, 0)
+    want_counts.update({n: 2 * plain_mb + 1 for n in k12})
+    check(counts == want_counts,
+          f"sharded_path launched {counts}, expected {want_counts}")
+    out["launches"] = counts
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(out["peak_gb"] <= PEAK_LIMIT_GB,
+          f"sharded_path: peak {out['peak_gb']:.2f} GB > {PEAK_LIMIT_GB}")
+    out["seconds"] = time.monotonic() - t_phase
     emit(out)
     return out
 
@@ -4945,6 +5226,8 @@ def main() -> None:
     async_path(dev, core, runtime, kernels, ctx, main["images_per_s_engine"])
     release()
     served_path(dev, runtime, kernels, ctx)
+    release()
+    sharded_path(dev, core, runtime, kernels, ctx)
     del ctx
     release()
     churn(dev, core, runtime)
@@ -5047,11 +5330,20 @@ def main() -> None:
                       "gradient; no Pallas kernel)"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def figures(row: dict) -> dict:
+        # a kernel's computed floors (K6's and the key-row scan's form
+        # floors) stand beside its bound, under "bounds"
+        out = {k: row[k] for k in keys[:4]}
+        if "bounds" in row:
+            out["bounds"] = row["bounds"]
+        out["library_ms"] = row["library_ms"]
+        return out
+
     line = [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": rows[name]["max_abs_err"],
-         **{k: rows[name][k] for k in keys}}
+         "max_abs_err": rows[name]["max_abs_err"], **figures(rows[name])}
         for name, (src, replaces) in kernel_rows.items()
     ]
     # K3's figures are on bf16 tables, the decode lane's head stacks; its

@@ -33,7 +33,8 @@ threads (the async delivery engine's flusher snapshots between rounds
 while ``snapshot_now`` saves from a caller): a lock orders them, where the
 reference's manager would join a writer another thread has not started
 yet.  Restore onto other shardings (the reference's
-``shardings=``) is not ported.
+``shardings=``) is not ported yet: it is ROADMAP item 9d, on the meshes of
+:mod:`repro_torch.launch.mesh`.
 """
 from __future__ import annotations
 
@@ -224,7 +225,8 @@ class CheckpointManager:
         numpy array (bfloat16 always as a tensor)."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore onto shardings is not ported (the sharding slice)"
+                "restore onto shardings is not ported yet (ROADMAP item "
+                "9d)"
             )
         d = self.root / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())

@@ -33,9 +33,11 @@ import functools
 
 import torch
 
+from ..sharding.hints import is_dtensor
 from . import build
 
 __all__ = ["MAX_GRID_YZ", "MORPH_BK", "TF32_BK", "check_operands", "aug",
+           "refuse_dtensor",
            "aug_workspace_floats", "morph", "morph_route", "morph_splits",
            "morph_tf32", "tf32_splits", "sm_count", "rows", "row_splits",
            "scan", "scan_form", "scan_smem_bytes", "scan_sync_words",
@@ -136,11 +138,21 @@ def _call(name: str, symbol: str, a: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name} launch failed: {err_str(err).decode()} ({err})")
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """A kernel takes plain tensors: a DTensor is refused, not gathered
+    (each rank passes its own shard)."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; pass each rank's local "
+                        f"shard (DTensor.to_local())")
+
+
 def check_operands(name: str, a: torch.Tensor, b: torch.Tensor,
                    dtypes: tuple[torch.dtype, ...]) -> None:
-    """What every entry point takes: one device, one dtype out of
-    ``dtypes``, contiguous, non-empty, no operand that requires grad (the
-    kernels have no backward), at most ``MAX_GRID_YZ`` groups when 3-D."""
+    """What every entry point takes: plain tensors (no DTensor), one
+    device, one dtype out of ``dtypes``, contiguous, non-empty, no operand
+    that requires grad (the kernels have no backward), at most
+    ``MAX_GRID_YZ`` groups when 3-D."""
+    refuse_dtensor(name, a, b)
     if a.device != b.device:
         raise ValueError(f"{name}: operands on different devices "
                          f"({a.device}, {b.device})")

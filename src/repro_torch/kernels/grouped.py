@@ -42,6 +42,7 @@ def _check(name: str, a: torch.Tensor, gidx: torch.Tensor,
            b: torch.Tensor) -> None:
     """What the kernel takes: one device, fp32 operands, int32 gidx (G,),
     contiguous, non-empty, within the grid limits (:func:`gemm.check_operands`)."""
+    gemm.refuse_dtensor(name, a, gidx, b)
     if gidx.device != a.device:
         raise ValueError(
             f"{name}: operands on different devices "
@@ -126,6 +127,7 @@ def grouped_row_gemm(
     the bytes; the decode lane stages its head stacks so in bf16 models.
     """
     name = "grouped_row_gemm"
+    gemm.refuse_dtensor(name, h, gidx, tables)
     if not (h.device == gidx.device == tables.device):
         raise ValueError(
             f"{name}: operands on different devices "

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .gemm import refuse_dtensor
 from .aug_gemm import aug_gemm
 from .block_diag import block_diag_matmul
 from .grouped import grouped_aug_gemm, grouped_block_diag_matmul, grouped_row_gemm
@@ -95,6 +96,7 @@ def morph_rows_grouped(
     x: torch.Tensor, gidx, cores: torch.Tensor, kappa: int
 ) -> torch.Tensor:
     """Slot-indexed morphing: x (G, B, kappa*q), gidx (G,), cores (S, q, q)."""
+    refuse_dtensor("morph_rows_grouped", x, gidx, cores)
     return grouped_block_diag_matmul(
         x, _safe_gidx(gidx, cores.shape[0], x.device), cores, int(kappa)
     )
@@ -104,6 +106,7 @@ def aug_conv_forward_grouped(
     t: torch.Tensor, gidx, c_acs: torch.Tensor
 ) -> torch.Tensor:
     """Slot-indexed Aug-Conv forward: t (G, B, K), gidx (G,), c_acs (S, K, N)."""
+    refuse_dtensor("aug_conv_forward_grouped", t, gidx, c_acs)
     return grouped_aug_gemm(t, _safe_gidx(gidx, c_acs.shape[0], t.device), c_acs)
 
 
@@ -111,6 +114,7 @@ def token_morph_grouped(tokens: torch.Tensor, gidx,
                         perms: torch.Tensor) -> torch.Tensor:
     """Slot-indexed token morphing: tokens (G, B, L), gidx (G,), perms (S, V)
     -> morphed (G, B, L); no (G, V) copy of the permutations."""
+    refuse_dtensor("token_morph_grouped", tokens, gidx, perms)
     return ref.token_morph_grouped_ref(
         tokens, _safe_gidx(gidx, perms.shape[0], tokens.device), perms
     )
@@ -120,6 +124,7 @@ def aug_embed_grouped(tokens: torch.Tensor, gidx,
                       tables: torch.Tensor) -> torch.Tensor:
     """Slot-indexed Aug-Embedding: morphed tokens (G, B, L) gathered from the
     stacked (S, V, d) tables -> (G, B, L, d)."""
+    refuse_dtensor("aug_embed_grouped", tokens, gidx, tables)
     return ref.aug_embed_grouped_ref(
         tokens, _safe_gidx(gidx, tables.shape[0], tokens.device), tables
     )
@@ -129,6 +134,7 @@ def aug_embed_rows_grouped(tokens: torch.Tensor, gidx,
                            tables: torch.Tensor) -> torch.Tensor:
     """Per-row slot-indexed AugE gather, the batched-decode embedding step:
     tokens (R,), gidx (R,), tables (S, V, d) -> (R, d)."""
+    refuse_dtensor("aug_embed_rows_grouped", tokens, gidx, tables)
     return ref.aug_embed_rows_grouped_ref(
         tokens, _safe_gidx(gidx, tables.shape[0], tokens.device), tables
     )
@@ -140,6 +146,7 @@ def lm_head_rows_grouped(h: torch.Tensor, gidx,
     h (R, d), gidx (R,), heads (S, d, V) fp32 or bf16 -> (R, V)
     morphed-order logits in ``h.dtype`` (K3:
     :func:`~repro_torch.kernels.grouped.grouped_row_gemm`)."""
+    refuse_dtensor("lm_head_rows_grouped", h, gidx, heads)
     return grouped_row_gemm(
         h.contiguous(), _safe_gidx(gidx, heads.shape[0], h.device), heads
     )

@@ -70,7 +70,9 @@ _HEAD_SIZES = (16, 64)        # rwkv6_3b's smoke and full head sizes
 
 
 def _check_operands(name: str, ops) -> None:
-    """One device, contiguous, non-empty, no operand that requires grad."""
+    """Plain tensors on one device, contiguous, non-empty, no operand that
+    requires grad."""
+    gemm.refuse_dtensor(name, *ops)
     if any(a.device != ops[0].device for a in ops):
         raise ValueError(f"{name}: operands on different devices "
                          f"{[str(a.device) for a in ops]}")

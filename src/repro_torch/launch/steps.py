@@ -8,6 +8,19 @@ written in place (see :mod:`repro_torch.models.blocks`) and returned; the
 train step updates the parameters and optimizer state in place and returns
 them.  The serving steps run under ``torch.no_grad()``, so they record no
 autograd graph whatever the parameters' ``requires_grad``.
+
+Under a mesh (:func:`repro_torch.launch.mesh.mesh_context`) the train step
+runs SPMD, one process a rank: the parameters and AdamW moments are DTensors
+(:func:`shard_train_state`: ``param_rules(fsdp=True)`` and
+``opt_state_rules``); each microbatch splits its rows over the dp axes;
+each rank runs the model on plain local tensors through
+:func:`repro_torch.sharding.spmd.compute_view`: the head runs
+vocab-parallel and MoE FFNs expert-parallel over "model", and every other
+layer's weights are gathered whole one block at a time where it runs
+(under remat, again for its backward), then computed alike on the ranks
+of a "model" group; the loss is the mean over the dp ranks, and the
+gradient accumulators are placed as their leaves.  Without a mesh none of
+this runs.
 """
 from __future__ import annotations
 
@@ -22,9 +35,12 @@ from ..models import layers as L
 from ..models import stack as S
 from ..models.api import Model
 from ..optim import adamw
+from ..sharding import rules as R
+from ..sharding import spmd
+from ..sharding.hints import ambient_mesh, is_dtensor
 
 __all__ = [
-    "TrainHParams", "make_train_step",
+    "TrainHParams", "make_train_step", "shard_train_state",
     "make_prefill_step", "make_decode_step", "make_row_prefill_step",
     "make_batched_decode_logits", "make_batched_decode_step",
 ]
@@ -65,6 +81,58 @@ def _grad_on(leaves):
             p.requires_grad_(r)
 
 
+def _flat_axes(axes, prefix: str = "") -> dict:
+    """Logical axes keyed by each leaf's dotted name (``adamw.named_leaves``
+    spelling: ``"blocks.0.mix.wq"``)."""
+    if isinstance(axes, tuple):
+        return {prefix.rstrip("."): axes}
+    items = axes.items() if isinstance(axes, dict) else enumerate(axes)
+    return {n: a for k, v in items
+            for n, a in _flat_axes(v, f"{prefix}{k}.").items()}
+
+
+def shard_train_state(model: Model, params, opt_state: dict, mesh):
+    """``(params, opt_state)`` placed on ``mesh`` as DTensors: the
+    parameters by ``param_rules(mesh, fsdp=True)``, the AdamW moments by
+    ``opt_state_rules(mesh)`` (so each moment is placed as its leaf); the
+    count stays a plain tensor.  Every rank passes the same whole tensors
+    and keeps its own slices."""
+    axes = model.axes()
+    params = R.shard_tree(R.param_rules(mesh, fsdp=True), axes, params)
+    flat, rules = _flat_axes(axes), R.opt_state_rules(mesh)
+    moments = {
+        k: {n: R.shard_tensor(t, mesh, rules.spec_for(flat[n], t.shape))
+            for n, t in opt_state[k].items()}
+        for k in ("m", "v")
+    }
+    return params, dict(opt_state, **moments)
+
+
+def _micro_inputs(params, mb: dict, mesh):
+    """What the loss reads for one microbatch: the parameters and inputs as
+    they are off a mesh; under one, the compute view of the DTensor
+    parameters and this rank's rows (all of them, replicated, where they
+    do not split over the dp ranks)."""
+    if mesh is None:
+        return params, mb
+    split = spmd.rows_split(next(iter(mb.values())).shape[0], mesh)
+    return (spmd.compute_view(params, mesh, rows_split=split),
+            {k: spmd.local_rows(v, mesh) for k, v in mb.items()})
+
+
+def _loss_of(loss, mesh):
+    """The microbatch's loss: under a mesh the mean of the ranks' means
+    over the dp axes (the microbatch splits into equal rows)."""
+    return loss if mesh is None else spmd.mean_over_dp(loss, mesh)
+
+
+def _like(g, p):
+    """The gradient ``g`` placed as its leaf ``p`` (a no-op off a mesh)."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(model: Model, hp: TrainHParams):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``, with
     ``metrics = {loss, grad_norm, lr}`` (0-dim fp32 tensors).
@@ -81,31 +149,43 @@ def make_train_step(model: Model, hp: TrainHParams):
     Every stack of the registry trains; an RWKV-6 time-mix takes its scan's
     gradient through :func:`repro_torch.kernels.wkv6.wkv6_scan` (K6 on
     flipped operands and two key-row scans).
+
+    Under an ambient mesh ``params`` and ``opt_state`` are
+    :func:`shard_train_state`'s and ``batch`` holds whole tensors (alike on
+    every rank); the metrics come back whole.
     """
 
     def loss_fn(params, mb):
         return model.loss(params, mb, remat=hp.remat)
 
     def train_step(params, opt_state, batch):
+        mesh = ambient_mesh()
         names, leaves = zip(*adamw.named_leaves(params))
         n_micro = hp.microbatch or 1
         with torch.enable_grad(), _grad_on(leaves):
             if n_micro > 1:
                 micro = _split_micro(batch, n_micro)
-                gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                gsum = [torch.zeros_like(p, dtype=torch.float32)
+                        if is_dtensor(p) else
+                        torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device) for p in leaves]
                 lsum = torch.zeros((), dtype=torch.float32,
                                    device=leaves[0].device)
                 for i in range(n_micro):
-                    loss = loss_fn(params, {k: v[i] for k, v in micro.items()})
-                    for a, g in zip(gsum, torch.autograd.grad(loss, leaves)):
-                        a.add_(g)           # fp32 + the gradient's type
+                    loss = _loss_of(loss_fn(*_micro_inputs(
+                        params, {k: v[i] for k, v in micro.items()}, mesh)),
+                        mesh)
+                    for a, g, p in zip(gsum, torch.autograd.grad(loss, leaves),
+                                       leaves):
+                        a.add_(_like(g, p))   # fp32 + the gradient's type
                     lsum = lsum + loss.detach()
                 grads = [g.div_(n_micro) for g in gsum]
                 loss = lsum / n_micro
             else:
-                loss = loss_fn(params, batch)
-                grads = torch.autograd.grad(loss, leaves)
+                loss = _loss_of(loss_fn(*_micro_inputs(params, batch, mesh)),
+                                mesh)
+                grads = [_like(g, p) for g, p in
+                         zip(torch.autograd.grad(loss, leaves), leaves)]
                 loss = loss.detach()
         params, opt_state, metrics = adamw.apply(
             hp.optimizer, params, dict(zip(names, grads)), opt_state

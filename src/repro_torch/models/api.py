@@ -9,6 +9,8 @@ Whisper's audio encoder-decoder (:mod:`repro_torch.models.whisper`).
 
   schema() / init(generator) / param_count()
                                       — parameters as a :class:`ParamTree`
+  axes() / abstract_params()          — each leaf's logical axes, and its
+                                        shape on the ``meta`` device
   loss(params, batch, remat)          — next-token CE (mean over tokens)
   logits(params, batch, remat)        — full-sequence logits
   cache_schema(batch, max_len) / init_cache(batch, max_len)
@@ -32,7 +34,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .base import ModelConfig, ParamTree, check_supported, init_params
+from .base import (ModelConfig, ParamTree, abstract_params, check_supported,
+                   init_params, param_axes)
 from . import blocks as B
 from . import stack as S
 from . import whisper as W
@@ -80,6 +83,15 @@ class Model:
     def param_count(self) -> int:
         """Parameters in the schema, counted without allocating any."""
         return self.cfg.param_count()
+
+    def axes(self) -> dict:
+        """Every parameter's logical axes, nested as the parameters are."""
+        return param_axes(self.schema())
+
+    def abstract_params(self) -> dict:
+        """Every parameter as a ``meta`` tensor (its shape and dtype, no
+        storage), nested as the parameters are."""
+        return abstract_params(self.schema(), self.cfg.pdtype)
 
     # -- caches ------------------------------------------------------------
     def cache_schema(self, batch: int, max_len: int) -> dict:

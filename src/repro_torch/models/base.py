@@ -2,9 +2,12 @@
 
 Ported from ``repro.models.base``.  The config dataclasses are the
 reference's, copied verbatim so that a config reads the same in both
-packages.  The reference's ``ParamDef`` schema keeps its shape and init
-rule but drops the logical sharding axes (one device); ``init_params`` draws
-every parameter from an explicit ``torch.Generator`` on the target device,
+packages.  The reference's ``ParamDef`` schema keeps its shape, its
+logical sharding axes (which :mod:`repro_torch.sharding.rules` maps to mesh
+axes) and its init rule; the port keeps one leaf per layer where the
+reference stacks a group's layers under a leading ``"layers"`` axis, so a
+port leaf's axes are the reference's without that entry.  ``init_params``
+draws every parameter from an explicit ``torch.Generator`` on the target device,
 with the reference's init rules (the numbers differ from ``jax.random``'s:
 tests carry the reference's parameters over with
 ``repro_torch.models.api.params_from_jax``).  :class:`ParamTree` is the
@@ -29,8 +32,8 @@ from torch import nn
 
 __all__ = [
     "MoECfg", "MLACfg", "RnnCfg", "RwkvCfg", "FrontendCfg", "MoLeCfg",
-    "ModelConfig", "ParamDef", "ParamTree", "check_supported",
-    "init_params", "torch_dtype",
+    "ModelConfig", "ParamDef", "ParamTree", "abstract_params",
+    "check_supported", "init_params", "param_axes", "torch_dtype",
 ]
 
 # ---------------------------------------------------------------------------
@@ -316,9 +319,37 @@ def check_supported(cfg: ModelConfig) -> None:
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]   # one logical axis name (or None) a dim
     init: str = "normal"        # normal | zeros | ones | neg_ones | embed
     scale: float | None = None  # None => 1/sqrt(fan_in) for normal
     dtype: torch.dtype | None = None   # None => caller's default dtype
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def _map_defs(fn, schema):
+    """``fn`` over every ``ParamDef`` of a schema (nested dicts / lists),
+    keeping the schema's structure."""
+    if isinstance(schema, ParamDef):
+        return fn(schema)
+    if isinstance(schema, dict):
+        return {k: _map_defs(fn, v) for k, v in schema.items()}
+    return [_map_defs(fn, v) for v in schema]
+
+
+def param_axes(schema):
+    """The logical axes of every leaf, in the schema's structure."""
+    return _map_defs(lambda d: d.axes, schema)
+
+
+def abstract_params(schema, dtype: torch.dtype):
+    """Every leaf as a tensor on the ``meta`` device (shape and dtype, no
+    storage), in the schema's structure: the rules read shapes from it
+    without allocating a full-size model."""
+    return _map_defs(
+        lambda d: torch.empty(d.shape, dtype=d.dtype or dtype, device="meta"),
+        schema)
 
 
 def _init_one(d: ParamDef, dtype: torch.dtype, generator: torch.Generator,

@@ -10,8 +10,10 @@ the dense FFN, the MoE FFN in its capacity-buffer form, the self-attention,
 MLA, RG-LRU and cross-attention mixers, and the RWKV-6 time-mix and
 channel-mix).  Whisper's ``bidir`` encoder layers and ``dec`` decoder
 layers are assembled from these mixers in
-:mod:`repro_torch.models.stack`.  The expert-parallel MoE under a mesh
-(``_apply_moe_sharded``) belongs to a later slice.  The RWKV-6 time-mix
+:mod:`repro_torch.models.stack`.  Under the train step's mesh an MoE FFN
+whose experts split over "model" runs the expert-parallel form
+(``_apply_moe_sharded``, the reference's ``shard_map`` EP), on each rank's
+own tokens.  The RWKV-6 time-mix
 runs its prefill scan through K6
 (:func:`repro_torch.kernels.wkv6.wkv6_chunked`), and in training through
 :func:`repro_torch.kernels.wkv6.wkv6_scan`, whose backward is hand-written
@@ -50,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.wkv6 import wkv6_chunked, wkv6_scan
+from ..sharding.hints import is_dtensor
 from .base import ModelConfig, ParamDef
 from . import layers as L
 
@@ -99,11 +102,12 @@ def ffn_of(kind: str) -> str:
 def schema_ffn(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
     if cfg.act == "gelu":  # plain (ungated) MLP, whisper-style
-        return {"wi_up": ParamDef((d, f)), "wo": ParamDef((f, d))}
+        return {"wi_up": ParamDef((d, f), ("embed", "ffn")),
+                "wo": ParamDef((f, d), ("ffn", "embed"))}
     return {
-        "wi_gate": ParamDef((d, f)),
-        "wi_up": ParamDef((d, f)),
-        "wo": ParamDef((f, d)),
+        "wi_gate": ParamDef((d, f), ("embed", "ffn")),
+        "wi_up": ParamDef((d, f), ("embed", "ffn")),
+        "wo": ParamDef((f, d), ("ffn", "embed")),
     }
 
 
@@ -123,10 +127,10 @@ def schema_moe(cfg: ModelConfig) -> dict:
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.n_routed
     sch = {
-        "router": ParamDef((d, e), scale=0.02),
-        "wg": ParamDef((e, d, f)),
-        "wu": ParamDef((e, d, f)),
-        "wd": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), ("embed", None), scale=0.02),
+        "wg": ParamDef((e, d, f), ("experts", "embed", "ffn")),
+        "wu": ParamDef((e, d, f), ("experts", "embed", "ffn")),
+        "wd": ParamDef((e, f, d), ("experts", "ffn", "embed")),
     }
     if m.n_shared:
         sch["shared"] = schema_ffn(cfg, d_ff=m.n_shared * f)
@@ -187,6 +191,25 @@ def moe_route(p, xf: torch.Tensor, cfg: ModelConfig, calls: int = 1) -> Route:
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
               row_calls: bool = False) -> torch.Tensor:
+    """MoE FFN dispatcher (the reference's).
+
+    Weights that are DTensors run the expert-parallel form
+    (:func:`_apply_moe_sharded`: each rank dispatches only its local tokens
+    to its local experts, and the partial outputs are summed over
+    "model").  The reference's dispatcher reads the ambient mesh; here the
+    train step's compute view (:func:`repro_torch.sharding.spmd.
+    compute_view`) keeps an MoE FFN as DTensors exactly where the
+    reference takes that form, and gathers it whole where the reference
+    falls back to the dense form.  Plain weights run the capacity-buffer
+    form below (:func:`_apply_moe_dense`), the decode lane's rows
+    (``row_calls``) included."""
+    if is_dtensor(p["wg"]):
+        return _apply_moe_sharded(p, x, cfg)
+    return _apply_moe_dense(p, x, cfg, row_calls)
+
+
+def _apply_moe_dense(p, x: torch.Tensor, cfg: ModelConfig,
+                     row_calls: bool = False) -> torch.Tensor:
     """Capacity-buffer MoE (GShard-style scatter dispatch): x (B, S, d).
 
     The whole batch routes as one call of B*S tokens, or with
@@ -218,6 +241,81 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
     return y.reshape(B_, S, d)
 
 
+def _moe_local_tokens(p_local, xf: torch.Tensor, cfg: ModelConfig,
+                      e_lo: int, n_local: int) -> torch.Tensor:
+    """One rank's expert-parallel dispatch: its tokens ``xf`` (T, d) routed
+    over all experts (``p_local["router"]`` is whole; capacity of T tokens),
+    the assignments to its ``n_local`` experts ``[e_lo, e_lo + n_local)``
+    (``p_local``'s ``wg``/``wu``/``wd``) kept; returns this rank's PARTIAL
+    output (T, d).  An assignment's slot is its rank among the expert's
+    assignments in token-major order, as in the dense form, so with every
+    expert local this is :func:`_apply_moe_dense`'s routed part."""
+    m = cfg.moe
+    T, d = xf.shape
+    r = moe_route(p_local, xf, cfg)
+    local = r.top_i.reshape(-1) - e_lo
+    keep = r.keep & (local >= 0) & (local < n_local)
+    e_c = torch.where(keep, local, 0)
+    slot = torch.where(keep, r.slot, r.capacity - 1)
+    keepf = keep[:, None].to(xf.dtype)
+    tok = torch.arange(T, device=xf.device).repeat_interleave(m.top_k)
+    buf = xf.new_zeros((n_local, r.capacity, d)).index_put(
+        (e_c, slot), xf[tok] * keepf, accumulate=True)
+    g = L.act_fn(cfg.act)(torch.bmm(buf, p_local["wg"]))
+    u = torch.bmm(buf, p_local["wu"])
+    out_buf = torch.bmm(g * u, p_local["wd"])
+    picked = out_buf[e_c, slot] * keepf
+    w = r.top_p.reshape(-1).to(xf.dtype)
+    return torch.sum((picked * w[:, None]).reshape(T, m.top_k, d), dim=1)
+
+
+def _local(t, mesh, spec):
+    """The local shard of the DTensor ``t`` under ``spec``, whose gradient
+    comes back as a partial sum over the mesh dims ``spec`` replicates it
+    on: each rank uses it on other tokens or experts."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from ..sharding.rules import placements
+
+    t = t.redistribute(mesh, placements(mesh, spec))
+    return t.to_local(grad_placements=[
+        Partial() if isinstance(p, Replicate) else p for p in t.placements])
+
+
+def _apply_moe_sharded(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Expert parallelism (the reference's ``shard_map`` form): tokens
+    split over the dp axes, experts over "model"; each rank runs
+    :func:`_moe_local_tokens` on its (tokens x experts) block, the shared
+    experts row-parallel over "model" (their partial sums join the routed
+    ones), and one all-reduce over "model" sums the partial outputs.
+
+    ``x`` (b, S, d) is this rank's own tokens, a plain tensor, as a rank of
+    the train step holds them; so is the result.  The weights are DTensors
+    on the mesh whose "model" size divides ``n_routed`` (any placement:
+    each is redistributed to its spec)."""
+    from ..sharding.spmd import SumGradOver, SumOver
+
+    m = cfg.moe
+    mesh = p["wg"].device_mesh
+    model = mesh.get_group("model")
+    n_local = m.n_routed // mesh.size(mesh.mesh_dim_names.index("model"))
+    w_spec = {"router": (None, None), "wg": ("model", None, None),
+              "wu": ("model", None, None), "wd": ("model", None, None)}
+    p_loc = {k: _local(p[k], mesh, spec) for k, spec in w_spec.items()}
+    Bl, S, d = x.shape
+    # the ranks of "model" hold the same tokens; each one's gradient of
+    # them is its experts' share
+    xf = SumGradOver.apply(x.reshape(Bl * S, d), model)
+    e_lo = mesh.get_local_rank("model") * n_local
+    y = _moe_local_tokens(p_loc, xf, cfg, e_lo, n_local)
+    if m.n_shared:
+        sh = {"wi_gate": (None, "model"), "wi_up": (None, "model"),
+              "wo": ("model", None)}
+        y = y + apply_ffn({k: _local(p["shared"][k], mesh, spec)
+                           for k, spec in sh.items()}, xf, cfg)
+    return SumOver.apply(y, model).reshape(Bl, S, d)   # psum over "model"
+
+
 # ---------------------------------------------------------------------------
 # Self-attention mixer
 # ---------------------------------------------------------------------------
@@ -226,15 +324,15 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
 def schema_attn(cfg: ModelConfig) -> dict:
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sch = {
-        "wq": ParamDef((d, H, hd)),
-        "wk": ParamDef((d, Hkv, hd)),
-        "wv": ParamDef((d, Hkv, hd)),
-        "wo": ParamDef((H, hd, d), scale=0.02),
+        "wq": ParamDef((d, H, hd), ("embed", "heads", None)),
+        "wk": ParamDef((d, Hkv, hd), ("embed", "kv_heads", None)),
+        "wv": ParamDef((d, Hkv, hd), ("embed", "kv_heads", None)),
+        "wo": ParamDef((H, hd, d), ("heads", None, "embed"), scale=0.02),
     }
     if cfg.qkv_bias:
-        sch["bq"] = ParamDef((H, hd), init="zeros")
-        sch["bk"] = ParamDef((Hkv, hd), init="zeros")
-        sch["bv"] = ParamDef((Hkv, hd), init="zeros")
+        sch["bq"] = ParamDef((H, hd), ("heads", None), init="zeros")
+        sch["bk"] = ParamDef((Hkv, hd), ("kv_heads", None), init="zeros")
+        sch["bv"] = ParamDef((Hkv, hd), ("kv_heads", None), init="zeros")
     return sch
 
 
@@ -247,9 +345,12 @@ def cache_attn(cfg: ModelConfig, batch: int, max_len: int,
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
     slots = min(max_len, window) if window else max_len
     return {
-        "k": ParamDef((batch, slots, Hkv, hd), init="zeros"),
-        "v": ParamDef((batch, slots, Hkv, hd), init="zeros"),
-        "pos": ParamDef((batch, slots), init="neg_ones", dtype=torch.int32),
+        "k": ParamDef((batch, slots, Hkv, hd),
+                      ("batch", "kv_seq", "kv_heads", None), init="zeros"),
+        "v": ParamDef((batch, slots, Hkv, hd),
+                      ("batch", "kv_seq", "kv_heads", None), init="zeros"),
+        "pos": ParamDef((batch, slots), ("batch", None), init="neg_ones",
+                        dtype=torch.int32),
     }
 
 
@@ -350,23 +451,24 @@ def schema_cross(cfg: ModelConfig, gated: bool, d_ctx: int) -> dict:
     at init."""
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sch = {
-        "wq": ParamDef((d, H, hd)),
-        "wk": ParamDef((d_ctx, Hkv, hd)),
-        "wv": ParamDef((d_ctx, Hkv, hd)),
-        "wo": ParamDef((H, hd, d), scale=0.02),
-        "ctx_norm": ParamDef((d_ctx,), init="zeros"),
+        "wq": ParamDef((d, H, hd), ("embed", "heads", None)),
+        "wk": ParamDef((d_ctx, Hkv, hd), (None, "kv_heads", None)),
+        "wv": ParamDef((d_ctx, Hkv, hd), (None, "kv_heads", None)),
+        "wo": ParamDef((H, hd, d), ("heads", None, "embed"), scale=0.02),
+        "ctx_norm": ParamDef((d_ctx,), (None,), init="zeros"),
     }
     if gated:
-        sch["gate_attn"] = ParamDef((), init="zeros")
-        sch["gate_ffn"] = ParamDef((), init="zeros")
+        sch["gate_attn"] = ParamDef((), (), init="zeros")
+        sch["gate_ffn"] = ParamDef((), (), init="zeros")
     return sch
 
 
 def cache_cross(cfg: ModelConfig, batch: int) -> dict:
     """The context's keys and values, one slot per context position."""
     shape = (batch, cfg.frontend.n_tokens, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": ParamDef(shape, init="zeros"),
-            "v": ParamDef(shape, init="zeros")}
+    axes = ("batch", None, "kv_heads", None)
+    return {"k": ParamDef(shape, axes, init="zeros"),
+            "v": ParamDef(shape, axes, init="zeros")}
 
 
 def apply_cross(
@@ -406,13 +508,17 @@ def schema_mla(cfg: ModelConfig) -> dict:
     d, H = cfg.d_model, cfg.n_heads
     a = cfg.mla
     return {
-        "wq": ParamDef((d, H, a.qk_nope + a.qk_rope)),
-        "w_dkv": ParamDef((d, a.kv_lora)),
-        "w_kr": ParamDef((d, a.qk_rope)),
-        "kv_norm": ParamDef((a.kv_lora,), init="zeros"),
-        "w_uk": ParamDef((a.kv_lora, H, a.qk_nope)),
-        "w_uv": ParamDef((a.kv_lora, H, a.v_head)),
-        "wo": ParamDef((H, a.v_head, d), scale=0.02),
+        "wq": ParamDef((d, H, a.qk_nope + a.qk_rope),
+                       ("embed", "heads", None)),
+        "w_dkv": ParamDef((d, a.kv_lora), ("embed", "lora")),
+        "w_kr": ParamDef((d, a.qk_rope), ("embed", None)),
+        "kv_norm": ParamDef((a.kv_lora,), ("lora",), init="zeros"),
+        "w_uk": ParamDef((a.kv_lora, H, a.qk_nope),
+                         ("lora", "heads", None)),
+        "w_uv": ParamDef((a.kv_lora, H, a.v_head),
+                         ("lora", "heads", None)),
+        "wo": ParamDef((H, a.v_head, d), ("heads", None, "embed"),
+                       scale=0.02),
     }
 
 
@@ -421,8 +527,10 @@ def cache_mla(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     ``kr`` of each position (no ``pos``, no ring)."""
     a = cfg.mla
     return {
-        "ckv": ParamDef((batch, max_len, a.kv_lora), init="zeros"),
-        "kr": ParamDef((batch, max_len, a.qk_rope), init="zeros"),
+        "ckv": ParamDef((batch, max_len, a.kv_lora), ("batch", "kv_seq", "lora"),
+                        init="zeros"),
+        "kr": ParamDef((batch, max_len, a.qk_rope), ("batch", "kv_seq", None),
+                       init="zeros"),
     }
 
 
@@ -512,16 +620,16 @@ def schema_rec(cfg: ModelConfig) -> dict:
     nb = 16  # block-diagonal gate blocks (RecurrentGemma-style)
     bw = dr // nb
     return {
-        "w_y": ParamDef((d, dr)),
-        "w_x": ParamDef((d, dr)),
-        "conv_w": ParamDef((r.conv_width, dr), scale=0.02),
-        "conv_b": ParamDef((dr,), init="zeros"),
-        "gate_a": ParamDef((nb, bw, bw)),
-        "gate_a_b": ParamDef((dr,), init="zeros"),
-        "gate_x": ParamDef((nb, bw, bw)),
-        "gate_x_b": ParamDef((dr,), init="zeros"),
-        "lam": ParamDef((dr,), init="normal", scale=0.5),
-        "w_out": ParamDef((dr, d), scale=0.02),
+        "w_y": ParamDef((d, dr), ("embed", "rnn")),
+        "w_x": ParamDef((d, dr), ("embed", "rnn")),
+        "conv_w": ParamDef((r.conv_width, dr), (None, "rnn"), scale=0.02),
+        "conv_b": ParamDef((dr,), ("rnn",), init="zeros"),
+        "gate_a": ParamDef((nb, bw, bw), ("rnn", None, None)),
+        "gate_a_b": ParamDef((dr,), ("rnn",), init="zeros"),
+        "gate_x": ParamDef((nb, bw, bw), ("rnn", None, None)),
+        "gate_x_b": ParamDef((dr,), ("rnn",), init="zeros"),
+        "lam": ParamDef((dr,), ("rnn",), init="normal", scale=0.5),
+        "w_out": ParamDef((dr, d), ("rnn", "embed"), scale=0.02),
     }
 
 
@@ -532,8 +640,10 @@ def cache_rec(cfg: ModelConfig, batch: int) -> dict:
     r = cfg.rnn
     dr = r.d_rnn or cfg.d_model
     return {
-        "h": ParamDef((batch, dr), init="zeros", dtype=torch.float32),
-        "conv": ParamDef((batch, r.conv_width - 1, dr), init="zeros"),
+        "h": ParamDef((batch, dr), ("batch", "rnn"), init="zeros",
+                      dtype=torch.float32),
+        "conv": ParamDef((batch, r.conv_width - 1, dr), ("batch", None, "rnn"),
+                         init="zeros"),
     }
 
 
@@ -688,28 +798,29 @@ def schema_rwkv(cfg: ModelConfig) -> dict:
     rank = w.ddlerp_rank
     return {
         "tm": {
-            "maa_x": ParamDef((d,), init="zeros"),
-            "maa": ParamDef((5, d), init="zeros"),              # w,k,v,r,g
-            "A": ParamDef((d, 5 * rank), scale=0.02),
-            "B": ParamDef((5, rank, d), scale=0.02),
-            "w0": ParamDef((d,), init="normal", scale=1.0),
-            "w1": ParamDef((d, w.decay_rank), scale=0.02),
-            "w2": ParamDef((w.decay_rank, d), scale=0.02),
-            "u": ParamDef((H, w.head_dim), scale=0.5),
-            "wr": ParamDef((d, d)),
-            "wk": ParamDef((d, d)),
-            "wv": ParamDef((d, d)),
-            "wg": ParamDef((d, d)),
-            "ln_w": ParamDef((d,), init="ones"),
-            "ln_b": ParamDef((d,), init="zeros"),
-            "wo": ParamDef((d, d), scale=0.02),
+            "maa_x": ParamDef((d,), ("embed",), init="zeros"),
+            # w,k,v,r,g
+            "maa": ParamDef((5, d), (None, "embed"), init="zeros"),
+            "A": ParamDef((d, 5 * rank), ("embed", None), scale=0.02),
+            "B": ParamDef((5, rank, d), (None, None, "embed"), scale=0.02),
+            "w0": ParamDef((d,), ("embed",), init="normal", scale=1.0),
+            "w1": ParamDef((d, w.decay_rank), ("embed", None), scale=0.02),
+            "w2": ParamDef((w.decay_rank, d), (None, "embed"), scale=0.02),
+            "u": ParamDef((H, w.head_dim), ("heads", None), scale=0.5),
+            "wr": ParamDef((d, d), ("embed", "rnn")),
+            "wk": ParamDef((d, d), ("embed", "rnn")),
+            "wv": ParamDef((d, d), ("embed", "rnn")),
+            "wg": ParamDef((d, d), ("embed", "rnn")),
+            "ln_w": ParamDef((d,), ("embed",), init="ones"),
+            "ln_b": ParamDef((d,), ("embed",), init="zeros"),
+            "wo": ParamDef((d, d), ("rnn", "embed"), scale=0.02),
         },
         "cm": {
-            "maa_k": ParamDef((d,), init="zeros"),
-            "maa_r": ParamDef((d,), init="zeros"),
-            "wk": ParamDef((d, cfg.d_ff)),
-            "wv": ParamDef((cfg.d_ff, d), scale=0.02),
-            "wr": ParamDef((d, d), scale=0.02),
+            "maa_k": ParamDef((d,), ("embed",), init="zeros"),
+            "maa_r": ParamDef((d,), ("embed",), init="zeros"),
+            "wk": ParamDef((d, cfg.d_ff), ("embed", "ffn")),
+            "wv": ParamDef((cfg.d_ff, d), ("ffn", "embed"), scale=0.02),
+            "wr": ParamDef((d, d), ("embed", "rnn"), scale=0.02),
         },
     }
 
@@ -721,9 +832,10 @@ def cache_rwkv(cfg: ModelConfig, batch: int) -> dict:
     hd = cfg.rwkv.head_dim
     H = d // hd
     return {
-        "s": ParamDef((batch, H, hd, hd), init="zeros", dtype=torch.float32),
-        "tm_x": ParamDef((batch, d), init="zeros"),
-        "cm_x": ParamDef((batch, d), init="zeros"),
+        "s": ParamDef((batch, H, hd, hd), ("batch", "heads", None, None),
+                      init="zeros", dtype=torch.float32),
+        "tm_x": ParamDef((batch, d), ("batch", "embed"), init="zeros"),
+        "cm_x": ParamDef((batch, d), ("batch", "embed"), init="zeros"),
     }
 
 

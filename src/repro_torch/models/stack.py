@@ -19,7 +19,14 @@ the block pattern, then suffix layers; here ``params["blocks"]`` and
 (prefix, pattern x n_groups, suffix) and :func:`apply_stack` loops over
 them, each block dispatched on its kind.
 Training reads :func:`hidden_states` and :func:`fused_ce`, the chunked
-cross-entropy that never holds ``(B, S, V)`` logits.  The cross layers'
+cross-entropy that never holds ``(B, S, V)`` logits.  Under the train
+step's mesh each rank runs the model on plain local tensors, its own rows
+(:mod:`repro_torch.sharding.spmd`): :func:`apply_stack` gathers each
+block's DTensor weights where it runs it (``spmd.in_use``), and
+:func:`fused_ce` takes a DTensor head vocab-parallel
+(:class:`_VocabParallelCE`), where the reference hints its logits' vocab
+over "model".  No activation is a DTensor, so the reference's activation
+hints have no counterpart here.  The cross layers'
 context reaches the stack at d_model: a vlm's patches after
 :func:`project_ctx`, an audio model's encoder output as it is.
 """
@@ -28,6 +35,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.hints import is_dtensor
+from ..sharding.spmd import in_use
 from .base import ModelConfig, ParamDef, check_supported
 from . import blocks as B
 from . import layers as L
@@ -48,7 +57,7 @@ __all__ = [
 def block_schema(cfg: ModelConfig, kind: str = "attn",
                  d_ff_override: int | None = None) -> dict:
     mix = B.mixer_of(kind)
-    sch = {"norm1": ParamDef((cfg.d_model,), init="zeros")}
+    sch = {"norm1": ParamDef((cfg.d_model,), ("embed",), init="zeros")}
     if mix in ("attn", "global", "local", "bidir"):
         sch["mix"] = B.schema_attn(cfg)
     elif mix == "mla":
@@ -69,22 +78,22 @@ def block_schema(cfg: ModelConfig, kind: str = "attn",
         # whisper's decoder layer: the cross-attention's context is the
         # encoder's output (d_model), not the raw frame stream
         sch["mix"] = B.schema_attn(cfg)
-        sch["norm_cross"] = ParamDef((cfg.d_model,), init="zeros")
+        sch["norm_cross"] = ParamDef((cfg.d_model,), ("embed",), init="zeros")
         sch["cross"] = B.schema_cross(cfg, gated=False, d_ctx=cfg.d_model)
     else:
         raise ValueError(f"unknown mixer kind {kind!r}")
     if B.ffn_of(kind) == "rwkv_cm":
-        sch["norm2"] = ParamDef((cfg.d_model,), init="zeros")
+        sch["norm2"] = ParamDef((cfg.d_model,), ("embed",), init="zeros")
     else:
         if not cfg.parallel_block:
-            sch["norm2"] = ParamDef((cfg.d_model,), init="zeros")
+            sch["norm2"] = ParamDef((cfg.d_model,), ("embed",), init="zeros")
         if B.ffn_of(kind) == "moe":
             sch["ffn"] = B.schema_moe(cfg)
         else:
             sch["ffn"] = B.schema_ffn(cfg, d_ff=d_ff_override)
     if cfg.post_norm:
-        sch["post_norm1"] = ParamDef((cfg.d_model,), init="zeros")
-        sch["post_norm2"] = ParamDef((cfg.d_model,), init="zeros")
+        sch["post_norm1"] = ParamDef((cfg.d_model,), ("embed",), init="zeros")
+        sch["post_norm2"] = ParamDef((cfg.d_model,), ("embed",), init="zeros")
     return sch
 
 
@@ -115,15 +124,16 @@ def _prefix_ff(cfg: ModelConfig) -> int | None:
 
 def model_schema(cfg: ModelConfig) -> dict:
     check_supported(cfg)
-    sch = {"embed": ParamDef((cfg.vocab, cfg.d_model), init="embed",
-                             scale=0.02)}
+    sch = {"embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                             init="embed", scale=0.02)}
     if cfg.frontend is not None and cfg.family != "audio":
         # an audio model projects its frames by enc_proj, in the encoder
         sch["frontend_proj"] = ParamDef((cfg.frontend.d_in, cfg.d_model),
-                                        scale=0.02)
-    sch["final_norm"] = ParamDef((cfg.d_model,), init="zeros")
+                                        (None, "embed"), scale=0.02)
+    sch["final_norm"] = ParamDef((cfg.d_model,), ("embed",), init="zeros")
     if not cfg.tie_embeddings:
-        sch["head"] = ParamDef((cfg.d_model, cfg.vocab), scale=0.02)
+        sch["head"] = ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                               scale=0.02)
     n_prefix = len(cfg.prefix_pattern)
     sch["blocks"] = [
         block_schema(cfg, kind,
@@ -240,19 +250,22 @@ def apply_stack(params, h: torch.Tensor, cfg: ModelConfig, rs: B.RunState,
     ``remat`` recomputes each block in the backward instead of keeping its
     activations (the reference checkpoints each scanned group).  It applies
     only without caches and with grad enabled: a block that writes a cache
-    in place must run once."""
+    in place must run once.  A block of the train step's compute view under
+    a mesh (``spmd.Deferred``) is gathered inside its recomputed part, so
+    under remat its whole weights live only while it runs."""
     new = [] if caches is not None else None
     kinds = cfg.layer_kinds()
     remat = remat and caches is None and torch.is_grad_enabled()
     for i, p in enumerate(params["blocks"]):
         if remat:
             h = _recomputed(
-                lambda x, p=p, k=kinds[i]: apply_block(p, x, cfg, rs, None, k)[0],
+                lambda x, p=p, k=kinds[i]: apply_block(in_use(p), x, cfg, rs,
+                                                       None, k)[0],
                 h,
             )
             continue
         c = caches["blocks"][i] if caches is not None else None
-        h, nc = apply_block(p, h, cfg, rs, c, kinds[i])
+        h, nc = apply_block(in_use(p), h, cfg, rs, c, kinds[i])
         if new is not None:
             new.append(nc)
     return h, ({"blocks": new} if caches is not None else None)
@@ -300,7 +313,10 @@ def fused_ce(params, cfg: ModelConfig, h: torch.Tensor,
     ``h.dtype``, then fp32 and the soft-cap, reduced to the sum of
     logsumexp minus the target's logit, and recomputed in the backward, so
     no (B, S, V) tensor outlives its chunk.  The chunks' sums add in order,
-    as the reference's scan does.
+    as the reference's scan does.  A DTensor head (the train step's under a
+    mesh) makes the sum vocab-parallel (:func:`_vocab_parallel_sum`), the
+    reference's logits hinted over "model"; the mean is then over this
+    rank's tokens.
     """
     w = head_matrix(params, cfg)
     B_, S, _ = h.shape
@@ -309,6 +325,8 @@ def fused_ce(params, cfg: ModelConfig, h: torch.Tensor,
         c = S
 
     def piece(hc, tc):
+        if is_dtensor(w):
+            return _vocab_parallel_sum(hc, w, tc, cfg)
         logits = torch.matmul(hc, w.to(hc.dtype))
         logits = L.softcap(logits.float(), cfg.final_softcap)
         lse = torch.logsumexp(logits, dim=-1)
@@ -321,6 +339,72 @@ def fused_ce(params, cfg: ModelConfig, h: torch.Tensor,
     for i in range(0, S, c):
         total = total + run(piece, h[:, i : i + c], targets[:, i : i + c])
     return total / (B_ * S)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token ``logsumexp - target logit`` of logits whose vocab is split
+    over ``group`` (Megatron's vocab-parallel cross-entropy): the local max
+    and sum of exponentials are all-reduced, and the target's logit is taken
+    from the rank whose slice ``[lo, lo + V_local)`` holds it.  Every rank of
+    the group returns the same (b, c) losses; the backward is
+    ``(softmax - onehot) * g`` on the local slice."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo: int, group):
+        import torch.distributed as dist
+
+        v_loc = logits.shape[-1]
+        m = logits.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m[..., None])
+        s = e.sum(dim=-1)
+        dist.all_reduce(s, group=group)
+        t = targets - lo
+        mine = (t >= 0) & (t < v_loc)
+        t = torch.where(mine, t, 0)
+        picked = torch.gather(logits, -1, t[..., None])[..., 0]
+        picked = torch.where(mine, picked, 0.0)
+        dist.all_reduce(picked, group=group)
+        ctx.save_for_backward(e.div_(s[..., None]), t, mine)
+        return torch.log(s) + m - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, t, mine = ctx.saved_tensors
+        grad = probs.clone()
+        grad.scatter_add_(-1, t[..., None], -mine[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def _vocab_parallel_sum(hc: torch.Tensor, w, tc: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """A chunk's sum of ``logsumexp - target logit`` on this rank's tokens
+    ``hc`` (b, c, d) when the head ``w`` (d, V) is a DTensor whose dp axes
+    are gathered (``sharding.spmd.compute_view``).  With its vocab split
+    over one mesh dim, each rank takes logits of its slice only and
+    :class:`_VocabParallelCE` joins them; the ranks of that dim computed
+    ``hc`` alike, so its gradient is summed over them.  Unsplit, it is the
+    plain sum on the whole head."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..sharding.spmd import SumGradOver
+
+    mesh = w.device_mesh
+    split = [i for i, p in enumerate(w.placements) if p == Shard(1)]
+    assert len(split) <= 1, w.placements
+    # a dim the head is replicated on saw other tokens: partial gradients
+    w_loc = w.to_local(grad_placements=[
+        Partial() if isinstance(p, Replicate) else p for p in w.placements])
+    if split:
+        hc = SumGradOver.apply(hc, mesh.get_group(split[0]))
+    logits = torch.matmul(hc, w_loc.to(hc.dtype))
+    logits = L.softcap(logits.float(), cfg.final_softcap)
+    if not split:
+        return torch.sum(torch.logsumexp(logits, dim=-1)
+                         - torch.gather(logits, -1, tc[..., None])[..., 0])
+    lo = mesh.get_local_rank(split[0]) * w_loc.shape[-1]
+    return torch.sum(_VocabParallelCE.apply(logits, tc, lo,
+                                            mesh.get_group(split[0])))
 
 
 def lm_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

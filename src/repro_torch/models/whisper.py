@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.spmd import in_use
 from .base import ModelConfig, ParamDef
 from . import blocks as B
 from . import layers as L
@@ -31,10 +32,11 @@ __all__ = ["whisper_schema", "whisper_cache_schema", "encode", "decode_step"]
 def whisper_schema(cfg: ModelConfig) -> dict:
     fe = cfg.frontend
     return {
-        "enc_proj": ParamDef((fe.d_in, cfg.d_model), scale=0.02),
+        "enc_proj": ParamDef((fe.d_in, cfg.d_model), (None, "embed"),
+                             scale=0.02),
         "enc_blocks": [S.block_schema(cfg, "bidir")
                        for _ in range(fe.enc_layers)],
-        "enc_norm": ParamDef((cfg.d_model,), init="zeros"),
+        "enc_norm": ParamDef((cfg.d_model,), ("embed",), init="zeros"),
         "dec": S.model_schema(cfg),
     }
 
@@ -53,10 +55,11 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
     for p in params["enc_blocks"]:
         if remat:
             h = S._recomputed(
-                lambda x, p=p: S.apply_block(p, x, cfg, rs, None, "bidir")[0],
+                lambda x, p=p: S.apply_block(in_use(p), x, cfg, rs, None,
+                                             "bidir")[0],
                 h)
         else:
-            h, _ = S.apply_block(p, h, cfg, rs, None, "bidir")
+            h, _ = S.apply_block(in_use(p), h, cfg, rs, None, "bidir")
     return L.norm(h, params["enc_norm"], cfg.norm)
 
 

@@ -8,7 +8,9 @@ gradients and the moments.  The arithmetic is the reference's, expression
 for expression, in fp32 whatever the parameter's type; only the storage
 differs: :func:`apply` writes the new parameters and moments in place
 instead of returning new arrays (a trainer holds one copy of each on the
-card).  ``torch.optim.AdamW`` is not this optimizer: it keeps its moments in
+card).  Under a mesh the leaves, gradients and moments are DTensors placed
+alike, and each rank updates its own shards (the update is elementwise).
+``torch.optim.AdamW`` is not this optimizer: it keeps its moments in
 the parameter's type and applies the weight decay as a separate multiply.
 """
 from __future__ import annotations
@@ -18,6 +20,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..sharding.hints import is_dtensor
 
 __all__ = ["AdamWConfig", "apply", "global_norm", "init_state", "lr_at",
            "named_leaves"]
@@ -63,10 +67,12 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init_state(params) -> dict:
-    """Zero fp32 moments for every leaf, and ``count`` (int32, on the
-    parameters' device) at 0."""
+    """Zero fp32 moments for every leaf (DTensor leaves get DTensor moments
+    placed as they are), and ``count`` (int32, on the parameters' device)
+    at 0."""
     leaves = named_leaves(params)
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32) if is_dtensor(p)
+             else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for n, p in leaves}
     return {
         "m": zeros,
@@ -76,9 +82,26 @@ def init_state(params) -> dict:
 
 
 def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(g^2), in fp32."""
+    """sqrt of the sum over leaves of sum(g^2), in fp32.  DTensor gradients
+    (a mesh spanning the world) sum their local shards, each shard counted
+    once however many ranks replicate it, and add over the world."""
+    if any(is_dtensor(g) for g in grads.values()):
+        import torch.distributed as dist
+
+        total = sum(torch.sum(torch.square(g.to_local().float()))
+                    / _replicas(g) for g in grads.values())
+        dist.all_reduce(total)
+        return torch.sqrt(total)
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in grads.values()))
+
+
+def _replicas(g) -> int:
+    """The ranks that hold each of a DTensor's shards."""
+    from torch.distributed.tensor import Replicate
+
+    return math.prod(g.device_mesh.size(i) for i, p in enumerate(g.placements)
+                     if isinstance(p, Replicate))
 
 
 @torch.no_grad()
@@ -94,8 +117,10 @@ def apply(cfg: AdamWConfig, params, grads: dict, state: dict):
     b1c = 1 - torch.pow(cfg.b1, count.float())
     b2c = 1 - torch.pow(cfg.b2, count.float())
     for name, p in named_leaves(params):
-        for p_, m, v, g in _slices(p, state["m"][name], state["v"][name],
-                                   grads[name]):
+        ops = (p, state["m"][name], state["v"][name], grads[name])
+        if is_dtensor(p):
+            ops = _local_shards(name, *ops)
+        for p_, m, v, g in _slices(*ops):
             g = g.float() * scale
             m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
@@ -105,6 +130,18 @@ def apply(cfg: AdamWConfig, params, grads: dict, state: dict):
             step = step + cfg.weight_decay * p32
             p_.copy_(p32 - lr * step)
     return params, dict(state, count=count), {"grad_norm": gnorm, "lr": lr}
+
+
+def _local_shards(name: str, p, m, v, g) -> tuple:
+    """A DTensor leaf's local shard with its moments' and gradient's (the
+    gradient placed as the leaf first)."""
+    pl = tuple(p.placements)
+    if tuple(m.placements) != pl or tuple(v.placements) != pl:
+        raise ValueError(f"{name}: moments placed {tuple(m.placements)}, "
+                         f"the parameter {pl}")
+    if tuple(g.placements) != pl:
+        g = g.redistribute(p.device_mesh, pl)
+    return p.to_local(), m.to_local(), v.to_local(), g.to_local()
 
 
 SLICE = 1 << 26     # elements an update slice

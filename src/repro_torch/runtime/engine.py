@@ -55,11 +55,30 @@ Every launch and every patch goes to the thread's current stream, the
 device's default stream unless a caller set another, so a patch is ordered
 after the kernels queued before it.
 
+**Under a mesh.**  Inside :func:`repro_torch.launch.mesh.mesh_context`
+the vision, features and token lanes' device steps take
+:func:`repro_torch.sharding.rules.delivery_rules`: the ``(G, B, F)``
+microbatch (and its ``gidx``) is ``Shard(0)`` over the dp axes (replicated
+where G does not divide), each rank runs K1 and K2 (or the token gathers)
+on its own groups through ``to_local()``, so no DTensor reaches a kernel,
+and the result comes back a DTensor placed as the microbatch; its groups
+are gathered whole (``full_tensor()``) where :meth:`execute_flush` brings
+the results to the host.  The port runs SPMD, one process a rank, where
+the reference has one controller: every rank registers the same tenants,
+submits the same requests and coalesces the same microbatches (the queue
+is deterministic).  **The stacked secrets replicate to every rank of the
+mesh** (the reference's ``delivery_rules`` stance: every shard may serve
+any tenant), so each rank holds every tenant's cores and Aug-Conv
+matrices; a mesh must not span ranks outside the provider's trust
+boundary.  The mesh is read on the thread that runs the device step: the
+async front door's flusher thread has none.  The reference's hints in its
+device steps have no counterpart: the microbatch is placed when it is put
+on the device, and each step's result keeps that placement.
+
 Not ported, deliberately: ``_delivery_step_small`` (the reference routes
 tiny microbatches there on its jnp backend only; on the card both steps are
-always the grouped kernels), the ``backend`` switch
-(``repro.kernels.dispatch``: the tensor's device picks the implementation),
-and ``sharding.hints.hint`` (a no-op on one device).
+always the grouped kernels) and the ``backend`` switch
+(``repro.kernels.dispatch``: the tensor's device picks the implementation).
 
 This class is **not** thread-safe: the async front door serializes every
 call but ``execute_flush`` under its lock.
@@ -84,6 +103,8 @@ from repro_torch.kernels.ops import (
     aug_conv_forward_grouped, aug_embed_grouped, morph_rows_grouped,
     token_morph_grouped,
 )
+from repro_torch.sharding.hints import ambient_mesh, is_dtensor
+from repro_torch.sharding.rules import delivery_rules, shard_tensor
 
 from . import api
 from .api import DeliveryRequest, DeliveryResult
@@ -791,19 +812,29 @@ class MoLeDeliveryEngine:
         return rid
 
     # -- the device step -----------------------------------------------------
+    def _put(self, a: np.ndarray, logical: tuple) -> torch.Tensor:
+        """A host array of the microbatch on the engine's device; under a
+        mesh, placed by ``delivery_rules`` from its logical axes."""
+        t = torch.from_numpy(a).to(self.device)
+        mesh = ambient_mesh()
+        if mesh is None:
+            return t
+        spec = delivery_rules(mesh).spec_for(logical, tuple(t.shape))
+        return shard_tensor(t, mesh, spec)
+
     def _execute(self, x: np.ndarray, gidx: np.ndarray,
                  plan: _Plan) -> torch.Tensor:
         return _delivery_step(
-            torch.from_numpy(x).to(self.device),
-            torch.from_numpy(gidx).to(self.device),
+            self._put(x, ("group", "rows", "features")),
+            self._put(gidx, ("group",)),
             plan.arrays["cores"], plan.arrays["augs"], self.registry.kappa,
         )
 
     def _execute_tokens(self, tokens: np.ndarray, gidx: np.ndarray,
                         want_embed: bool, plan: _Plan):
         return _lm_delivery_step(
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(gidx).to(self.device),
+            self._put(tokens, ("group", "rows", None)),
+            self._put(gidx, ("group",)),
             plan.arrays["perms"],
             plan.arrays["aug_embeds"] if want_embed else None,
         )
@@ -813,8 +844,8 @@ class MoLeDeliveryEngine:
         # The continuous LM lane is the vision math (m^2 -> 1): the same
         # step, with the registry's embedding cores and fused projections.
         return _delivery_step(
-            torch.from_numpy(x).to(self.device),
-            torch.from_numpy(gidx).to(self.device),
+            self._put(x, ("group", "rows", "features")),
+            self._put(gidx, ("group",)),
             plan.arrays["embed_cores"], plan.arrays["aug_projs"],
             self.lm_registry.kappa,
         )
@@ -919,7 +950,8 @@ class MoLeDeliveryEngine:
 
         Every microbatch is launched before any result is read back, so the
         card runs them back to back; the device phase time includes the
-        copies back, which wait for the card.
+        copies back, which wait for the card.  Under a mesh each result's
+        groups are gathered whole from the ranks first.
         """
         if self.injector is not None:
             self.injector.maybe_fail_phase("device")
@@ -941,11 +973,11 @@ class MoLeDeliveryEngine:
             if item.lane == "tokens":
                 morphed, feats = out
                 item.out = (
-                    morphed.cpu().numpy(),
-                    None if feats is None else feats.cpu().numpy(),
+                    _to_host(morphed),
+                    None if feats is None else _to_host(feats),
                 )
             else:
-                item.out = out.cpu().numpy()
+                item.out = _to_host(out)
         dt_ms = (time.monotonic() - t0) * 1e3
         self.stats.record_phase_ms("device", dt_ms)
         # Straggler watch: a device phase far above the running EMA flags
@@ -1312,6 +1344,26 @@ class MoLeDeliveryEngine:
         return pending
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device result on the host; a DTensor's groups gathered whole."""
+    if is_dtensor(t):
+        t = t.full_tensor()
+    return t.cpu().numpy()
+
+
+def _on_local_groups(fn, x: torch.Tensor, gidx: torch.Tensor, *secrets):
+    """``fn(x, gidx, *secrets)``; for a DTensor microbatch, on this rank's
+    own groups (``to_local()``: no DTensor reaches a kernel) with the
+    replicated secret stacks, the result placed as ``x``."""
+    if not is_dtensor(x):
+        return fn(x, gidx, *secrets)
+    from torch.distributed.tensor import DTensor
+
+    out = fn(x.to_local(), gidx.to_local(), *secrets)
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False)
+
+
 def _delivery_step(x: torch.Tensor, gidx: torch.Tensor, cores: torch.Tensor,
                    augs: torch.Tensor, kappa: int) -> torch.Tensor:
     """morph + Aug-Conv forward for one padded microbatch: two grouped
@@ -1319,10 +1371,12 @@ def _delivery_step(x: torch.Tensor, gidx: torch.Tensor, cores: torch.Tensor,
 
     x: (G, B, F_in); gidx: (G,); cores: (S, q, q); augs: (S, F_in, F_out).
     One path for every ``gidx``: both kernels read each group's secrets in
-    place from the stacked slot tensors.
+    place from the stacked slot tensors.  The group axis is the natural
+    data-parallel axis (``delivery_rules``): DTensor ``x`` and ``gidx`` run
+    on each rank's own groups.
     """
-    morphed = morph_rows_grouped(x, gidx, cores, kappa)
-    return aug_conv_forward_grouped(morphed, gidx, augs)
+    morphed = _on_local_groups(morph_rows_grouped, x, gidx, cores, kappa)
+    return _on_local_groups(aug_conv_forward_grouped, morphed, gidx, augs)
 
 
 def _lm_delivery_step(tokens: torch.Tensor, gidx: torch.Tensor,
@@ -1335,7 +1389,8 @@ def _lm_delivery_step(tokens: torch.Tensor, gidx: torch.Tensor,
     Returns (morphed, feats) with feats None without ``aug_embeds``.  Both
     are gathers through each group's slot of the stacks, for any ``gidx``.
     """
-    morphed = token_morph_grouped(tokens, gidx, perms)
+    morphed = _on_local_groups(token_morph_grouped, tokens, gidx, perms)
     if aug_embeds is None:
         return morphed, None
-    return morphed, aug_embed_grouped(morphed, gidx, aug_embeds)
+    return morphed, _on_local_groups(aug_embed_grouped, morphed, gidx,
+                                     aug_embeds)

@@ -10,7 +10,9 @@ latest checkpoint when a step fails.  The state's tensors are restored in
 place (``CheckpointManager.restore_into``), so the caller's parameters stay
 live; a failure before the first checkpoint puts back the state the run
 started from, where the reference keeps what it trained so far (see
-:meth:`ResilientLoop.run`).  Restore onto another mesh is not ported.
+:meth:`ResilientLoop.run`).  Restore onto another mesh
+(``CheckpointManager.restore(shardings=)``) is not ported yet: it is
+ROADMAP item 9d, on the meshes of :mod:`repro_torch.launch.mesh`.
 
 ``FailureInjector(at_steps={...})`` raises ``SimulatedFailure`` from inside
 the loop at chosen steps; ``FailureInjector(at_phases={"device"})`` raises

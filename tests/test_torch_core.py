@@ -266,6 +266,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.data.pipeline"} <= set(mods)
     assert {"repro_torch.launch.train", "repro_torch.optim.compress",
             "repro_torch.runtime.resilience"} <= set(mods)
+    assert {"repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.sharding.hints", "repro_torch.sharding.spmd",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

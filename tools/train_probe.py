@@ -13,6 +13,7 @@ power limit.
     python3 tools/train_probe.py kernels_k45 vlm_path vlm_train   # the vlm
     python3 tools/train_probe.py whisper_path whisper_train   # whisper_tiny
     python3 tools/train_probe.py kernels_k6 rwkv_train   # K6's gradient, rwkv6_3b
+    python3 tools/train_probe.py sharded_path   # a (1, 1) mesh, NCCL
 
 A quicker loop than the whole smoke run (about two minutes a call against
 six) for work on the train step or the training driver; the smoke run
@@ -24,6 +25,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -73,6 +75,24 @@ PHASES = {
         peak_limit_gb=cs.PEAK_LIMIT_GB, **cs.RWKV_TRAIN),
 }
 REPORT: dict = {}   # build.build_all()'s report: kernels_k6 prints ptxas's
+
+
+def sharded_path(dev, kernels):
+    """chip_smoke's sharded_path on main_path's registry and requests,
+    built here as main_path builds them."""
+    from repro_torch import core, runtime
+
+    rng = np.random.default_rng(cs.SEED)
+    geom = core.ConvGeometry(**cs.MAIN_GEOM)
+    reg, _ = cs.make_registry(core, geom, tenants=4, capacity=4, rng=rng)
+    requests = [runtime.DeliveryRequest(
+        f"tenant-{i % 4}",
+        rng.standard_normal((1, geom.alpha, geom.m, geom.m)).astype(np.float32))
+        for i in range(256)]
+    return cs.sharded_path(dev, core, runtime, kernels, (reg, requests, None))
+
+
+PHASES["sharded_path"] = sharded_path
 
 
 def main() -> None:
